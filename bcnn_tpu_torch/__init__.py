@@ -3,11 +3,13 @@ Hopper).
 
 It sits beside the JAX package `bcnn_tpu`, which stays the reference,
 and mirrors its module names. It imports torch and never JAX. So far it
-runs two paths of YOLOv3-tiny in fp32: detection serving (PREDICT) and
-the training step (TRAIN, SGD or Adam) with on-device augmentation,
-rotation included. Its hand-written CUDA kernels, the YOLO decode
-(`csrc/yolo_decode.cu`) and the shear row shift (`csrc/row_shift.cu`),
-are built with nvcc at first CUDA use into `_build/`.
+runs three paths in fp32: YOLOv3-tiny detection serving (PREDICT), the
+YOLOv3-tiny training step (TRAIN, SGD or Adam) with on-device
+augmentation, rotation included, and MobileNet-v1 classification
+serving (PREDICT). Its hand-written CUDA kernels, the YOLO decode
+(`csrc/yolo_decode.cu`), the shear row shift (`csrc/row_shift.cu`) and
+the fused depthwise conv (`csrc/depthwise.cu`), are built with nvcc at
+first CUDA use into `_build/`.
 """
 
 from .api import Session

@@ -1,5 +1,5 @@
-"""Stateful net handle, the detection-slice subset of
-`bcnn_tpu.api.Session`: compile, predict, detect and train on a batch.
+"""Stateful net handle, the ported subset of `bcnn_tpu.api.Session`:
+compile, predict, detect and train on a batch.
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -97,14 +97,20 @@ class Session:
 
     def predict_on_batch(
         self,
-        x,
-        outputs: Optional[Sequence[str]] = None,
+        x=None,
         label=None,
+        outputs: Optional[Sequence[str]] = None,
     ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
         """bcnn_predict_on_batch (bcnn_net.c:465-483): forward in the net's
         current mode (VALID when it is TRAIN); returns (outputs, loss). The
         default output is the last tensor produced; the loss of a net
-        without cost layers is 0."""
+        without cost layers is 0. The parameters come in the order of
+        `bcnn_tpu.api.Session.predict_on_batch`."""
+        if x is None:
+            raise NotImplementedError(
+                "predict_on_batch(): the data loaders are not ported to "
+                "bcnn_tpu_torch yet; pass the batch"
+            )
         mode = self.net.mode if self.net.mode != Mode.TRAIN else Mode.VALID
         if outputs is None:
             outputs = [self._default_output_name()]

@@ -3,8 +3,9 @@
 `bcnn_tpu` and the port draw their weights from different generators, so
 a parity check makes them once, with `bcnn_tpu`, and passes them over as
 numpy arrays keyed by `TensorSpec.key` (`np.asarray` of `Session.params`,
-`Session.state` and the leaves of `Session.opt_state`). Conv weights
-(and their optimizer buffers) are HWIO there and OIHW here.
+`Session.state` and the leaves of `Session.opt_state`). Conv and
+depthwise weights (and their optimizer buffers) are HWIO there and OIHW
+here; FC weights are (in, out) in both.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from .types import LayerType
 
 
 def _conv_weight_keys(net: Net) -> set:
+    """Weights that are HWIO in bcnn_tpu: conv (k,k,I,O) and depthwise
+    (k,k,1,C); the same transpose makes both OIHW."""
     return {
         net.tensors[n.src[1]].key
         for n in net.nodes
-        if n.type == LayerType.CONV2D
+        if n.type in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D)
     }
 
 
@@ -86,3 +89,55 @@ def opt_state_from_numpy(
     for name in ("velocity", "adam_m", "adam_v"):
         out[name] = tensors_from_numpy(net, opt_np[name], device)
     return out
+
+
+def he_numpy_weights(
+    net: Net, seed: int = 0
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(params, state) of `net` as numpy arrays in bcnn_tpu's layout,
+    drawn in tensor order from `np.random.RandomState(seed)`, for parity
+    runs that hand the same weights to both packages. Each conv,
+    depthwise and FC weight is normal with std sqrt(2 / fan_in) (fan_in:
+    the HWIO dims other than O, or the FC's `in`), so a deep ReLU net
+    keeps its activations at O(1); the nets' own XAVIER fillers let
+    MobileNet-v1's fade to nothing over its 27 ReLU layers. Biases and BN
+    shifts are U(-0.1, 0.1), BN scales U(0.8, 1.2), run_mean
+    U(-0.1, 0.1), run_var U(0.5, 1.5). Tensors are told apart by their
+    node's type and src slot, never by name."""
+    role = {}
+    for node in net.nodes:
+        if node.type in (
+            LayerType.CONV2D,
+            LayerType.DEPTHWISE_CONV2D,
+            LayerType.FULL_CONNECTED,
+        ):
+            role[node.src[1]] = "w"
+            role[node.src[2]] = "b"
+            if node.type == LayerType.CONV2D and node.param["batch_norm"]:
+                for slot, r in ((3, "mean"), (4, "var"), (5, "scales")):
+                    role[node.src[slot]] = r
+    conv_w = _conv_weight_keys(net)
+    bounds = {"b": (-0.1, 0.1), "mean": (-0.1, 0.1), "var": (0.5, 1.5),
+              "scales": (0.8, 1.2)}
+    rng = np.random.RandomState(seed)
+    params, state = {}, {}
+    for i, t in enumerate(net.tensors):
+        if t.key is None:
+            continue
+        r = role.get(i)
+        if r is None:
+            raise ValueError(f"he_numpy_weights: no rule for {t.key}")
+        shape = t.mem_shape
+        if r == "w":
+            if t.key in conv_w:
+                o, ci, kh, kw = shape
+                shape, fan_in = (kh, kw, ci, o), kh * kw * ci  # HWIO
+            else:
+                fan_in = shape[0]
+            a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
+        else:
+            a = rng.uniform(*bounds[r], shape)
+        (state if r in ("mean", "var") else params)[t.key] = a.astype(
+            np.float32
+        )
+    return params, state

@@ -1,6 +1,6 @@
-"""Graph executor: runs the declarative Net on torch tensors, the
-detection-slice subset of `bcnn_tpu.compile`: PREDICT/VALID forwards, the
-detection program and the TRAIN step.
+"""Graph executor: runs the declarative Net on torch tensors, the ported
+subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny and
+MobileNet-v1 layers), the detection program and the TRAIN step.
 
 PyTorch runs eagerly, so the executor is a loop over the nodes that
 calls one op per node; nothing is traced, and autograd records the TRAIN
@@ -227,11 +227,44 @@ class _Executor:
             node, y, node.src[2], extra
         )
 
+    def _depthwise_conv2d(self, node: Node):
+        """The grouped conv, + bias, then the activation, as one K3 launch
+        on the card (the layer parses batch_norm but wires no BN)."""
+        p = node.param
+        self.values[node.dst[0]] = ops.depthwise_fused(
+            self.values[node.src[0]],
+            self.p(node.src[1]),
+            self.p(node.src[2]),
+            p["stride"],
+            p["pad"],
+            p["activation"],
+        )
+
+    def _full_connected(self, node: Node):
+        y = ops.full_connected(
+            self.values[node.src[0]],
+            self.p(node.src[1]),
+            self.p(node.src[2]),
+        )
+        self.values[node.dst[0]] = ops.apply_activation(
+            y, node.param["activation"]
+        )
+
     def _maxpool(self, node: Node):
         p = node.param
         d = self.net.tensors[node.dst[0]]
         self.values[node.dst[0]] = ops.maxpool(
             self.values[node.src[0]], p["size"], p["stride"], d.h, d.w
+        )
+
+    def _avgpool(self, node: Node):
+        self.values[node.dst[0]] = ops.global_avgpool(
+            self.values[node.src[0]]
+        )
+
+    def _softmax(self, node: Node):
+        self.values[node.dst[0]] = ops.softmax_passthrough_grad(
+            self.values[node.src[0]]
         )
 
     def _concat(self, node: Node):

@@ -1,5 +1,6 @@
 """Declarative graph IR: the tensor table, the learner config and the
-layer builders of the detection slice, ported from `bcnn_tpu.graph`.
+`add_*_layer` methods of the ported slices (YOLOv3-tiny, MobileNet-v1), ported
+from `bcnn_tpu.graph`.
 
 The port carries its own copy because every module of `bcnn_tpu` imports
 JAX when it is loaded, and the port never does. Names, pytree keys, node
@@ -8,8 +9,9 @@ run_var, scales, PReLU slopes) and the shape formulas are those of
 `bcnn_tpu.graph`; `tests/test_torch_graph.py` holds the two to each other.
 
 Layout: `TensorSpec.shape` is the reference's NCHW. `mem_shape` is the
-port's in-memory layout: conv weights are OIHW `(n, c/groups, k, k)`,
-where `bcnn_tpu` keeps HWIO.
+port's in-memory layout: conv weights are OIHW `(n, c/groups, k, k)` and
+depthwise weights `(c, 1, k, k)`, where `bcnn_tpu` keeps HWIO; FC
+weights are `(in, out)` in both, rows in NCHW flatten order.
 """
 
 from __future__ import annotations
@@ -69,6 +71,9 @@ class TensorSpec:
     def size(self) -> int:
         return self.n * self.c * self.h * self.w
 
+    def size3d(self) -> int:
+        return self.c * self.h * self.w
+
 
 @dataclass
 class Node:
@@ -105,7 +110,8 @@ class BuildError(ValueError):
 
 
 class Net:
-    """The graph builder: the builders the YOLOv3-tiny graph needs."""
+    """The graph: the `add_*_layer` methods the YOLOv3-tiny and
+    MobileNet-v1 graphs need."""
 
     def __init__(self, mode: Mode = Mode.PREDICT):
         self.mode = Mode(mode)
@@ -334,6 +340,96 @@ class Net:
             self._add_param(node, f"{src_id}_prelu_slopes", *vec, None)
         self.add_node(node)
 
+    def add_depthwise_conv_layer(
+        self,
+        size: int,
+        stride: int,
+        pad: int,
+        batch_norm: int,
+        init: FillerType,
+        activation: Activation,
+        src_id: str,
+        dst_id: str,
+    ):
+        """bcnn_add_depthwise_conv_layer (bcnn_depthwise_conv_layer.c:43-160).
+
+        One k*k filter per input channel, (c, 1, k, k) in memory; filler
+        range k*k*c; dst channels == src channels, spatial
+        (h + 2p - k)/s + 1. batch_norm is parsed, but no BN tensors are
+        wired, as in the reference.
+        """
+        node = Node(type=LayerType.DEPTHWISE_CONV2D)
+        self._resolve_src(node, src_id, "Depthwise conv layer")
+        s = self._src(node)
+        self._add_param(
+            node,
+            f"{src_id}_w",
+            (1, 1, 1, s.c * size * size),
+            (s.c, 1, size, size),  # OIHW with groups = c
+            Filler(type=init, range=size * size * s.c),
+            trainable=True,
+            weight_decay=True,
+            adam_capable=True,
+        )
+        self._add_param(
+            node, f"{src_id}_b", (1, 1, 1, s.c), (s.c,), None, trainable=True
+        )
+        oh = (s.h + 2 * pad - size) // stride + 1
+        ow = (s.w + 2 * pad - size) // stride + 1
+        self._add_dst(node, dst_id, s.n, s.c, oh, ow)
+        node.param = dict(
+            size=size,
+            stride=stride,
+            pad=pad,
+            batch_norm=int(batch_norm),
+            activation=Activation(activation),
+        )
+        self.add_node(node)
+
+    def add_fullc_layer(
+        self,
+        output_size: int,
+        init: FillerType,
+        activation: Activation,
+        quantize: int,
+        src_id: str,
+        dst_id: str,
+    ):
+        """bcnn_add_fullc_layer (bcnn_fc_layer.c:39-140).
+
+        Weights (in, out) in memory for x @ W, rows in the NCHW flatten
+        order of the source; filler range = input size; dst (n, out, 1, 1).
+        """
+        node = Node(type=LayerType.FULL_CONNECTED)
+        self._resolve_src(node, src_id, "Full-connected layer")
+        s = self._src(node)
+        input_size = s.size3d()
+        self._add_param(
+            node,
+            f"{src_id}_w",
+            (output_size, s.c, s.h, s.w),
+            (input_size, output_size),
+            Filler(type=init, range=input_size),
+            trainable=True,
+            weight_decay=True,
+            adam_capable=True,
+        )
+        self._add_param(
+            node,
+            f"{src_id}_b",
+            (1, 1, 1, output_size),
+            (output_size,),
+            None,
+            trainable=True,
+        )
+        self._add_dst(node, dst_id, s.n, output_size, 1, 1)
+        node.param = dict(
+            output_size=output_size,
+            activation=Activation(activation),
+            quantize=int(quantize),
+        )
+        self.add_node(node)
+
     def add_maxpool_layer(
         self, size: int, stride: int, padding: Padding, src_id: str, dst_id: str
     ):
@@ -350,6 +446,28 @@ class Net:
         ow = _pool_out(s.w, size, stride, padding)
         self._add_dst(node, dst_id, s.n, s.c, oh, ow)
         node.param = dict(size=size, stride=stride, padding=Padding(padding))
+        self.add_node(node)
+
+    def add_avgpool_layer(self, src_id: str, dst_id: str):
+        """bcnn_add_avgpool_layer: global average pool to 1x1xC
+        (bcnn_avgpool_layer.c:82-100)."""
+        node = Node(type=LayerType.AVGPOOL)
+        self._resolve_src(node, src_id, "Avgpool layer")
+        s = self._src(node)
+        self._add_dst(node, dst_id, s.n, s.c, 1, 1)
+        node.param = dict()
+        self.add_node(node)
+
+    def add_softmax_layer(self, src_id: str, dst_id: str):
+        """bcnn_add_softmax_layer: softmax over the channels at each
+        position, a vector softmax when h*w == 1
+        (bcnn_softmax_layer.c:88-160); its backward copies the gradient
+        (bcnn_softmax_layer.c:161-175)."""
+        node = Node(type=LayerType.SOFTMAX)
+        self._resolve_src(node, src_id, "Softmax layer")
+        s = self._src(node)
+        self._add_dst(node, dst_id, s.n, s.c, s.h, s.w)
+        node.param = dict()
         self.add_node(node)
 
     def add_concat_layer(self, src_ids: Sequence[str], dst_id: str):

@@ -110,6 +110,13 @@ def library() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.bcnn_row_shift.restype = ctypes.c_int
+    lib.bcnn_depthwise.argtypes = [
+        p, p, p, p,             # x, w, b, y
+        i, i, i, i,             # n, c, h, w
+        i, i, i, i,             # k, stride, pad, act
+        p,                      # stream
+    ]
+    lib.bcnn_depthwise.restype = ctypes.c_int
     lib.bcnn_cuda_error_string.argtypes = [i]
     lib.bcnn_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,13 +1,17 @@
-"""Ops of the detection slice on NCHW torch tensors.
+"""Ops of the ported slices on NCHW torch tensors.
 
 Plain PyTorch wherever the JAX package leaves the op to XLA (conv, BN,
-pooling, concat, upsample, the detection tail and training deltas); a
-hand-written CUDA kernel where it wrote a Pallas kernel
-(`yolo_decode.decode_fused`, K1; `row_shift.row_shift`, K2).
+pooling, FC, softmax, concat, upsample, the detection tail and training
+deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
+(`yolo_decode.decode_fused`, K1; `row_shift.row_shift`, K2;
+`depthwise.depthwise_fused`, K3).
 """
 
 from .activations import apply_activation
-from .conv import conv2d
+from .conv import conv2d, depthwise_conv2d
+from .depthwise import depthwise_fused
+from .linear import full_connected
 from .misc import concat_channels, upsample_nn
 from .norm import batch_norm, batch_norm_train
-from .pool import maxpool
+from .pool import global_avgpool, maxpool
+from .softmax import softmax_passthrough_grad

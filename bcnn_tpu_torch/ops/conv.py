@@ -59,3 +59,12 @@ def conv2d(
         return _Conv2dFp32.apply(x, w, stride, pad, groups)
     with _no_tf32():
         return F.conv2d(x, w, None, stride, pad, 1, groups)
+
+
+def depthwise_conv2d(
+    x: torch.Tensor, w: torch.Tensor, stride: int, pad: int
+) -> torch.Tensor:
+    """Depthwise conv (bcnn_depthwise_conv_layer.c:165-294), one filter per
+    input channel: x (N,C,H,W), w (C,1,k,k), groups = C. The plain
+    version of K3 (`ops.depthwise.depthwise_fused`)."""
+    return conv2d(x, w, stride, pad, groups=x.shape[1])

@@ -1,5 +1,5 @@
 """Max pooling, as `bcnn_tpu.ops.pool.maxpool` computes it
-(bcnn_maxpool_layer.c:145-192).
+(bcnn_maxpool_layer.c:145-192), and global average pooling.
 
 The window for output (i, j) starts at (i*stride, j*stride), never at a
 negative offset, and positions past the bottom or right edge read
@@ -26,3 +26,9 @@ def maxpool(
     if pad_h or pad_w:
         x = F.pad(x, (0, pad_w, 0, pad_h), value=float("-inf"))
     return F.max_pool2d(x, size, stride)
+
+
+def global_avgpool(x: torch.Tensor) -> torch.Tensor:
+    """x: NCHW -> (N, C, 1, 1), the mean over H and W
+    (bcnn_avgpool_layer.c:82-100)."""
+    return x.mean(dim=(2, 3), keepdim=True)

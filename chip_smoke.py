@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from bcnn_tpu_torch/csrc and holds each
-against its plain PyTorch version on the card: K1 (YOLO decode) and K2
-(the shear row shift) at the shapes their paths give them. Then it
-drives both main paths of YOLOv3-tiny (416x416, 80 classes, full depth,
+against its plain PyTorch version on the card: K1 (YOLO decode), K2
+(the shear row shift) and K3 (depthwise conv + bias + activation) at the
+shapes their paths give them, and K3 on ragged shapes with each fused
+activation. Then it drives the main paths (full width and depth,
 random weights from a seed):
-  - serving: Session.detect_on_batch at batch 8 on both detection
-    branches, checked against the port's CPU run;
-  - training: Session.train_on_batch at batch 32, SGD (lr 0.001,
+  - YOLOv3-tiny serving (416x416, 80 classes): Session.detect_on_batch
+    at batch 8 on both detection branches, checked against the port's
+    CPU run;
+  - MobileNet-v1 classification serving (224x224, 1000 classes, fp32,
+    He-scaled weights from a numpy seed): Session.predict_on_batch at
+    batch 64, 13 K3 launches a forward, fc and softmax of two images
+    checked against the port's CPU run;
+  - YOLOv3-tiny training: Session.train_on_batch at batch 32, SGD (lr 0.001,
     momentum 0.9, decay 0.0005), on uint8 images augmented on the card
     with flip, contrast, brightness and rotation 10 (three K2 launches a
     step); one warm-up step, then 5 steps; then one batch-2 step on the
@@ -33,12 +39,13 @@ import time
 import numpy as np
 import torch
 
-from bcnn_tpu_torch import Session, kernels
+from bcnn_tpu_torch import Session, bridge, kernels
 from bcnn_tpu_torch.data.device_augment import _shear_bounds
-from bcnn_tpu_torch.models import yolov3_tiny
+from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
+from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
-from bcnn_tpu_torch.types import Mode
+from bcnn_tpu_torch.types import Activation, Mode
 
 SEED = 0
 BATCH, SIZE, CLASSES = 8, 416, 80
@@ -66,6 +73,30 @@ ANCHORS = [10, 14, 23, 27, 37, 58, 81, 82, 135, 169, 344, 319]
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # GPU heads against the CPU port: the repo's fp32 detection tolerance
 HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-4
+# MobileNet-v1 serving: batch 64 at 224 px (examples/inference_benchmark
+# .py's default batch), one warm-up, then 3 requests, then 20 more timed
+MB_BATCH, MB_SIZE, MB_CLASSES = 64, 224, 1000
+MB_REQUESTS, MB_STEADY = 3, 20
+MB_OUTPUTS = ["fc", "softmax"]
+# K3 against its plain version: tests/test_dw_pallas.py's atol 1e-4 for
+# the TPU kernel, taken relative to the largest output
+K3_RTOL = 1e-4
+# the nine distinct depthwise layers of MobileNet-v1 at batch 64, 224 px:
+# (n, c, h, w, stride), k 3, pad 1, RELU
+K3_MOBILENET = [
+    (64, 32, 112, 112, 1), (64, 64, 112, 112, 2), (64, 128, 56, 56, 1),
+    (64, 128, 56, 56, 2), (64, 256, 28, 28, 1), (64, 256, 28, 28, 2),
+    (64, 512, 14, 14, 1), (64, 512, 14, 14, 2), (64, 1024, 7, 7, 1),
+]
+# ragged shapes, each fused activation: (n, c, h, w, k, stride, pad, act)
+K3_RAGGED = [
+    (3, 5, 15, 13, 3, 1, 1, Activation.NONE),
+    (2, 6, 15, 13, 5, 3, 0, Activation.LRELU),
+    (2, 7, 15, 13, 3, 2, 1, Activation.CLAMP),
+    (2, 4, 9, 11, 7, 1, 3, Activation.CLAMP),
+    (1, 3, 40, 300, 3, 2, 1, Activation.RELU),
+    (70, 16, 7, 7, 3, 1, 1, Activation.LRELU),
+]
 
 
 def gpu_line() -> str:
@@ -187,13 +218,14 @@ def bn_stats(net, seed=SEED):
     return out
 
 
-def serve(sess, batches, topk_first):
-    """Answer each batch as one request; returns (outputs, latencies ms)
-    with the host clock around the request, upload and sync included."""
+def serve(request, batches):
+    """Answer each batch x as one request(x); returns (outputs on the
+    host, latencies ms) with the host clock around the request, upload
+    and sync included."""
     outs, lat = [], []
     for x in batches:
         t0 = time.perf_counter()
-        out = sess.detect_on_batch(x, topk_first=topk_first)
+        out = request(x)
         torch.cuda.synchronize()
         lat.append(1e3 * (time.perf_counter() - t0))
         outs.append(tuple(o.cpu() for o in out))
@@ -270,6 +302,137 @@ def check_k2():
               f"kernel names; {mb:.0f} MB read+written"
               + (f", {mb / kd:.2f} TB/s" if kd else ""))
     return rows
+
+
+def check_k3():
+    """K3 against depthwise_fused_ref on the card, timed in turns (plain,
+    kernel, kernel, plain): the nine MobileNet shapes, then the ragged
+    ones. Returns per-shape records, the MobileNet ones first."""
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [(n, c, h, w, 3, s, 1, Activation.RELU)
+             for n, c, h, w, s in K3_MOBILENET] + K3_RAGGED
+    rows = []
+    for n, c, h, w, k, stride, pad, act in cases:
+        x = torch.randn(n, c, h, w, generator=gen).cuda()
+        wt = (torch.randn(c, 1, k, k, generator=gen)
+              * (2.0 / (k * k)) ** 0.5).cuda()
+        b = (0.2 * torch.rand(c, generator=gen) - 0.1).cuda()
+        args = (x, wt, b, stride, pad, act)
+        before = depthwise_fused.launches
+        got = depthwise_fused(*args)
+        want = depthwise_fused_ref(*args)
+        torch.cuda.synchronize()
+        if depthwise_fused.launches != before + 1:
+            raise RuntimeError("depthwise_fused did not count its launch")
+        if got.shape != want.shape:
+            raise RuntimeError(f"K3 shape {got.shape} != {want.shape}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= K3_RTOL * scale:
+            raise RuntimeError(f"K3 {tuple(x.shape)} k{k} s{stride} p{pad} "
+                               f"{act.name}: max_abs_err {err} > "
+                               f"{K3_RTOL} x {scale}")
+        iters = 50 if n == 64 else 20
+        t = [
+            cuda_ms(lambda: depthwise_fused_ref(*args), iters=iters),
+            cuda_ms(lambda: depthwise_fused(*args), iters=iters),
+            cuda_ms(lambda: depthwise_fused(*args), iters=iters),
+            cuda_ms(lambda: depthwise_fused_ref(*args), iters=iters),
+        ]
+        rows.append(dict(shape=tuple(x.shape), max_abs_err=err,
+                         ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2))
+        k_dev = device_us(lambda: depthwise_fused(*args), iters=10)
+        p_dev = device_us(lambda: depthwise_fused_ref(*args), iters=10)
+        kd = sum(k_dev.values()) / 10
+        mb = 4 * (x.numel() + got.numel()) / 1e6
+        print(f"K3 {tuple(x.shape)} k{k} s{stride} p{pad} {act.name} -> "
+              f"{tuple(got.shape)}: max_abs_err {err:.3g} (largest output "
+              f"{scale:.3g}); CUDA-event time per call: kernel "
+              f"{rows[-1]['ms']:.4f} ms, plain {rows[-1]['plain_ms']:.4f} "
+              f"ms; device time per call (profiler): kernel "
+              f"{fmt_device(sum(k_dev.values()), 10)}, plain "
+              f"{fmt_device(sum(p_dev.values()), 10)} in {len(p_dev)} "
+              f"kernel names; {mb:.1f} MB read+written"
+              + (f", {mb / kd:.2f} TB/s" if kd else ""))
+    return rows
+
+
+def mobilenet_phase(gpu):
+    """MobileNet-v1 PREDICT at batch 64, 224 px, 1000 classes, fp32, with
+    He-scaled weights from a numpy seed: a warm-up, MB_REQUESTS
+    requests and MB_STEADY more, with the launch counts set to 0 before
+    them; fc and softmax of the first two images against the port's CPU
+    run. Returns K3's launches on the path."""
+    net = mobilenet_v1(MB_BATCH, MB_CLASSES)
+    p_np, s_np = bridge.he_numpy_weights(net, SEED)
+    sess = Session(net, SEED, device="cuda")
+    sess.params, sess.state = bridge.params_from_numpy(net, p_np, s_np,
+                                                       device="cuda")
+    sess.compile_net()
+    rng = np.random.RandomState(SEED + 4)
+    batches = [rng.rand(MB_BATCH, 3, MB_SIZE, MB_SIZE).astype(np.float32)
+               for _ in range(MB_REQUESTS + 1)]  # the first one warms up
+    torch.cuda.reset_peak_memory_stats()
+
+    depthwise_fused.launches = 0
+    decode_fused.launches = 0
+    row_shift.launches = 0
+    def classify(x):
+        return sess.predict_on_batch(x, outputs=MB_OUTPUTS)[0]
+
+    outs, lat = serve(classify, batches)
+    _, steady = serve(classify, [batches[1]] * MB_STEADY)
+    k3_launches = depthwise_fused.launches
+    forwards = len(batches) + MB_STEADY
+    if k3_launches != 13 * forwards:
+        raise RuntimeError(
+            f"K3 launched {k3_launches} times in {forwards} forwards"
+        )
+    if decode_fused.launches or row_shift.launches:
+        raise RuntimeError("the MobileNet path launched K1 or K2")
+
+    for out in outs:
+        for t in out:
+            if tuple(t.shape) != (MB_BATCH, MB_CLASSES, 1, 1) or not bool(
+                    torch.isfinite(t).all()):
+                raise RuntimeError(f"bad MobileNet output {tuple(t.shape)}")
+    cpu = Session(net, SEED, device="cpu")
+    cpu.params, cpu.state = bridge.params_from_numpy(net, p_np, s_np)
+    cpu.compile_net()
+    want, _ = cpu.predict_on_batch(batches[1][:2], outputs=MB_OUTPUTS)
+    for name, g, c in zip(MB_OUTPUTS, outs[1], want):
+        g = g[:2]
+        torch.testing.assert_close(g, c, rtol=HEAD_RTOL, atol=HEAD_ATOL)
+        print(f"{name} {tuple(g.shape)} GPU vs CPU max_abs_err "
+              f"{float((g - c).abs().max()):.3g}, std {float(c.std()):.3g}")
+    fc_g, fc_c = outs[1][0][:2].flatten(1), want[0].flatten(1)
+    if float(fc_c.std()) <= 0.05:
+        raise RuntimeError("degenerate fc logits")
+    if not torch.equal(fc_g.argmax(1), fc_c.argmax(1)):
+        raise RuntimeError("top-1 differs between card and CPU")
+    top2 = fc_c.topk(2, dim=1).values
+    print(f"top-1 {fc_c.argmax(1).tolist()} on both, margin to the second "
+          f"{(top2[:, 0] - top2[:, 1]).tolist()}")
+
+    med = statistics.median(steady)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    x = batches[1]
+    dev = device_us(lambda: classify(x), iters=3)
+    busy = sum(dev.values()) / 3 / 1e3
+    k3_dev = sum(v for k, v in dev.items() if "depthwise_kernel" in k) / 3e3
+    print(f"predict_on_batch MobileNet-v1, batch {MB_BATCH}, {MB_SIZE} px, "
+          f"{MB_CLASSES} classes, fp32 (TF32 off) on {gpu}: requests "
+          + ", ".join(f"{v:.2f}" for v in lat)
+          + f" ms (the first warms up); {MB_STEADY} more: median "
+          f"{med:.2f} ms, min {min(steady):.2f} ms = "
+          f"{MB_BATCH / med * 1e3:.1f} images/s; device busy "
+          + (f"{busy:.2f} ms per request ({100 * busy / med:.0f}% of the "
+             f"median), K3 {k3_dev:.3f} ms of it" if busy
+             else "not measured")
+          + f"; peak memory {peak:.2f} GiB")
+    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / 3 / 1e3:8.3f} ms  {k[:90]}")
+    return k3_launches
 
 
 def det_labels(rng, n):
@@ -486,6 +649,9 @@ def main() -> int:
     # -- phase 3b: K2 against its plain version on the card ---------------
     k2 = check_k2()
 
+    # -- phase 3c: K3 against its plain version on the card ---------------
+    k3 = check_k3()
+
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
     sess = Session(net, SEED, device="cuda")
@@ -496,9 +662,11 @@ def main() -> int:
                for _ in range(REQUESTS + 1)]  # the first one warms up
 
     decode_fused.launches = 0
-    full, lat_full = serve(sess, batches, topk_first=False)
+    full, lat_full = serve(
+        lambda x: sess.detect_on_batch(x, topk_first=False), batches)
     k1_launches = decode_fused.launches
-    topk, lat_topk = serve(sess, batches, topk_first=True)
+    topk, lat_topk = serve(
+        lambda x: sess.detect_on_batch(x, topk_first=True), batches)
     if decode_fused.launches != k1_launches:
         raise RuntimeError("the top-k-first branch launched K1")
     if k1_launches != 2 * len(batches):
@@ -515,12 +683,12 @@ def main() -> int:
         same_detections(a, b)
 
     heads = ["lid17", "lid24"]
-    gpu_heads, _ = sess.predict_on_batch(batches[1], heads)
+    gpu_heads, _ = sess.predict_on_batch(batches[1], outputs=heads)
     cpu = Session(net, SEED, device="cpu")
     cpu.params = {k: v.cpu() for k, v in sess.params.items()}
     cpu.state = {k: v.cpu() for k, v in sess.state.items()}
     cpu.compile_net()
-    cpu_heads, _ = cpu.predict_on_batch(batches[1][:2], heads)
+    cpu_heads, _ = cpu.predict_on_batch(batches[1][:2], outputs=heads)
     for g, c in zip(gpu_heads, cpu_heads):
         g = g[:2].cpu()
         if not torch.isfinite(g).all():
@@ -535,7 +703,9 @@ def main() -> int:
         ("decode-everything (K1)", False, lat_full),
         ("top-k-first", True, lat_topk),
     ):
-        _, steady = serve(sess, [x] * 20, topk_first)
+        _, steady = serve(
+            lambda x: sess.detect_on_batch(x, topk_first=topk_first),
+            [x] * 20)
         med = statistics.median(steady)
         dev = device_us(
             lambda: sess.detect_on_batch(x, topk_first=topk_first), iters=5
@@ -551,12 +721,16 @@ def main() -> int:
         for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
             print(f"    {us / 5 / 1e3:8.3f} ms  {k[:90]}")
 
+    # -- phase 6b: serve MobileNet-v1 at 224, batch 64 --------------------
+    k3_launches = mobilenet_phase(gpu)
+
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
     k2_launches = train_phase(gpu)
     cross_device_step()
 
     served = k1[:2]  # the two head shapes the served path gives K1
     trained = k2[:3]  # the three shears of one training step
+    mobilenet_dw = k3[:len(K3_MOBILENET)]  # the nine MobileNet layers
     print(json.dumps({"kernels": [{
         "name": "yolo_decode",
         "route": "cuda",
@@ -575,6 +749,15 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": sum(r["ms"] for r in trained),
         "plain_ms": sum(r["plain_ms"] for r in trained),
+    }, {
+        "name": "depthwise",
+        "route": "cuda",
+        "source": "bcnn_tpu_torch/csrc/depthwise.cu",
+        "replaces": "bcnn_tpu/ops/dw_pallas.py:166",
+        "launches": k3_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k3),
+        "ms": sum(r["ms"] for r in mobilenet_dw),
+        "plain_ms": sum(r["plain_ms"] for r in mobilenet_dw),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from bcnn_tpu_torch import Session, ops
-from bcnn_tpu_torch.models import yolov3_tiny
+from bcnn_tpu_torch import Session, bridge, ops
+from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
+from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
-from bcnn_tpu_torch.types import Mode
+from bcnn_tpu_torch.types import Activation, Mode
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +142,80 @@ def test_conv_gradients_on_the_card_are_fp32(cuda, stride):
     for ref, got in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=1e-4,
                                    atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "n,c,h,w,k,stride,pad,act",
+    [(2, 32, 16, 16, 3, 1, 1, Activation.RELU),
+     (3, 64, 15, 13, 3, 2, 1, Activation.LRELU),
+     (2, 7, 15, 13, 5, 3, 0, Activation.CLAMP),
+     (1, 5, 9, 11, 7, 1, 3, Activation.NONE),
+     (70, 16, 7, 7, 3, 1, 1, Activation.RELU),   # planes grouped per block
+     (1, 3, 40, 300, 3, 2, 1, Activation.TANH)],  # column tiles; unfused act
+)
+def test_k3_matches_plain_version(cuda, n, c, h, w, k, stride, pad, act):
+    gen = torch.Generator().manual_seed(c * h + k)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda)
+    wt = (torch.randn(c, 1, k, k, generator=gen) * (2 / k**2) ** 0.5).to(cuda)
+    b = (torch.rand(c, generator=gen) - 0.5).to(cuda)
+    want = depthwise_fused_ref(x, wt, b, stride, pad, act)
+    got = depthwise_fused(x, wt, b, stride, pad, act)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_k3_counts_its_launches(cuda):
+    x = torch.randn(2, 8, 10, 10, device=cuda)
+    wt = torch.randn(8, 1, 3, 3, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    before = depthwise_fused.launches
+    depthwise_fused(x, wt, b, 1, 1, Activation.RELU)
+    depthwise_fused(x, wt, b, 2, 1, Activation.SOFTPLUS)  # K3, then softplus
+    assert depthwise_fused.launches == before + 2
+    depthwise_fused_ref(x, wt, b, 1, 1, Activation.RELU)
+    assert depthwise_fused.launches == before + 2
+    net = mobilenet_v1(2, 10, width_mult=0.25)
+    sess = Session(net, 0, device=cuda)
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0), device=cuda)
+    sess.compile_net()
+    xs = np.random.RandomState(0).rand(2, 3, 224, 224).astype(np.float32)
+    before = depthwise_fused.launches
+    (y,), _ = sess.predict_on_batch(xs)
+    torch.cuda.synchronize()
+    assert depthwise_fused.launches == before + 13
+    assert y.shape == (2, 10, 1, 1) and bool(torch.isfinite(y).all())
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(2, 4, 6, 6, device=cuda)
+    wt = torch.randn(4, 1, 3, 3, device=cuda)
+    b = torch.zeros(4, device=cuda)
+    with pytest.raises(TypeError):
+        depthwise_fused(x.double(), wt.double(), b.double(), 1, 1)
+    with pytest.raises(TypeError):
+        depthwise_fused(x.half(), wt, b, 1, 1)
+    with pytest.raises(ValueError):
+        depthwise_fused(x.transpose(2, 3), wt, b, 1, 1)
+    with pytest.raises(ValueError):
+        depthwise_fused(x, wt.cpu(), b, 1, 1)
+    with pytest.raises(ValueError):
+        depthwise_fused(x, wt[:3], b, 1, 1)
+    with pytest.raises(NotImplementedError):
+        depthwise_fused(x, wt.requires_grad_(), b, 1, 1)
+
+
+def test_fc_on_the_card_is_fp32(cuda):
+    """The FC against a float64 product at rtol 1e-5: TF32 (about 1e-3
+    relative) fails it."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(64, 1024, 1, 1, generator=gen)
+    w = torch.randn(1024, 1000, generator=gen) * 0.05
+    b = torch.randn(1000, generator=gen)
+    ref = (x.double().reshape(64, -1) @ w.double() + b.double()).float()
+    got = ops.full_connected(x.to(cuda), w.to(cuda), b.to(cuda)).cpu()
+    torch.testing.assert_close(got.reshape(64, -1), ref, rtol=1e-5,
+                               atol=1e-5)

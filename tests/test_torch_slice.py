@@ -7,6 +7,7 @@ in [-0.1, 0.1]) in both packages: the zero stats init_params gives would
 multiply every BN layer by rsqrt(1e-6) = 1000. Heads match at rtol 1e-4,
 atol 1e-4, the repo's fp32 detection tolerance (docs/STATUS.md)."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -67,7 +68,7 @@ def pair():
 def test_heads_match_bcnn_tpu(pair):
     js, ts, x = pair
     ref, _ = js.predict_on_batch(x, outputs=HEADS)
-    out, loss = ts.predict_on_batch(x, HEADS)
+    out, loss = ts.predict_on_batch(x, outputs=HEADS)
     assert float(loss) == 0.0
     for o, r in zip(out, ref):
         o = o.numpy()
@@ -99,6 +100,47 @@ def test_detect_on_batch_matches_bcnn_tpu(pair, topk_first, use_pallas):
         np.testing.assert_allclose(
             o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL
         )
+
+
+def test_predict_on_batch_signature_matches_bcnn_tpu():
+    ref = inspect.signature(JaxSession.predict_on_batch).parameters
+    port = inspect.signature(Session.predict_on_batch).parameters
+    assert list(port) == list(ref) == ["self", "x", "label", "outputs"]
+    assert [p.default for p in port.values()] == [
+        p.default for p in ref.values()
+    ]
+    sess = Session(yolov3_tiny(1, 64, 64, 4), 0, device="cpu").compile_net()
+    with pytest.raises(NotImplementedError, match="loader"):
+        sess.predict_on_batch()
+
+
+def test_positional_label_matches_bcnn_tpu():
+    """predict_on_batch(x, label) positionally, in VALID, where the YOLO
+    layers see the label, gives the same outputs and loss in both
+    packages."""
+    jnet = jax_tiny(BATCH, 64, 64, CLASSES, mode=JaxMode.VALID)
+    js = JaxSession(jnet, 0).compile_net()
+    js.state = {
+        k: jnp.asarray(v) for k, v in bn_stats(jnet.state_specs()).items()
+    }
+    net = yolov3_tiny(BATCH, 64, 64, CLASSES, mode=Mode.VALID)
+    ts = Session(net, 0, device="cpu")
+    ts.params, ts.state = bridge.params_from_numpy(
+        net,
+        {k: np.asarray(v) for k, v in js.params.items()},
+        {k: np.asarray(v) for k, v in js.state.items()},
+    )
+    ts.compile_net()
+    rng = np.random.RandomState(5)
+    x = rng.rand(BATCH, 3, 64, 64).astype(np.float32)
+    lab = np.zeros((BATCH, 250), np.float32)
+    lab[:, :5] = [0.5, 0.4, 0.3, 0.2, 1]
+    (r,), r_loss = js.predict_on_batch(x, lab)
+    (o,), loss = ts.predict_on_batch(x, lab)
+    assert float(loss) == float(r_loss)
+    assert o.shape == np.asarray(r).shape == (BATCH, 27, 4, 4)
+    np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_no_jax_in_the_port():
@@ -161,9 +203,9 @@ def test_cpu_session_never_launches_the_kernel(pair):
 
 def test_unported_layer_raises_naming_it():
     net = yolov3_tiny(1, 64, 64, 4)
-    net.add_node(Node(type=LayerType.SOFTMAX, src=[2], dst=[2]))
+    net.add_node(Node(type=LayerType.LRN, src=[2], dst=[2]))
     sess = Session(net, 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match="SOFTMAX"):
+    with pytest.raises(NotImplementedError, match="LRN"):
         sess.predict_on_batch(np.zeros((1, 3, 64, 64), np.float32))
     with pytest.raises(NotImplementedError):
         execute(net, sess.params, sess.state,

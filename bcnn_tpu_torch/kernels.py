@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
         p, p, p, p,             # x, w, b, y
         i, i, i, i,             # n, c, h, w
         i, i, i, i,             # k, stride, pad, act
+        i, i, i, i, i,          # plan: g, th, tiles_h, tiles, rows
+        i, i, i, i,             # plan: strips, stages, stage_floats, grid
         p,                      # stream
     ]
     lib.bcnn_depthwise.restype = ctypes.c_int

@@ -15,9 +15,17 @@ It takes fp32 only. An activation the kernel does not fuse (TANH,
 SOFTPLUS, ...) runs the kernel with NONE and then `apply_activation`.
 The kernel has no backward yet, so it refuses tensors that autograd
 records. `depthwise_fused.launches` counts the kernel's launches.
+
+`plan_tiles` chooses the kernel's tiles here, where the CPU tests reach
+it: g whole planes, or a band of output rows of one plane, a tile; the
+ring depth, the stage size and the persistent grid. The kernel checks
+the plan and refuses one that does not cover every output once.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +41,103 @@ _FUSED = {
     Activation.LRELU: 2,
     Activation.CLAMP: 3,
 }
+
+
+# The ring, the stage budget and the two costs were set by timing every
+# candidate plan at MobileNet-v1's shapes on an H100 (PERF.md): a ring
+# of 2 stages of up to 26 KB came out ahead of deeper rings of smaller
+# stages, and the model then picks a plan within 5% of the fastest.
+THREADS = 256         # threads a block (csrc/depthwise.cu kThreads)
+ROWS = 7              # outputs a thread at k 3, stride 1 or 2 (kRows)
+BLOCKS_PER_SM = 3     # resident blocks an SM (kBlocksPerSm)
+STAGES = 2            # staged tiles in a block's ring
+STAGE_FLOATS = 6656   # floats a staged tile may take (26 KB)
+SMEM_SM = 233472      # shared memory of an SM, bytes (228 KB)
+SMEM_BLOCK = 232448   # shared memory a block may take, bytes (227 KB)
+TILE_COST = 1024      # a tile's fixed cost, in floats moved
+PASS_COST = 1536      # a block's pass over its threads' outputs, in floats
+
+
+class TilePlan(NamedTuple):
+    """The tiles of one K3 launch (see csrc/depthwise.cu)."""
+
+    g: int             # planes a tile (1 for a band)
+    th: int            # output rows a tile
+    tiles_h: int       # bands a plane (1: whole planes)
+    tiles: int         # tiles in all
+    rows: int          # outputs a thread computes, down a column
+    strips: int        # strips of `rows` outputs a band
+    stages: int        # staged tiles in a block's ring
+    stage_floats: int  # floats of one staged tile, with 16-byte slack
+    grid: int          # persistent blocks
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.stages * self.stage_floats
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tiles(n: int, c: int, h: int, w: int, k: int, stride: int,
+               pad: int, sms: int = 132) -> TilePlan:
+    """The tile plan for x (n, c, h, w), a k x k window, `stride`, `pad`,
+    on a card of `sms` SMs.
+
+    A tile's input is one contiguous range of x: g whole planes when a
+    plane fits a stage, else the input rows of a band of output rows of
+    one plane, with their halo. Among the tiles that fit STAGE_FLOATS,
+    it takes the one with the least (rounds of the grid) x (a tile's
+    time), a tile's time being the larger of its copies (floats read
+    and written + TILE_COST) and its compute (PASS_COST for each pass of
+    the block's threads over its outputs), which the ring overlaps. Only
+    a plane too wide for any band of one strip at that size gets a
+    larger stage, as large as shared memory allows."""
+    oh = (h + 2 * pad - k) // stride + 1
+    ow = (w + 2 * pad - k) // stride + 1
+    planes = n * c
+    if oh < 1 or ow < 1 or planes < 1:
+        raise ValueError(f"plan_tiles: no output for {(n, c, h, w)} k{k} "
+                         f"s{stride} p{pad}")
+    rows = ROWS if k == 3 and stride in (1, 2) else 1
+
+    def floats(length):  # a stage for `length` floats from any 4-byte start
+        return _cdiv(length + 3, 4) * 4
+
+    for budget in (STAGE_FLOATS, SMEM_BLOCK // (4 * STAGES) // 4 * 4):
+        cands = []  # (g, th, tiles_h, floats staged)
+        for g in range(1, min(planes, budget // max(1, h * w)) + 1):
+            if floats(g * h * w) <= budget:
+                cands.append((g, oh, 1, g * h * w))
+        ths = range(rows, oh, rows) if oh > rows else ()
+        for th in list(ths) or range(1, oh):
+            length = min(h, (th - 1) * stride + k) * w
+            if floats(length) <= budget:
+                cands.append((1, th, _cdiv(oh, th), length))
+        if cands:
+            break
+    else:
+        raise ValueError(f"plan_tiles: a {w}-wide plane with a {k} x {k} "
+                         "window does not fit shared memory")
+
+    def plan(g, th, tiles_h, length):
+        stage = floats(length)
+        fit = SMEM_SM // (4 * STAGES * stage + 1024)
+        tiles = _cdiv(planes, g) * tiles_h
+        grid = min(tiles, sms * max(1, min(BLOCKS_PER_SM, fit)))
+        return TilePlan(g, th, tiles_h, tiles, rows, _cdiv(th, rows),
+                        STAGES, stage, grid)
+
+    def cost(cand):
+        p = plan(*cand)
+        g, th, _, length = cand
+        passes = _cdiv(g * p.strips * ow, THREADS)
+        tile = max(length + g * th * ow + TILE_COST, PASS_COST * passes)
+        return _cdiv(p.tiles, p.grid) * tile, p.tiles
+
+    return plan(*min(cands, key=cost))
 
 
 def depthwise_fused_ref(
@@ -89,10 +194,11 @@ def depthwise_fused(
     y = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
     if y.numel():
         lib = kernels.library()
+        plan = plan_tiles(n, c, h, wd, k, stride, pad, _sms(x.device))
         with torch.cuda.device(x.device):
             rc = lib.bcnn_depthwise(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, c,
-                h, wd, k, stride, pad, _FUSED.get(act, 0),
+                h, wd, k, stride, pad, _FUSED.get(act, 0), *plan,
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         kernels.check(rc, "depthwise_fused")
@@ -101,3 +207,8 @@ def depthwise_fused(
 
 
 depthwise_fused.launches = 0
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

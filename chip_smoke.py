@@ -24,8 +24,12 @@ random weights from a seed):
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
-its launches on its path, its error against the plain version and both
-times. Needs CUDA; imports no JAX.
+its launches on its path, its error against the plain version, its time,
+the plain version's, its bound (the bytes it must move at the card's
+memory rate, or its operations at the fp32 rate, whichever is longer)
+and the time of one PyTorch call that computes the same function, where
+there is one (K3: the grouped conv, without the activation). Needs CUDA;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bcnn_tpu_torch import Session, bridge, kernels
 from bcnn_tpu_torch.data.device_augment import _shear_bounds
@@ -88,6 +93,8 @@ K3_MOBILENET = [
     (64, 128, 56, 56, 2), (64, 256, 28, 28, 1), (64, 256, 28, 28, 2),
     (64, 512, 14, 14, 1), (64, 512, 14, 14, 2), (64, 1024, 7, 7, 1),
 ]
+# launches of each of those shapes in one forward (dw7-11 share a shape)
+K3_PER_FORWARD = [1, 1, 1, 1, 1, 1, 5, 1, 1]
 # ragged shapes, each fused activation: (n, c, h, w, k, stride, pad, act)
 K3_RAGGED = [
     (3, 5, 15, 13, 3, 1, 1, Activation.NONE),
@@ -97,6 +104,21 @@ K3_RAGGED = [
     (1, 3, 40, 300, 3, 2, 1, Activation.RELU),
     (70, 16, 7, 7, 3, 1, 1, Activation.LRELU),
 ]
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# a write of this many floats between launches empties the 50 MB L2
+FLUSH_FLOATS = 64 * 2**20  # 256 MB
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move nbytes once and do flops fp32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def gpu_line() -> str:
@@ -109,9 +131,13 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters=200, warmup=10) -> float:
-    """Mean device time of fn() in ms, from CUDA events around iters calls."""
+    """Mean device time of fn() in ms, from CUDA events around iters calls
+    queued behind a sleep on the card, so that the host's launch time
+    does not show between the calls."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(iters * 200_000)  # cycles: ~100 us a call to queue
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -120,6 +146,25 @@ def cuda_ms(fn, iters=200, warmup=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, flush, reps=9) -> float:
+    """Median device time of one fn() in ms, each call timed by its own
+    events after a write of `flush` (larger than L2), so that it reads
+    its inputs from device memory; queued behind a sleep on the card, so
+    that the host's launch time does not show."""
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(200_000)  # cycles: ~100 us to queue the call
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def device_us(fn, iters=20):
@@ -172,8 +217,11 @@ def check_k1(shapes):
             cuda_ms(lambda: decode_fused(x, p, SIZE, SIZE)),
             cuda_ms(lambda: decode_grid_ref(x, p, SIZE, SIZE)),
         ]
+        nbytes = 4 * (x.numel() + sum(g.numel() for g in got))
         rows.append(dict(shape=tuple(x.shape), max_abs_err=err,
-                         ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2))
+                         ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                         # a sigmoid or exp of each input: ~4 operations
+                         bound=bound(nbytes, 4 * x.numel())))
         k_dev = device_us(lambda: decode_fused(x, p, SIZE, SIZE))
         p_dev = device_us(lambda: decode_grid_ref(x, p, SIZE, SIZE))
         print(f"K1 {tuple(x.shape)}: max_abs_err {err:.3g}; CUDA-event "
@@ -181,7 +229,8 @@ def check_k1(shapes):
               f"{rows[-1]['plain_ms']:.4f} ms; device time per call "
               f"(profiler): kernel {fmt_device(sum(k_dev.values()), 20)}, "
               f"plain {fmt_device(sum(p_dev.values()), 20)} in "
-              f"{len(p_dev)} kernel names")
+              f"{len(p_dev)} kernel names; {nbytes / 1e6:.2f} MB "
+              f"read+written, bound {1e3 * rows[-1]['bound'][0]:.2f} us")
     return rows
 
 
@@ -286,12 +335,15 @@ def check_k2():
             cuda_ms(lambda: row_shift(img, d, *args), iters=30),
             cuda_ms(lambda: row_shift_ref(img, d, *args), iters=30),
         ]
+        nbytes = 4 * (img.numel() + d.numel() + got.numel())
         rows.append(dict(shape=tuple(img.shape), out=tuple(got.shape),
                          kmax=kmax, max_abs_err=err, ms=(t[1] + t[2]) / 2,
-                         plain_ms=(t[0] + t[3]) / 2))
+                         plain_ms=(t[0] + t[3]) / 2,
+                         # two taps an output: 2 multiplies, 1 add
+                         bound=bound(nbytes, 3 * got.numel())))
         k_dev = device_us(lambda: row_shift(img, d, *args), iters=10)
         p_dev = device_us(lambda: row_shift_ref(img, d, *args), iters=10)
-        mb = 4 * (img.numel() + got.numel()) / 1e6
+        mb = nbytes / 1e6
         kd = sum(k_dev.values()) / 10
         print(f"K2 {tuple(img.shape)} -> {tuple(got.shape)} kmax {kmax}: "
               f"max_abs_err {err:.3g}; CUDA-event time per call: kernel "
@@ -300,17 +352,23 @@ def check_k2():
               f"{fmt_device(sum(k_dev.values()), 10)}, plain "
               f"{fmt_device(sum(p_dev.values()), 10)} in {len(p_dev)} "
               f"kernel names; {mb:.0f} MB read+written"
-              + (f", {mb / kd:.2f} TB/s" if kd else ""))
+              + (f", {mb / kd:.2f} TB/s" if kd else "")
+              + f", bound {1e3 * rows[-1]['bound'][0]:.1f} us")
     return rows
 
 
 def check_k3():
-    """K3 against depthwise_fused_ref on the card, timed in turns (plain,
-    kernel, kernel, plain): the nine MobileNet shapes, then the ragged
-    ones. Returns per-shape records, the MobileNet ones first."""
+    """K3 against depthwise_fused_ref on the card: the nine MobileNet
+    shapes, then the ragged ones. Timed warm in turns (plain, kernel,
+    library, library, kernel, plain), the library being the grouped conv
+    F.conv2d(x, w, b, stride, pad, groups=C) without the activation;
+    then cold (each launch after a write larger than L2, timed by its own
+    events), kernel and library, from which the share of the bound is
+    taken. Returns per-shape records, the MobileNet ones first."""
     gen = torch.Generator().manual_seed(SEED)
     cases = [(n, c, h, w, 3, s, 1, Activation.RELU)
              for n, c, h, w, s in K3_MOBILENET] + K3_RAGGED
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     rows = []
     for n, c, h, w, k, stride, pad, act in cases:
         x = torch.randn(n, c, h, w, generator=gen).cuda()
@@ -333,27 +391,51 @@ def check_k3():
                                f"{act.name}: max_abs_err {err} > "
                                f"{K3_RTOL} x {scale}")
         iters = 50 if n == 64 else 20
-        t = [
-            cuda_ms(lambda: depthwise_fused_ref(*args), iters=iters),
-            cuda_ms(lambda: depthwise_fused(*args), iters=iters),
-            cuda_ms(lambda: depthwise_fused(*args), iters=iters),
-            cuda_ms(lambda: depthwise_fused_ref(*args), iters=iters),
-        ]
-        rows.append(dict(shape=tuple(x.shape), max_abs_err=err,
-                         ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2))
-        k_dev = device_us(lambda: depthwise_fused(*args), iters=10)
-        p_dev = device_us(lambda: depthwise_fused_ref(*args), iters=10)
+        kern = lambda: depthwise_fused(*args)  # noqa: E731
+        plain = lambda: depthwise_fused_ref(*args)  # noqa: E731
+        lib = lambda: F.conv2d(x, wt, b, stride, pad, 1, c)  # noqa: E731
+        t = [cuda_ms(f, iters=iters)
+             for f in (plain, kern, lib, lib, kern, plain)]
+        nbytes = 4 * (x.numel() + got.numel())
+        rows.append(dict(
+            shape=tuple(x.shape), max_abs_err=err,
+            bit_equal=bool(torch.equal(got, want)),
+            ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
+            library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
+            library_cold_ms=cold_ms(lib, flush),
+            bound=bound(nbytes, 2 * k * k * got.numel()), mb=nbytes / 1e6))
+        r = rows[-1]
+        k_dev = device_us(kern, iters=10)
+        p_dev = device_us(plain, iters=10)
         kd = sum(k_dev.values()) / 10
-        mb = 4 * (x.numel() + got.numel()) / 1e6
         print(f"K3 {tuple(x.shape)} k{k} s{stride} p{pad} {act.name} -> "
               f"{tuple(got.shape)}: max_abs_err {err:.3g} (largest output "
-              f"{scale:.3g}); CUDA-event time per call: kernel "
-              f"{rows[-1]['ms']:.4f} ms, plain {rows[-1]['plain_ms']:.4f} "
-              f"ms; device time per call (profiler): kernel "
+              f"{scale:.3g}, bit-equal {r['bit_equal']}); {r['mb']:.1f} MB "
+              f"read+written, bound {1e3 * r['bound'][0]:.1f} us "
+              f"({r['bound'][1]}); CUDA-event time per call, warm: kernel "
+              f"{1e3 * r['ms']:.1f} us, plain {1e3 * r['plain_ms']:.1f} us, "
+              f"library {1e3 * r['library_ms']:.1f} us; cold: kernel "
+              f"{1e3 * r['cold_ms']:.1f} us "
+              f"({r['bound'][0] / r['cold_ms']:.0%} of the bound), library "
+              f"{1e3 * r['library_cold_ms']:.1f} us; kernel <= library "
+              f"{r['ms'] <= r['library_ms']} (warm), "
+              f"{r['cold_ms'] <= r['library_cold_ms']} (cold); device time "
+              f"per call (profiler): kernel "
               f"{fmt_device(sum(k_dev.values()), 10)}, plain "
               f"{fmt_device(sum(p_dev.values()), 10)} in {len(p_dev)} "
-              f"kernel names; {mb:.1f} MB read+written"
-              + (f", {mb / kd:.2f} TB/s" if kd else ""))
+              f"kernel names"
+              + (f", {r['mb'] / kd:.2f} TB/s" if kd else ""))
+    del flush
+    fwd = {key: sum(m * (r[key][0] if key == "bound" else r[key])
+                    for m, r in zip(K3_PER_FORWARD, rows))
+           for key in ("ms", "cold_ms", "plain_ms", "library_ms",
+                       "library_cold_ms", "bound")}
+    print(f"K3 per MobileNet-v1 forward (13 launches, batch 64): warm "
+          f"{fwd['ms']:.4f} ms, cold {fwd['cold_ms']:.4f} ms, bound "
+          f"{fwd['bound']:.4f} ms ({fwd['bound'] / fwd['cold_ms']:.0%} of "
+          f"it cold); plain {fwd['plain_ms']:.4f} ms; library "
+          f"{fwd['library_ms']:.4f} ms warm, {fwd['library_cold_ms']:.4f} "
+          "ms cold")
     return rows
 
 
@@ -731,34 +813,36 @@ def main() -> int:
     served = k1[:2]  # the two head shapes the served path gives K1
     trained = k2[:3]  # the three shears of one training step
     mobilenet_dw = k3[:len(K3_MOBILENET)]  # the nine MobileNet layers
-    print(json.dumps({"kernels": [{
-        "name": "yolo_decode",
-        "route": "cuda",
-        "source": "bcnn_tpu_torch/csrc/yolo_decode.cu",
-        "replaces": "bcnn_tpu/ops/yolo_pallas.py:74",
-        "launches": k1_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1),
-        "ms": sum(r["ms"] for r in served),
-        "plain_ms": sum(r["plain_ms"] for r in served),
-    }, {
-        "name": "row_shift",
-        "route": "cuda",
-        "source": "bcnn_tpu_torch/csrc/row_shift.cu",
-        "replaces": "bcnn_tpu/ops/shear_pallas.py:132",
-        "launches": k2_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k2),
-        "ms": sum(r["ms"] for r in trained),
-        "plain_ms": sum(r["plain_ms"] for r in trained),
-    }, {
-        "name": "depthwise",
-        "route": "cuda",
-        "source": "bcnn_tpu_torch/csrc/depthwise.cu",
-        "replaces": "bcnn_tpu/ops/dw_pallas.py:166",
-        "launches": k3_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k3),
-        "ms": sum(r["ms"] for r in mobilenet_dw),
-        "plain_ms": sum(r["plain_ms"] for r in mobilenet_dw),
-    }]}))
+
+    def entry(name, source, replaces, launches, rows, checked, library):
+        """A kernel's JSON record: times and bound summed over `rows`,
+        the shapes of its path; max_abs_err over all `checked`."""
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound"][0] for r in rows),
+            "bound_by": ("bytes" if all(r["bound"][1] == "bytes"
+                                        for r in rows) else "operations"),
+            "library_ms": (sum(r["library_ms"] for r in rows) if library
+                           else None),
+        }
+
+    print(json.dumps({"kernels": [
+        # no single PyTorch call decodes a YOLO head or shifts rows by a
+        # fractional amount a row
+        entry("yolo_decode", "bcnn_tpu_torch/csrc/yolo_decode.cu",
+              "bcnn_tpu/ops/yolo_pallas.py:74", k1_launches, served, k1,
+              False),
+        entry("row_shift", "bcnn_tpu_torch/csrc/row_shift.cu",
+              "bcnn_tpu/ops/shear_pallas.py:132", k2_launches, trained, k2,
+              False),
+        entry("depthwise", "bcnn_tpu_torch/csrc/depthwise.cu",
+              "bcnn_tpu/ops/dw_pallas.py:166", k3_launches, mobilenet_dw, k3,
+              True),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from bcnn_tpu_torch import Session, bridge, ops
+from bcnn_tpu_torch.ops import depthwise as dw
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
@@ -151,7 +152,13 @@ def test_conv_gradients_on_the_card_are_fp32(cuda, stride):
      (2, 7, 15, 13, 5, 3, 0, Activation.CLAMP),
      (1, 5, 9, 11, 7, 1, 3, Activation.NONE),
      (70, 16, 7, 7, 3, 1, 1, Activation.RELU),   # planes grouped per block
-     (1, 3, 40, 300, 3, 2, 1, Activation.TANH)],  # column tiles; unfused act
+     (1, 3, 40, 300, 3, 2, 1, Activation.TANH),   # bands; unfused act
+     (3, 5, 15, 7, 3, 1, 1, Activation.LRELU),    # 7 wide, planes of 105
+     (64, 1024, 7, 7, 3, 1, 1, Activation.RELU),  # tiles > persistent blocks
+     (64, 32, 112, 112, 3, 1, 1, Activation.RELU),  # > 48 KB shared memory
+     (1, 2, 200, 40, 3, 1, 1, Activation.NONE),   # last band's halo at the end
+     (1, 1, 9, 5, 3, 1, 4, Activation.LRELU),     # bands of padding only
+     (1, 1, 5, 8000, 3, 1, 1, Activation.CLAMP)],  # ring of 2 wide stages
 )
 def test_k3_matches_plain_version(cuda, n, c, h, w, k, stride, pad, act):
     gen = torch.Generator().manual_seed(c * h + k)
@@ -164,6 +171,36 @@ def test_k3_matches_plain_version(cuda, n, c, h, w, k, stride, pad, act):
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def test_k3_takes_x_off_a_16_byte_boundary(cuda):
+    gen = torch.Generator().manual_seed(7)
+    for off in (1, 2, 3):
+        flat = torch.randn(off + 2 * 6 * 9 * 7, generator=gen).to(cuda)
+        x = flat[off:].view(2, 6, 9, 7)
+        assert x.data_ptr() % 16 == 4 * off
+        wt = torch.randn(6, 1, 3, 3, generator=gen).to(cuda)
+        b = torch.randn(6, generator=gen).to(cuda)
+        for stride in (1, 2):
+            want = depthwise_fused_ref(x, wt, b, stride, 1)
+            got = depthwise_fused(x, wt, b, stride, 1)
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+def test_k3_raises_on_a_plan_the_kernel_refuses(cuda, monkeypatch):
+    x = torch.randn(2, 8, 10, 10, device=cuda)
+    wt = torch.randn(8, 1, 3, 3, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    good = dw.plan_tiles(2, 8, 10, 10, 3, 1, 1)
+    for bad in (good._replace(stage_floats=good.stage_floats - 4),
+                good._replace(tiles=good.tiles + 1),
+                good._replace(stages=5), good._replace(rows=2)):
+        monkeypatch.setattr(dw, "plan_tiles", lambda *a, bad=bad: bad)
+        before = depthwise_fused.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            depthwise_fused(x, wt, b, 1, 1)
+        assert depthwise_fused.launches == before
 
 
 def test_k3_counts_its_launches(cuda):

@@ -7,7 +7,8 @@ runs three paths in fp32: YOLOv3-tiny detection serving (PREDICT), the
 YOLOv3-tiny training step (TRAIN, SGD or Adam) with on-device
 augmentation, rotation included, and MobileNet-v1 classification
 serving (PREDICT). Its hand-written CUDA kernels, the YOLO decode
-(`csrc/yolo_decode.cu`), the shear row shift (`csrc/row_shift.cu`) and
+(`csrc/yolo_decode.cu`), the shear shift along rows or columns
+(`csrc/row_shift.cu`) and
 the fused depthwise conv (`csrc/depthwise.cu`), are built with nvcc at
 first CUDA use into `_build/`.
 """

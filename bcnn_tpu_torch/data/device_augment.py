@@ -29,7 +29,7 @@ from typing import Dict
 
 import torch
 
-from ..ops.row_shift import row_shift
+from ..ops.row_shift import col_shift, row_shift
 from ..types import DETECTION_MAX_BOXES
 
 FILL = 128.0
@@ -49,37 +49,29 @@ def _interp_matrix(coords: torch.Tensor, n: int):
     return W, valid
 
 
-def _row_shift(img, d, kmax, out_x0, out_w, in_x0, fill):
-    """Per-row two-tap fractional shift along axis 2 of (N, R, win, C):
-    out[n, r, j] samples row r at absolute x = out_x0 + j + d[n, r],
-    where img's columns cover absolute x in [in_x0, in_x0 + win) and
-    `fill` extends outside (K2 on the card, `ops.row_shift`)."""
-    return row_shift(img.contiguous(), d.contiguous(), kmax, out_x0, out_w,
-                     in_x0, fill)
-
-
 def _rotate_3shear(mid, theta, h, w, kx, ky, kx2, myc, mxc, fill):
     """Rotation about the (h, w) frame's center by Paeth's three-shear
     decomposition R(theta) = Shx(-tan(theta/2)) Shy(sin(theta))
     Shx(-tan(theta/2)). `mid` (N, h+2*myc, w+2*mxc, C) is the
     pre-rotation content on a canvas with absolute origin (-myc, -mxc);
-    theta (N,)."""
+    theta (N,). Each shear is one K2 launch on the card
+    (`ops.row_shift`), each handing the next a contiguous tensor: no
+    copy in between."""
     opts = dict(dtype=f32, device=mid.device)
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     alpha = -torch.tan(theta / 2.0)[:, None]
     beta = torch.sin(theta)[:, None]
     # pass 1: x-shear of every content row; output columns [-kx, w-1+kx]
+    # (the separable warp's einsum may hand over a permuted layout)
     d1e = alpha * (torch.arange(h + 2 * myc, **opts) - myc - cy)
-    r3 = _row_shift(mid, d1e, kx2, -kx, w + 2 * kx, -mxc, fill)
-    # pass 2: y-shear over the extended columns (transpose -> rows); rows
-    # beyond the content extent read fill
+    r3 = row_shift(mid.contiguous(), d1e, kx2, -kx, w + 2 * kx, -mxc, fill)
+    # pass 2: y-shear down each extended column (the JAX package's shift
+    # of the transposed image); rows beyond the content extent read fill
     d2 = beta * (torch.arange(w + 2 * kx, **opts) - kx - cx)
-    r2 = _row_shift(
-        r3.transpose(1, 2), d2, ky, 0, h, -myc, fill
-    ).transpose(1, 2)
+    r2 = col_shift(r3, d2, ky, 0, h, -myc, fill)
     # pass 3: x-shear back to [0, w)
     d1 = alpha * (torch.arange(h, **opts) - cy)
-    return _row_shift(r2, d1, kx, 0, w, -kx, fill)
+    return row_shift(r2, d1, kx, 0, w, -kx, fill)
 
 
 def _shear_bounds(rot_deg, h, w, s_max=1.0, txm=0.0, tym=0.0):

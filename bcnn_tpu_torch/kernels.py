@@ -110,6 +110,14 @@ def library() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.bcnn_row_shift.restype = ctypes.c_int
+    lib.bcnn_col_shift.argtypes = [
+        p, p, p,                # img, d, out
+        i, i, i, i,             # n, win, cols, chans
+        i, i, i, i,             # kmax, out_x0, out_w, in_x0
+        f,                      # fill
+        p,                      # stream
+    ]
+    lib.bcnn_col_shift.restype = ctypes.c_int
     lib.bcnn_depthwise.argtypes = [
         p, p, p, p,             # x, w, b, y
         i, i, i, i,             # n, c, h, w

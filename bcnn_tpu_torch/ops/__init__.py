@@ -3,7 +3,8 @@
 Plain PyTorch wherever the JAX package leaves the op to XLA (conv, BN,
 pooling, FC, softmax, concat, upsample, the detection tail and training
 deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
-(`yolo_decode.decode_fused`, K1; `row_shift.row_shift`, K2;
+(`yolo_decode.decode_fused`, K1; `row_shift.row_shift` and
+`row_shift.col_shift`, K2;
 `depthwise.depthwise_fused`, K3).
 """
 

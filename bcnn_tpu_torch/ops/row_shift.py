@@ -1,16 +1,20 @@
-"""Per-row two-tap fractional shift, one shear of the three-shear
-rotation: the CUDA kernel K2 (`csrc/row_shift.cu`) and its plain PyTorch
-version.
+"""Two-tap fractional shift, one shear of the three-shear rotation: the
+CUDA kernel K2 (`csrc/row_shift.cu`) in its row and column modes, and
+their plain PyTorch versions.
 
 `row_shift` replaces the Pallas TPU kernel
 `bcnn_tpu.ops.shear_pallas.row_shift_pallas` with the fill padding of
 `bcnn_tpu.data.device_augment._row_shift` around it, on a batch of
-images. `row_shift_ref` is its plain version: `_row_shift`'s sweep over
-the 2*kmax + 1 integer shifts, on the padded rows.
+images, shifting along axis 2. `col_shift` is the same shift along axis
+1, for the shear that the JAX package runs on transposed images: it
+computes `row_shift(img.transpose(1, 2), ...).transpose(1, 2)` without
+either transposing copy. `row_shift_ref` and `col_shift_ref` are their
+plain versions: `_row_shift`'s sweep over the 2*kmax + 1 integer shifts,
+on the padded rows or columns.
 
-The wrapper runs the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises; nothing falls back.
-`row_shift.launches` counts the kernel's launches.
+A wrapper runs the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; nothing falls back. Both
+modes count on K2's one counter, `row_shift.launches`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,38 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+
+
+def _shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill, axis):
+    """The sweep along `axis` (1 or 2) of img (N, ., ., C), d the shift
+    of each line across it, (N, R)."""
+    def cut(t, start, stop):
+        sl = [slice(None)] * t.dim()
+        sl[axis] = slice(start, stop)
+        return t[tuple(sl)]
+
+    win = img.shape[axis]
+    lo = out_x0 - kmax  # first absolute column any term reads
+    hi = out_x0 + out_w - 1 + kmax
+    pad_l, pad_r = in_x0 - lo, hi - (in_x0 + win - 1)
+    if pad_l < 0:
+        img = cut(img, -pad_l, None)
+        pad_l = 0
+    if pad_r < 0:
+        img = cut(img, None, img.shape[axis] + pad_r)
+        pad_r = 0
+    pad = (0, 0, pad_l, pad_r) if axis == 2 else (0, 0, 0, 0, pad_l, pad_r)
+    imgp = F.pad(img, pad, value=fill)
+    shape = list(img.shape)
+    shape[axis] = out_w
+    acc = torch.zeros(shape, dtype=img.dtype, device=img.device)
+    # the shift of line r, broadcast along the shifted axis and C
+    w_of = ((lambda w: w[:, :, None, None]) if axis == 2
+            else (lambda w: w[:, None, :, None]))
+    for i in range(2 * kmax + 1):
+        w_k = torch.clamp(1.0 - torch.abs(d - (i - kmax)), min=0.0)
+        acc = acc + w_of(w_k) * imgp.narrow(axis, i, out_w)
+    return acc
 
 
 def row_shift_ref(
@@ -31,67 +67,90 @@ def row_shift_ref(
     of row r at absolute x = out_x0 + j + d[n, r], for |d| <= kmax - 1,
     as the sum over the integer shifts k in [-kmax, kmax] of
     hat(d - k) * IMG[out_x0 + j + k], in ascending k."""
-    win = img.shape[2]
-    lo = out_x0 - kmax  # first absolute column any term reads
-    hi = out_x0 + out_w - 1 + kmax
-    pad_l, pad_r = in_x0 - lo, hi - (in_x0 + win - 1)
-    if pad_l < 0:
-        img = img[:, :, -pad_l:]
-        pad_l = 0
-    if pad_r < 0:
-        img = img[:, :, : img.shape[2] + pad_r]
-        pad_r = 0
-    imgp = F.pad(img, (0, 0, pad_l, pad_r), value=fill)
-    acc = torch.zeros(
-        (*img.shape[:2], out_w, img.shape[3]), dtype=img.dtype,
-        device=img.device,
-    )
-    for i in range(2 * kmax + 1):
-        w_k = torch.clamp(1.0 - torch.abs(d - (i - kmax)), min=0.0)
-        acc = acc + w_k[:, :, None, None] * imgp[:, :, i : i + out_w]
-    return acc
+    return _shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill, axis=2)
+
+
+def col_shift_ref(
+    img: torch.Tensor, d: torch.Tensor, kmax: int, out_x0: int, out_w: int,
+    in_x0: int, fill: float,
+) -> torch.Tensor:
+    """img (N, win, R, C): columns of pixels whose rows cover absolute y
+    in [in_x0, in_x0 + win), `fill` outside; d (N, R) per-column shifts.
+    Returns (N, out_w, R, C), contiguous, equal to
+    `row_shift_ref(img.transpose(1, 2), d, ...).transpose(1, 2)`: the same
+    products summed in the same order."""
+    return _shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill, axis=1)
+
+
+def _check(what, img, d):
+    if img.device.type != "cuda" or d.device != img.device:
+        raise ValueError(f"{what}: unsupported devices {img.device}, "
+                         f"{d.device}")
+    if img.dtype != torch.float32 or d.dtype != torch.float32:
+        raise TypeError(
+            f"{what}: needs float32, got {img.dtype} and {d.dtype}"
+        )
+    if img.dim() != 4 or d.dim() != 2 or not (img.is_contiguous()
+                                              and d.is_contiguous()):
+        raise ValueError(f"{what}: img {tuple(img.shape)} and d "
+                         f"{tuple(d.shape)} must be contiguous, 4-D and 2-D")
+
+
+def _launch(what, entry, img, d, out, dims, kmax, out_x0, out_w, in_x0,
+            fill):
+    if kmax < 0 or out_w < 0:
+        raise ValueError(f"{what}: kmax {kmax}, out_w {out_w}")
+    if out.numel() == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(img.device):
+        rc = getattr(lib, entry)(
+            img.data_ptr(), d.data_ptr(), out.data_ptr(), *dims, kmax,
+            out_x0, out_w, in_x0, float(fill),
+            torch.cuda.current_stream(img.device).cuda_stream,
+        )
+    kernels.check(rc, what)
+    row_shift.launches += 1
+    return out
 
 
 def row_shift(
     img: torch.Tensor, d: torch.Tensor, kmax: int, out_x0: int, out_w: int,
     in_x0: int, fill: float,
 ) -> torch.Tensor:
-    """K2: `row_shift_ref` as one CUDA kernel for CUDA tensors (img fp32
-    contiguous (N, R, win, C), d fp32 contiguous (N, R))."""
+    """K2, row mode: `row_shift_ref` as one CUDA kernel for CUDA tensors
+    (img fp32 contiguous (N, R, win, C), d fp32 contiguous (N, R))."""
     if img.device.type == "cpu" and d.device.type == "cpu":
         return row_shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill)
-    if img.device.type != "cuda" or d.device != img.device:
-        raise ValueError(
-            f"row_shift: unsupported devices {img.device}, {d.device}"
-        )
-    if img.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError(
-            f"row_shift: needs float32, got {img.dtype} and {d.dtype}"
-        )
-    if img.dim() != 4 or tuple(d.shape) != tuple(img.shape[:2]):
-        raise ValueError(
-            f"row_shift: img {tuple(img.shape)} is not (N, R, win, C) or "
-            f"d {tuple(d.shape)} is not (N, R)"
-        )
-    if not (img.is_contiguous() and d.is_contiguous()):
-        raise ValueError("row_shift: img and d must be contiguous")
-    if kmax < 0 or out_w < 0:
-        raise ValueError(f"row_shift: kmax {kmax}, out_w {out_w}")
+    _check("row_shift", img, d)
+    if tuple(d.shape) != tuple(img.shape[:2]):
+        raise ValueError(f"row_shift: d {tuple(d.shape)} is not (N, R) of "
+                         f"img {tuple(img.shape)}")
     n, rows, win, chans = img.shape
     out = torch.empty((n, rows, out_w, chans), dtype=torch.float32,
                       device=img.device)
-    if out.numel() == 0:
-        return out
-    lib = kernels.library()
-    with torch.cuda.device(img.device):
-        rc = lib.bcnn_row_shift(
-            img.data_ptr(), d.data_ptr(), out.data_ptr(), n, rows, win,
-            chans, kmax, out_x0, out_w, in_x0, float(fill),
-            torch.cuda.current_stream(img.device).cuda_stream,
-        )
-    kernels.check(rc, "row_shift")
-    row_shift.launches += 1
-    return out
+    return _launch("row_shift", "bcnn_row_shift", img, d, out,
+                   (n, rows, win, chans), kmax, out_x0, out_w, in_x0, fill)
+
+
+def col_shift(
+    img: torch.Tensor, d: torch.Tensor, kmax: int, out_x0: int, out_w: int,
+    in_x0: int, fill: float,
+) -> torch.Tensor:
+    """K2, column mode: `col_shift_ref` as one CUDA kernel for CUDA
+    tensors (img fp32 contiguous (N, win, R, C), d fp32 contiguous
+    (N, R)); returns (N, out_w, R, C), contiguous."""
+    if img.device.type == "cpu" and d.device.type == "cpu":
+        return col_shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill)
+    _check("col_shift", img, d)
+    if tuple(d.shape) != (img.shape[0], img.shape[2]):
+        raise ValueError(f"col_shift: d {tuple(d.shape)} is not (N, R) of "
+                         f"img {tuple(img.shape)}")
+    n, win, cols, chans = img.shape
+    out = torch.empty((n, out_w, cols, chans), dtype=torch.float32,
+                      device=img.device)
+    return _launch("col_shift", "bcnn_col_shift", img, d, out,
+                   (n, win, cols, chans), kmax, out_x0, out_w, in_x0, fill)
 
 
 row_shift.launches = 0

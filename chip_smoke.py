@@ -5,10 +5,12 @@
 
 Builds the port's CUDA kernels from bcnn_tpu_torch/csrc and holds each
 against its plain PyTorch version on the card: K1 (YOLO decode), K2
-(the shear row shift) and K3 (depthwise conv + bias + activation) at the
-shapes their paths give them, and K3 on ragged shapes with each fused
-activation. Then it drives the main paths (full width and depth,
-random weights from a seed):
+(the shear shift, row mode and column mode, bit for bit) and K3
+(depthwise conv + bias + activation) at the shapes their paths give
+them, each warm and cold, and K3 on ragged shapes with each fused
+activation; then the whole shear chain of rotation augmentation (three
+K2 launches, no copy) against its CPU run. Then it drives the main
+paths (full width and depth, random weights from a seed):
   - YOLOv3-tiny serving (416x416, 80 classes): Session.detect_on_batch
     at batch 8 on both detection branches, checked against the port's
     CPU run;
@@ -24,12 +26,12 @@ random weights from a seed):
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
-its launches on its path, its error against the plain version, its time,
-the plain version's, its bound (the bytes it must move at the card's
-memory rate, or its operations at the fp32 rate, whichever is longer)
-and the time of one PyTorch call that computes the same function, where
-there is one (K3: the grouped conv, without the activation). Needs CUDA;
-imports no JAX.
+its launches on its path, its error against the plain version, its time
+warm and cold, the plain version's, its bound (the bytes it must move at
+the card's memory rate, or its operations at the fp32 rate, whichever
+is longer) and the time of one PyTorch call that computes the same
+function, where there is one (K3: the grouped conv, without the
+activation). Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from bcnn_tpu_torch import Session, bridge, kernels
-from bcnn_tpu_torch.data.device_augment import _shear_bounds
+from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
-from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
+from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
+                                          row_shift, row_shift_ref)
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
 from bcnn_tpu_torch.types import Activation, Mode
 
@@ -59,9 +62,11 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 5
 # examples/train_soak.py's detection augmentation with --rotation 10
 AUGMENT = dict(random_fliph=1, min_contrast=0.8, max_contrast=1.2,
                min_brightness=-30, max_brightness=30, rotation_range=10.0)
-# K2 against its plain version: tests/test_shear_pallas.py's tolerance
-# for the TPU kernel, on [0, 255] values
-K2_ATOL = 1e-4
+# K2 is held to its plain version bit for bit (it rounds as the sweep
+# does). The whole shear chain on the card against the CPU:
+# tests/test_torch_augment.py's warp tolerance on [0, 255] values (tan
+# and sin of the angles may differ by an ulp between the two devices)
+WARP_ATOL = 5e-4
 # one training step, card against CPU: the loss at rtol 1e-4; each
 # parameter's update within 1e-3 of its largest entry (every conv and BN
 # sum is taken in another order on each device). A max-pool window whose
@@ -192,9 +197,10 @@ def fmt_device(total_us, iters):
 
 
 def check_k1(shapes):
-    """K1 against decode_grid_ref on the card, timed in turns
-    (plain, kernel, kernel, plain). Returns per-shape records."""
+    """K1 against decode_grid_ref on the card, timed warm in turns
+    (plain, kernel, kernel, plain) and cold. Returns per-shape records."""
     gen = torch.Generator().manual_seed(SEED)
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     rows = []
     for n, classes, h, w, mask in shapes:
         x = (3 * torch.randn(n, 3 * (5 + classes), h, w, generator=gen)).cuda()
@@ -220,12 +226,15 @@ def check_k1(shapes):
         nbytes = 4 * (x.numel() + sum(g.numel() for g in got))
         rows.append(dict(shape=tuple(x.shape), max_abs_err=err,
                          ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                         cold_ms=cold_ms(
+                             lambda: decode_fused(x, p, SIZE, SIZE), flush),
                          # a sigmoid or exp of each input: ~4 operations
                          bound=bound(nbytes, 4 * x.numel())))
         k_dev = device_us(lambda: decode_fused(x, p, SIZE, SIZE))
         p_dev = device_us(lambda: decode_grid_ref(x, p, SIZE, SIZE))
         print(f"K1 {tuple(x.shape)}: max_abs_err {err:.3g}; CUDA-event "
-              f"time per call: kernel {rows[-1]['ms']:.4f} ms, plain "
+              f"time per call: kernel {rows[-1]['ms']:.4f} ms warm, "
+              f"{rows[-1]['cold_ms']:.4f} ms cold, plain "
               f"{rows[-1]['plain_ms']:.4f} ms; device time per call "
               f"(profiler): kernel {fmt_device(sum(k_dev.values()), 20)}, "
               f"plain {fmt_device(sum(p_dev.values()), 20)} in "
@@ -282,9 +291,12 @@ def serve(request, batches):
 
 
 def k2_cases():
-    """The three row shifts of one training step at 416 px, rotation 10,
-    batch 32 (shifts as the shear chain makes them, from a random angle
-    per image), and a ragged case with integer and negative shifts."""
+    """The three shears of one training step at 416 px, rotation 10,
+    batch 32, each on the layout the path hands it (shifts as the shear
+    chain makes them, from a random angle per image): pass 1 and 3 in
+    row mode, pass 2 in column mode on r3's (32, 418, 438, 3); then
+    ragged cases with integer and negative shifts, one a mode. Each case
+    is (column mode, img, d, kmax, out_x0, out_w, in_x0)."""
     kx, ky, kx2, myc, mxc = _shear_bounds(10.0, SIZE, SIZE)
     gen = torch.Generator().manual_seed(SEED)
     n = TRAIN_BATCH
@@ -294,67 +306,139 @@ def k2_cases():
     cy = cx = (SIZE - 1) / 2.0
     ar = torch.arange
     cases = [
-        (SIZE + 2 * myc, SIZE + 2 * mxc,
+        (False, (SIZE + 2 * myc, SIZE + 2 * mxc),
          alpha * (ar(SIZE + 2 * myc) - myc - cy), kx2, -kx, SIZE + 2 * kx,
          -mxc),
-        (SIZE + 2 * kx, SIZE, beta * (ar(SIZE + 2 * kx) - kx - cx), ky, 0,
-         SIZE, -myc),
-        (SIZE, SIZE + 2 * kx, alpha * (ar(SIZE) - cy), kx, 0, SIZE, -kx),
+        (True, (SIZE + 2 * myc, SIZE + 2 * kx),
+         beta * (ar(SIZE + 2 * kx) - kx - cx), ky, 0, SIZE, -myc),
+        (False, (SIZE, SIZE + 2 * kx), alpha * (ar(SIZE) - cy), kx, 0, SIZE,
+         -kx),
     ]
     out = []
-    for rows, win, d, kmax, out_x0, out_w, in_x0 in cases:
-        img = 255 * torch.rand(n, rows, win, 3, generator=gen)
-        out.append((img, d.float(), kmax, out_x0, out_w, in_x0))
-    d = (2 * torch.rand(3, 37, generator=gen) - 1) * 8
-    d[0, :5] = torch.tensor([2.0, -3.0, 0.0, -8.0, 8.0])
-    out.append((255 * torch.rand(3, 37, 53, 1, generator=gen), d, 9, -9, 71,
-                -1))
+    for column, hw, d, kmax, out_x0, out_w, in_x0 in cases:
+        img = 255 * torch.rand(n, *hw, 3, generator=gen)
+        out.append((column, img, d.float(), kmax, out_x0, out_w, in_x0))
+    for column in (False, True):
+        d = (2 * torch.rand(3, 37, generator=gen) - 1) * 8
+        d[0, :5] = torch.tensor([2.0, -3.0, 0.0, -8.0, 8.0])
+        img = 255 * torch.rand(3, 37, 53, 1, generator=gen)
+        if column:
+            img = img.transpose(1, 2).contiguous()
+        out.append((column, img, d, 9, -9, 71, -1))
     return out
 
 
 def check_k2():
-    """K2 against row_shift_ref on the card, timed in turns (plain,
-    kernel, kernel, plain). Returns per-shape records."""
+    """K2 against its plain version on the card (bit for bit), timed warm
+    in turns (plain, kernel, kernel, plain) and cold. Returns per-shape
+    records."""
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     rows = []
-    for img, d, kmax, out_x0, out_w, in_x0 in k2_cases():
+    for column, img, d, kmax, out_x0, out_w, in_x0 in k2_cases():
         img, d = img.cuda(), d.cuda()
         args = (kmax, out_x0, out_w, in_x0, 128.0)
+        fn, ref = (col_shift, col_shift_ref) if column else (row_shift,
+                                                             row_shift_ref)
         before = row_shift.launches
-        got = row_shift(img, d, *args)
-        want = row_shift_ref(img, d, *args)
+        got = fn(img, d, *args)
+        want = ref(img, d, *args)
         torch.cuda.synchronize()
         if row_shift.launches != before + 1:
-            raise RuntimeError("row_shift did not count its launch")
+            raise RuntimeError(f"{fn.__name__} did not count its launch")
         if got.shape != want.shape:
             raise RuntimeError(f"K2 shape {got.shape} != {want.shape}")
-        torch.testing.assert_close(got, want, rtol=0, atol=K2_ATOL)
         err = float((got - want).abs().max())
-        t = [
-            cuda_ms(lambda: row_shift_ref(img, d, *args), iters=30),
-            cuda_ms(lambda: row_shift(img, d, *args), iters=30),
-            cuda_ms(lambda: row_shift(img, d, *args), iters=30),
-            cuda_ms(lambda: row_shift_ref(img, d, *args), iters=30),
-        ]
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K2 {fn.__name__} {tuple(img.shape)} is not "
+                               f"bit-equal to its plain version: {err}")
+        kern = lambda: fn(img, d, *args)  # noqa: E731
+        plain = lambda: ref(img, d, *args)  # noqa: E731
+        t = [cuda_ms(f, iters=30) for f in (plain, kern, kern, plain)]
         nbytes = 4 * (img.numel() + d.numel() + got.numel())
         rows.append(dict(shape=tuple(img.shape), out=tuple(got.shape),
                          kmax=kmax, max_abs_err=err, ms=(t[1] + t[2]) / 2,
                          plain_ms=(t[0] + t[3]) / 2,
+                         cold_ms=cold_ms(kern, flush),
                          # two taps an output: 2 multiplies, 1 add
                          bound=bound(nbytes, 3 * got.numel())))
-        k_dev = device_us(lambda: row_shift(img, d, *args), iters=10)
-        p_dev = device_us(lambda: row_shift_ref(img, d, *args), iters=10)
+        r = rows[-1]
+        k_dev = device_us(kern, iters=10)
+        p_dev = device_us(plain, iters=10)
         mb = nbytes / 1e6
         kd = sum(k_dev.values()) / 10
-        print(f"K2 {tuple(img.shape)} -> {tuple(got.shape)} kmax {kmax}: "
-              f"max_abs_err {err:.3g}; CUDA-event time per call: kernel "
-              f"{rows[-1]['ms']:.4f} ms, plain {rows[-1]['plain_ms']:.4f} "
-              f"ms; device time per call (profiler): kernel "
-              f"{fmt_device(sum(k_dev.values()), 10)}, plain "
+        print(f"K2 {fn.__name__} {tuple(img.shape)} -> {tuple(got.shape)} "
+              f"kmax {kmax}: bit-equal; CUDA-event time per call: kernel "
+              f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
+              f"({r['bound'][0] / r['cold_ms']:.0%} of the bound), plain "
+              f"{r['plain_ms']:.4f} ms; device time per call (profiler): "
+              f"kernel {fmt_device(sum(k_dev.values()), 10)}, plain "
               f"{fmt_device(sum(p_dev.values()), 10)} in {len(p_dev)} "
               f"kernel names; {mb:.0f} MB read+written"
               + (f", {mb / kd:.2f} TB/s" if kd else "")
-              + f", bound {1e3 * rows[-1]['bound'][0]:.1f} us")
+              + f", bound {1e3 * r['bound'][0]:.1f} us")
     return rows
+
+
+def shear_chain_phase():
+    """The whole shear chain of rotation augmentation on the card,
+    `_rotate_3shear` at batch 32, 416 px, rotation 10: three K2 launches
+    and no copy between them; its device time by kernel name; its output
+    against the port's CPU run."""
+    kx, ky, kx2, myc, mxc = _shear_bounds(10.0, SIZE, SIZE)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    # A smooth image in [2, 254]: three waves a channel with periods of
+    # 64 px or more, about the fill value 128, tapered to it over the 48
+    # px at the canvas border. The card's tanf and sinf may differ from
+    # the CPU's by a few ulps, which moves a shift by ~1e-6 px and an
+    # output by that times the image's step there: on noise, and at
+    # content-to-fill edges, that came to 3.8e-4 of the 5e-4 tolerance;
+    # here 8 ulps of theta move no output by more than 7.6e-5 (the CPU
+    # port). A wrong row or column still moves outputs by whole levels.
+    h, w = SIZE + 2 * myc, SIZE + 2 * mxc
+
+    def ramp(m):  # 0 at the border, 1 from 48 px inside it
+        t = torch.arange(m, dtype=torch.float32)
+        e = torch.clamp(torch.minimum(t, m - 1 - t) / 48, max=1.0)
+        return e * e * (3 - 2 * e)
+
+    yy = torch.arange(h, dtype=torch.float32)[:, None, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :, None]
+    waves = torch.zeros((TRAIN_BATCH, h, w, 3))
+    for _ in range(3):
+        fy, fx, ph = (torch.rand(3, TRAIN_BATCH, 1, 1, 3, generator=gen)
+                      * torch.tensor([1 / 64, 1 / 64, 2 * torch.pi])
+                      .reshape(3, 1, 1, 1, 1)).unbind(0)
+        waves += 42.0 * torch.sin(2 * torch.pi * ((fy - 1 / 128) * yy
+                                                  + (fx - 1 / 128) * xx) + ph)
+    mid = 128.0 + (ramp(h)[:, None] * ramp(w)[None, :])[..., None] * waves
+    theta = torch.deg2rad((torch.rand(TRAIN_BATCH, generator=gen) - 0.5)
+                          * 10.0)
+    args = (SIZE, SIZE, kx, ky, kx2, myc, mxc, 128.0)
+    mid_c, theta_c = mid.cuda(), theta.cuda()
+    run = lambda: _rotate_3shear(mid_c, theta_c, *args)  # noqa: E731
+    before = row_shift.launches
+    got = run()
+    torch.cuda.synchronize()
+    if row_shift.launches != before + 3:
+        raise RuntimeError("the shear chain did not make 3 K2 launches")
+    want = _rotate_3shear(mid, theta, *args)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=WARP_ATOL)
+    err = float((got.cpu() - want).abs().max())
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    warm, cold = cuda_ms(run, iters=30), cold_ms(run, flush)
+    dev = device_us(run, iters=10)
+    copies = [k for k in dev if "copy" in k.lower()]
+    if copies:
+        raise RuntimeError(f"the shear chain copies on the card: {copies}")
+    total = sum(dev.values()) / 10
+    print(f"shear chain _rotate_3shear {tuple(mid.shape)} -> "
+          f"{tuple(got.shape)}: card vs CPU max_abs_err {err:.3g} (limit "
+          f"{WARP_ATOL}); CUDA-event time {1e3 * warm:.1f} us warm, "
+          f"{1e3 * cold:.1f} us cold; device time "
+          + (f"{total:.1f} us a chain, by kernel name (no copy):"
+             if total else "not measured"))
+    for k, us in sorted(dev.items(), key=lambda kv: -kv[1]):
+        print(f"    {us / 10:8.1f} us  {k[:90]}")
 
 
 def check_k3():
@@ -730,6 +814,7 @@ def main() -> int:
 
     # -- phase 3b: K2 against its plain version on the card ---------------
     k2 = check_k2()
+    shear_chain_phase()
 
     # -- phase 3c: K3 against its plain version on the card ---------------
     k3 = check_k3()
@@ -822,6 +907,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": sum(r["ms"] for r in rows),
+            "cold_ms": sum(r["cold_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound"][0] for r in rows),
             "bound_by": ("bytes" if all(r["bound"][1] == "bytes"

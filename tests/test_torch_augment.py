@@ -23,7 +23,8 @@ from bcnn_tpu.data import device_augment as jda
 from bcnn_tpu.ops.shear_pallas import row_shift_pallas
 
 from bcnn_tpu_torch.data import device_augment as tda
-from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
+from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
+                                          row_shift, row_shift_ref)
 
 torch.set_num_threads(1)
 
@@ -96,6 +97,100 @@ def test_row_shift_wrapper_on_cpu_is_the_plain_version():
     assert row_shift.launches == before  # no kernel on the CPU
     with pytest.raises(ValueError):
         row_shift(img.to("meta"), d.to("meta"), 4, 0, 12, 0, 128.0)
+
+
+@pytest.mark.parametrize(
+    "n,win,r,c,kmax,out_x0,out_w,in_x0",
+    [
+        (2, 20, 7, 3, 4, 0, 20, 0),       # same frame in and out
+        (1, 30, 9, 3, 6, 0, 28, -1),      # pass 2 of the shear chain
+        (2, 16, 5, 1, 3, 2, 10, 0),       # window inside the columns
+        (1, 12, 3, 2, 5, -20, 8, 0),      # output entirely in the fill
+        (2, 11, 6, 7, 4, -3, 17, 2),      # fill at both ends, 7 channels
+    ],
+)
+def test_col_shift_ref_matches_jax_sweep_on_transposed_columns(
+        n, win, r, c, kmax, out_x0, out_w, in_x0):
+    """Column mode's plain version against bcnn_tpu's `_row_shift` of
+    each transposed image (the JAX package's pass 2)."""
+    rng = np.random.RandomState(win * r + kmax)
+    img = (rng.rand(n, win, r, c) * 255).astype(np.float32)
+    d = _shifts(rng, n, r, kmax)
+    d[0, 0], d[-1, -1] = 2.0, -3.0  # integer shifts, one negative
+    ref = np.stack([
+        np.asarray(jda._row_shift(jnp.asarray(img[i].transpose(1, 0, 2)),
+                                  jnp.asarray(d[i]), kmax, out_x0, out_w,
+                                  in_x0, 127.0)).transpose(1, 0, 2)
+        for i in range(n)
+    ])
+    got = col_shift_ref(torch.from_numpy(img), torch.from_numpy(d), kmax,
+                        out_x0, out_w, in_x0, 127.0)
+    assert got.shape == (n, out_w, r, c) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=SHIFT_ATOL)
+
+
+def test_col_shift_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.RandomState(5)
+    img = torch.from_numpy((rng.rand(2, 12, 5, 3) * 255).astype(np.float32))
+    d = torch.from_numpy(_shifts(rng, 2, 5, 4))
+    before = row_shift.launches
+    got = col_shift(img, d, 4, -2, 14, 0, 128.0)
+    assert torch.equal(got, col_shift_ref(img, d, 4, -2, 14, 0, 128.0))
+    assert torch.equal(got, row_shift_ref(
+        img.transpose(1, 2).contiguous(), d, 4, -2, 14, 0,
+        128.0).transpose(1, 2))
+    assert row_shift.launches == before  # no kernel on the CPU
+    with pytest.raises(ValueError):
+        col_shift(img.to("meta"), d.to("meta"), 4, 0, 12, 0, 128.0)
+
+
+def _chain_inputs(rng, n, h, w, rot):
+    kx, ky, kx2, myc, mxc = tda._shear_bounds(rot, h, w)
+    mid = (rng.rand(n, h + 2 * myc, w + 2 * mxc, 3) * 255).astype(np.float32)
+    theta = np.deg2rad(rng.uniform(-0.5, 0.5, n) * rot).astype(np.float32)
+    return mid, theta, (h, w, kx, ky, kx2, myc, mxc, 127.0)
+
+
+@pytest.mark.parametrize("h,w,rot", [(40, 48, 20.0), (33, 17, 10.0)])
+def test_rotate_3shear_matches_bcnn_tpu(h, w, rot):
+    """The port's shear chain, pass 2 in column mode, against the JAX
+    package's, which runs pass 2 as a row shift of the transposed
+    image."""
+    mid, theta, args = _chain_inputs(np.random.RandomState(h + w), 2, h, w,
+                                     rot)
+    ref = np.asarray(jax.vmap(
+        lambda m, t: jda._rotate_3shear(m, t, *args))(
+            jnp.asarray(mid), jnp.asarray(theta)))
+    got = tda._rotate_3shear(torch.from_numpy(mid), torch.from_numpy(theta),
+                             *args)
+    assert got.shape == (2, h, w, 3)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=WARP_ATOL)
+
+
+def test_shear_chain_hands_each_pass_a_contiguous_tensor(monkeypatch):
+    """Pass 2 runs in column mode on r3 as pass 1 wrote it, and pass 3
+    reads pass 2's output as it comes: no transpose, no copy between."""
+    calls = []
+
+    def spy(fn):
+        def run(img, *a):
+            out = fn(img, *a)
+            calls.append((fn.__name__, img, out))
+            return out
+        return run
+
+    monkeypatch.setattr(tda, "row_shift", spy(tda.row_shift))
+    monkeypatch.setattr(tda, "col_shift", spy(tda.col_shift))
+    mid, theta, args = _chain_inputs(np.random.RandomState(1), 2, 24, 20,
+                                     10.0)
+    out = tda._rotate_3shear(torch.from_numpy(mid), torch.from_numpy(theta),
+                             *args)
+    assert [c[0] for c in calls] == ["row_shift", "col_shift", "row_shift"]
+    (_, _, r3), (_, img2, r2), (_, img3, r1) = calls
+    assert img2 is r3 and img3 is r2 and r1 is out
+    for t in (r3, r2, r1):
+        assert t.is_contiguous()
+    assert img3.data_ptr() == r2.data_ptr()
 
 
 def test_shear_bounds_match_bcnn_tpu():

@@ -14,7 +14,8 @@ from bcnn_tpu_torch import Session, bridge, ops
 from bcnn_tpu_torch.ops import depthwise as dw
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
-from bcnn_tpu_torch.ops.row_shift import row_shift, row_shift_ref
+from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
+                                          row_shift, row_shift_ref)
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
 from bcnn_tpu_torch.types import Activation, Mode
 
@@ -33,12 +34,19 @@ def cuda():
 @pytest.mark.parametrize(
     "n,classes,h,w,mask",
     [(8, 80, 13, 13, [3, 4, 5]), (2, 80, 26, 26, [0, 1, 2]),
-     (3, 7, 7, 11, [1, 3, 5]), (1, 1, 1, 1, [0, 1, 2])],
+     (3, 7, 7, 11, [1, 3, 5]), (1, 1, 1, 1, [0, 1, 2]),
+     (2, 80, 7, 11, [4]),              # 1 anchor, odd grid, partial chunk
+     (1, 7, 5, 9, list(range(16))),    # 16 anchors
+     (8, 3, 26, 26, [0, 1, 2]),        # 16 locations a block, partial last
+     (5, 90, 9, 7, list(range(16))),   # 16 anchors: 4 locations fit 48 KB
+     (1, 1000, 3, 5, list(range(16))),  # classes staged 379 at a time
+     (300, 2, 4, 4, [0, 1, 2])],        # 16 locations, one block an image
 )
 def test_k1_matches_plain_version(cuda, n, classes, h, w, mask):
-    p = dict(num=3, classes=classes, mask=mask, anchors=ANCHORS)
+    anchors = ANCHORS + [float(v) for v in range(20, 40)]  # 16 anchors
+    p = dict(num=len(mask), classes=classes, mask=mask, anchors=anchors)
     gen = torch.Generator().manual_seed(h * w)
-    x = 4 * torch.randn(n, 3 * (5 + classes), h, w, generator=gen)
+    x = 4 * torch.randn(n, len(mask) * (5 + classes), h, w, generator=gen)
     x[0, 4, 0, 0] = float("inf")
     x[0, 2, 0, 0] = 200.0  # exp overflow -> inf, as in the plain version
     x = x.to(cuda)
@@ -59,6 +67,10 @@ def test_k1_refuses_what_it_does_not_take(cuda):
         decode_fused(x.transpose(2, 3), p, 64, 64)
     with pytest.raises(ValueError):
         decode_fused(x[:, :26], p, 64, 64)
+    many = dict(num=17, classes=0, mask=list(range(17)),
+                anchors=[1.0] * 34)
+    with pytest.raises(ValueError):
+        decode_fused(torch.randn(1, 85, 2, 2, device=cuda), many, 64, 64)
 
 
 def test_detect_on_batch_launches_k1_per_head(cuda):
@@ -74,24 +86,80 @@ def test_detect_on_batch_launches_k1_per_head(cuda):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize(
-    "n,r,win,c,kmax,out_x0,out_w,in_x0",
-    [(3, 37, 53, 3, 9, -9, 71, -1), (1, 5, 8, 1, 4, 0, 8, 0),
-     (2, 21, 40, 3, 6, 3, 30, 0), (1, 3, 12, 2, 5, -20, 8, 0)],
-)
-def test_k2_matches_plain_version(cuda, n, r, win, c, kmax, out_x0, out_w,
-                                  in_x0):
-    gen = torch.Generator().manual_seed(r * win)
+K2_CASES = [
+    (3, 37, 53, 3, 9, -9, 71, -1), (1, 5, 8, 1, 4, 0, 8, 0),
+    (2, 21, 40, 3, 6, 3, 30, 0), (1, 3, 12, 2, 5, -20, 8, 0),
+    (2, 9, 30, 3, 6, -6, 42, -1),     # fill read at both ends of a row
+    (1, 4, 700, 3, 5, -2, 1500, 0),   # rows of 4,500 outputs: two pieces
+    (2, 6, 11, 7, 4, 1, 9, 2),        # 7 channels
+]
+
+
+def k2_inputs(n, r, win, c, kmax, gen):
+    """img (n, r, win, c) in [0, 255) and d (n, r) on the CPU, shifts
+    within kmax - 1, two of them integers."""
     img = 255 * torch.rand(n, r, win, c, generator=gen)
     d = (2 * torch.rand(n, r, generator=gen) - 1) * (kmax - 1)
     d[0, 0], d[-1, -1] = 2.0, -3.0  # integer shifts, one of them negative
+    return img, d
+
+
+@pytest.mark.parametrize("n,r,win,c,kmax,out_x0,out_w,in_x0", K2_CASES)
+def test_k2_matches_plain_version(cuda, n, r, win, c, kmax, out_x0, out_w,
+                                  in_x0):
+    img, d = k2_inputs(n, r, win, c, kmax,
+                       torch.Generator().manual_seed(r * win))
     img, d = img.to(cuda), d.to(cuda)
     before = row_shift.launches
     got = row_shift(img, d, kmax, out_x0, out_w, in_x0, 128.0)
     torch.cuda.synchronize()
     assert row_shift.launches == before + 1
     want = row_shift_ref(img, d, kmax, out_x0, out_w, in_x0, 128.0)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_k2_rows_off_a_16_byte_boundary(cuda, off):
+    """Input off a 16-byte boundary: the staged range's head, and the
+    float4 stores' scalar head and tail, bit-equal; column mode on the
+    same tensor (off 8 bytes too at off 1 and 3: float by float)."""
+    gen = torch.Generator().manual_seed(off)
+    for n, r, win, c, kmax, out_x0, out_w, in_x0 in K2_CASES[:5] + [
+            (2, 6, 11, 2, 4, 1, 9, 2)]:
+        img, d = k2_inputs(n, r, win, c, kmax, gen)
+        flat = torch.empty(off + img.numel(), device=cuda)
+        flat[off:] = img.reshape(-1).to(cuda)
+        img = flat[off:].view(img.shape)
+        assert img.data_ptr() % 16 == 4 * off
+        d = d.to(cuda)
+        want = row_shift_ref(img, d, kmax, out_x0, out_w, in_x0, 128.0)
+        got = row_shift(img, d, kmax, out_x0, out_w, in_x0, 128.0)
+        assert torch.equal(got, want)
+        dc = k2_inputs(n, win, 1, 1, kmax, gen)[1].to(cuda)  # a column's
+        want = col_shift_ref(img, dc, kmax, out_x0, out_w, in_x0, 128.0)
+        got = col_shift(img, dc, kmax, out_x0, out_w, in_x0, 128.0)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,r,win,c,kmax,out_x0,out_w,in_x0", K2_CASES)
+def test_k2_column_mode_matches_plain_version(cuda, n, r, win, c, kmax,
+                                              out_x0, out_w, in_x0):
+    """col_shift on img (N, win, R, C): the row mode's cases down the
+    columns, bit-equal to col_shift_ref and to the transposing form."""
+    img, d = k2_inputs(n, r, win, c, kmax,
+                       torch.Generator().manual_seed(r + win))
+    img = img.transpose(1, 2).contiguous().to(cuda)  # (n, win, r, c)
+    d = d.to(cuda)
+    before = row_shift.launches
+    got = col_shift(img, d, kmax, out_x0, out_w, in_x0, 128.0)
+    torch.cuda.synchronize()
+    assert row_shift.launches == before + 1
+    assert got.shape == (n, out_w, r, c) and got.is_contiguous()
+    assert torch.equal(got, col_shift_ref(img, d, kmax, out_x0, out_w,
+                                          in_x0, 128.0))
+    assert torch.equal(got, row_shift_ref(
+        img.transpose(1, 2).contiguous(), d, kmax, out_x0, out_w, in_x0,
+        128.0).transpose(1, 2))
 
 
 def test_k2_refuses_what_it_does_not_take(cuda):
@@ -105,6 +173,20 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         row_shift(img, d[:, :3], 2, 0, 6, 0, 0.0)
     with pytest.raises(ValueError):
         row_shift(img, d.cpu(), 2, 0, 6, 0, 0.0)
+    dc = torch.zeros(2, 6, device=cuda)  # column mode: a shift a column
+    with pytest.raises(TypeError):
+        col_shift(img.double(), dc, 2, 0, 4, 0, 0.0)
+    with pytest.raises(ValueError):
+        col_shift(img.transpose(1, 2), d, 2, 0, 4, 0, 0.0)
+    with pytest.raises(ValueError):
+        col_shift(img, d, 2, 0, 4, 0, 0.0)  # (N, R) of the rows
+    with pytest.raises(ValueError):
+        col_shift(img, dc.cpu(), 2, 0, 4, 0, 0.0)
+    with pytest.raises(ValueError):
+        col_shift(img, dc, -1, 0, 4, 0, 0.0)
+    before = row_shift.launches
+    assert col_shift(img, dc, 2, 0, 0, 0, 0.0).shape == (2, 0, 6, 3)
+    assert row_shift.launches == before  # nothing to launch
 
 
 def test_train_step_launches_k2_three_times(cuda):

@@ -4,7 +4,8 @@ compile, predict, detect and train on a batch.
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
 Forwards outside training run under `torch.inference_mode()`. Inputs and
-outputs are NCHW.
+outputs are NCHW. Inputs are uploaded as fp32; the executor honours the
+net's compute_dtype, act_dtype and quant (`compile._Executor`).
 """
 
 from __future__ import annotations

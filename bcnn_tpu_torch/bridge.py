@@ -141,3 +141,36 @@ def he_numpy_weights(
             np.float32
         )
     return params, state
+
+
+def quant_from_numpy(
+    net: Net, quant_np: Mapping[str, Any], device="cpu"
+) -> Dict[str, Any]:
+    """A JAX `net.quant` (`bcnn_tpu.ops.quant`: PTQ scales and int8
+    weights, leaves as numpy arrays or JAX arrays) as the port's:
+    `act_scales` keep their tensor-index keys and float values; each
+    weight's `q` goes HWIO -> OIHW (conv, depthwise) as int8 on `device`
+    with its fp32 `scale`; `act_flow`, `flow_pass` and `flow_joiners`
+    are copied."""
+    conv_w = _conv_weight_keys(net)
+    weights = {}
+    for k, entry in quant_np["weights"].items():
+        q = np.asarray(entry["q"])
+        if q.dtype != np.int8:
+            raise ValueError(f"{k}: int8 weights expected, got {q.dtype}")
+        if k in conv_w:
+            q = q.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        weights[k] = {
+            "q": torch.from_numpy(np.array(q, order="C")).to(device),
+            "scale": torch.from_numpy(
+                np.array(entry["scale"], np.float32)).to(device),
+        }
+    out = {
+        "act_scales": {int(i): float(s)
+                       for i, s in quant_np["act_scales"].items()},
+        "weights": weights,
+    }
+    for k in ("act_flow", "flow_pass", "flow_joiners"):
+        if k in quant_np:
+            out[k] = quant_np[k]
+    return out

@@ -1,6 +1,8 @@
 """Graph executor: runs the declarative Net on torch tensors, the ported
 subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny and
-MobileNet-v1 layers), the detection program and the TRAIN step.
+MobileNet-v1 layers) in fp32, at bf16 (net.compute_dtype, net.act_dtype)
+and, in PREDICT, at int8 (net.quant: PTQ with int8 activations between
+layers, the convs on K4), the detection program and the fp32 TRAIN step.
 
 PyTorch runs eagerly, so the executor is a loop over the nodes that
 calls one op per node; nothing is traced, and autograd records the TRAIN
@@ -19,7 +21,7 @@ import torch
 
 from . import ops
 from .graph import Net, Node, TensorKind
-from .types import LayerType, Mode
+from .types import Activation, LayerType, Mode
 
 
 def init_params(
@@ -119,6 +121,27 @@ class _GradSplit(torch.autograd.Function):
 
 _grad_split = _GradSplit.apply
 
+# net attributes that bcnn_tpu honours and the port does not yet, each
+# with the modes in which bcnn_tpu reads it
+_UNPORTED = (
+    ("train_act_dtype", (Mode.TRAIN,)),
+    ("qat", (Mode.TRAIN, Mode.VALID)),
+    ("bn_frozen_stats", (Mode.TRAIN,)),
+    ("yolo_stats", (Mode.TRAIN,)),
+    ("compute_dtype", (Mode.TRAIN,)),
+)
+
+
+def refuse_unported(net: Net, mode: Mode) -> None:
+    """Raise NotImplementedError for a set attribute that `bcnn_tpu`
+    would honour in `mode` and the port cannot: never ignore it."""
+    for attr, modes in _UNPORTED:
+        if mode in modes and getattr(net, attr, None):
+            raise NotImplementedError(
+                f"bcnn_tpu_torch: net.{attr} in {mode.name} mode is not "
+                "ported yet"
+            )
+
 
 class _Executor:
     """One pass over the graph in any mode."""
@@ -138,6 +161,21 @@ class _Executor:
         self.values: Dict[int, torch.Tensor] = {}
         self.surrogate: Optional[torch.Tensor] = None
         self.metrics = []  # per cost node reported value
+        refuse_unported(net, mode)
+        # bcnn_tpu/compile.py:174-215: compute_dtype in every mode (TRAIN
+        # refused above), act_dtype in PREDICT only
+        self.compute_dtype = getattr(net, "compute_dtype", None)
+        self.act_dtype = (
+            getattr(net, "act_dtype", None) if mode == Mode.PREDICT else None
+        )
+        # int8 activation flow (ops.quant.plan_int8_flow): tensor index ->
+        # the scale its int8 codes carry
+        quant = getattr(net, "quant", None)
+        self.int8_flow: Dict[int, float] = {}
+        if quant and mode == Mode.PREDICT and quant.get("act_flow", True):
+            from .ops.quant import plan_int8_flow
+
+            self.int8_flow = plan_int8_flow(net, quant)
 
     def key_of(self, idx: int) -> str:
         return self.net.tensors[idx].key
@@ -188,10 +226,11 @@ class _Executor:
     # ------------------------------------------------------------------ #
 
     def _apply_conv_epilogue(self, node: Node, y, bias_idx, extra):
-        """Bias or BN, then the activation. With batch_norm the bias
-        tensor is the BN shift, added after normalisation; TRAIN
-        normalizes with batch stats and writes the new running stats
-        into `state`."""
+        """Bias or BN, then the activation, in y's dtype (bf16 on the
+        act_dtype path, as `bcnn_tpu/compile.py:316-349` casts). With
+        batch_norm the bias tensor is the BN shift, added after
+        normalisation; TRAIN normalizes with batch stats and writes the
+        new running stats into `state`."""
         p = node.param
         if p.get("batch_norm"):
             mean_k = self.key_of(node.src[extra["mean"]])
@@ -210,44 +249,144 @@ class _Executor:
                     folded=self.net.bn_folded and self.mode == Mode.PREDICT,
                 )
         else:
-            y = y + self.p(bias_idx).reshape(1, -1, 1, 1)
+            y = y + self.p(bias_idx).to(y.dtype).reshape(1, -1, 1, 1)
         return ops.apply_activation(y, p["activation"])
+
+    # -- int8 PTQ and reduced-precision storage (bcnn_tpu/compile.py:388-436)
+
+    def _quant_entry(self, node: Node):
+        """(int8 weight entry, input scale) of a quantized node in
+        PREDICT, else None. Where the flow plan routes the input as int8,
+        the plan's scale is the one its codes carry."""
+        quant = getattr(self.net, "quant", None)
+        if not quant or self.mode != Mode.PREDICT:
+            return None
+        wq = quant["weights"].get(self.key_of(node.src[1]))
+        sx = quant["act_scales"].get(node.src[0])
+        if wq is None or sx is None:
+            return None
+        return wq, self.int8_flow.get(node.src[0], sx)
+
+    def _refuse_quantized(self, node: Node):
+        if self._quant_entry(node) is not None:
+            raise NotImplementedError(
+                f"bcnn_tpu_torch: int8 {node.type.name} is not ported yet"
+            )
+
+    def _deq(self, idx: int, x):
+        """An int8-flow tensor back to fp32 (mixed-input joiners)."""
+        if x.dtype == torch.int8:
+            return x.to(torch.float32) * self.int8_flow[idx]
+        return x
+
+    def _quant_in(self, x, sx: float):
+        """A quantized node's input: already int8 (the plan guarantees
+        its scale is sx), else quantized here."""
+        from .ops.quant import quantize_tensor
+
+        return x if x.dtype == torch.int8 else quantize_tensor(x, sx)
+
+    def _maybe_emit_int8(self, node: Node, y):
+        """Requantize the output when the flow plan says every consumer
+        reads it as int8."""
+        s = self.int8_flow.get(node.dst[0])
+        if s is None:
+            return y
+        from .ops.quant import quantize_tensor
+
+        return quantize_tensor(y, s)
+
+    def _cast_act(self, y):
+        """Boundary cast to act_dtype for fp32 values the conv's own
+        out_dtype misses (a quantized conv's fp32 output, a mixed
+        concat)."""
+        if self.act_dtype is not None and y.dtype == torch.float32:
+            return y.to(self.act_dtype)
+        return y
+
+    def _conv2d_int8(self, node: Node, x, wq, sx: float):
+        """The quantized conv (`bcnn_tpu/compile.py:438-468`): K4 sums the
+        int8 product and runs the dequant, BN or bias, the activation and,
+        where the plan routes the output as int8, the requantize, in one
+        launch on the card. inv = 1 / sqrt(var + eps) takes two correctly
+        rounded ops where bcnn_tpu takes rsqrt, so the card and the CPU
+        agree bit for bit."""
+        from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
+
+        p = node.param
+        if p["num_groups"] != 1:
+            raise NotImplementedError(
+                "bcnn_tpu_torch: int8 grouped CONV2D is not ported yet"
+            )
+        act = p["activation"]
+        fused = act in FUSED_ACT
+        s_out = self.int8_flow.get(node.dst[0]) if fused else None
+        bn = {}
+        if p.get("batch_norm"):
+            bn["scale"] = self.p(node.src[5])
+            if not (self.net.bn_folded and self.mode == Mode.PREDICT):
+                var = self.state[self.key_of(node.src[4])]
+                bn["mean"] = self.state[self.key_of(node.src[3])]
+                bn["inv"] = torch.ones_like(var) / torch.sqrt(
+                    var + ops.norm.EPS)
+        y = conv_int8_fused(
+            self._quant_in(x, sx), wq["q"], wq["scale"] * sx,
+            self.p(node.src[2]), p["stride"], p["pad"],
+            act if fused else Activation.NONE, s_out=s_out, **bn,
+        )
+        if not fused:
+            y = self._maybe_emit_int8(node, ops.apply_activation(y, act))
+        return y
 
     def _conv2d(self, node: Node):
         p = node.param
-        y = ops.conv2d(
-            self.values[node.src[0]],
-            self.p(node.src[1]),
-            p["stride"],
-            p["pad"],
-            p["num_groups"],
-        )
-        extra = {"mean": 3, "var": 4, "scales": 5}
-        self.values[node.dst[0]] = self._apply_conv_epilogue(
-            node, y, node.src[2], extra
-        )
+        x = self.values[node.src[0]]
+        q = self._quant_entry(node)
+        if q is not None:
+            y = self._conv2d_int8(node, x, *q)
+        else:
+            y = ops.conv2d(
+                x, self.p(node.src[1]), p["stride"], p["pad"],
+                p["num_groups"], self.compute_dtype, self.act_dtype,
+            )
+            extra = {"mean": 3, "var": 4, "scales": 5}
+            y = self._maybe_emit_int8(
+                node, self._apply_conv_epilogue(node, y, node.src[2], extra)
+            )
+        self.values[node.dst[0]] = self._cast_act(y)
 
     def _depthwise_conv2d(self, node: Node):
         """The grouped conv, + bias, then the activation, as one K3 launch
-        on the card (the layer parses batch_norm but wires no BN)."""
+        on the card (the layer parses batch_norm but wires no BN). K3
+        takes fp32: with compute_dtype, x and w are rounded to it and
+        back; the output is cast to act_dtype after K3's fp32 bias and
+        activation, where bcnn_tpu adds the bias in bf16 after a bf16
+        round (`bcnn_tpu/compile.py:470-496`), a difference of at most
+        a bf16 rounding."""
+        self._refuse_quantized(node)
         p = node.param
-        self.values[node.dst[0]] = ops.depthwise_fused(
-            self.values[node.src[0]],
-            self.p(node.src[1]),
-            self.p(node.src[2]),
-            p["stride"],
-            p["pad"],
-            p["activation"],
+        x, w = self.values[node.src[0]], self.p(node.src[1])
+        if self.compute_dtype is not None:
+            x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
+        y = ops.depthwise_fused(
+            x.to(torch.float32).contiguous(), w.to(torch.float32),
+            self.p(node.src[2]), p["stride"], p["pad"], p["activation"],
+        )
+        self.values[node.dst[0]] = self._cast_act(
+            self._maybe_emit_int8(node, y)
         )
 
     def _full_connected(self, node: Node):
+        """`bcnn_tpu/compile.py:529-551`: fp32 out, no boundary cast."""
+        self._refuse_quantized(node)
         y = ops.full_connected(
             self.values[node.src[0]],
             self.p(node.src[1]),
             self.p(node.src[2]),
+            self.compute_dtype,
         )
-        self.values[node.dst[0]] = ops.apply_activation(
-            y, node.param["activation"]
+        self.values[node.dst[0]] = self._maybe_emit_int8(
+            node, ops.apply_activation(y, node.param["activation"])
         )
 
     def _maxpool(self, node: Node):
@@ -268,8 +407,24 @@ class _Executor:
         )
 
     def _concat(self, node: Node):
-        self.values[node.dst[0]] = ops.concat_channels(
-            [self.values[i] for i in node.src]
+        """`bcnn_tpu/compile.py:619-643`: a copy, or a shared-scale int8
+        concat, pass int8 through; otherwise int8 inputs are dequantized,
+        and the fp32 result requantized or cast to act_dtype."""
+        xs = [self.values[i] for i in node.src]
+        scs = [self.int8_flow.get(i) for i in node.src]
+        if len(xs) == 1 or (
+            all(x.dtype == torch.int8 for x in xs)
+            and None not in scs
+            and all(s == scs[0] for s in scs)
+            and self.int8_flow.get(node.dst[0]) == scs[0]
+        ):
+            self.values[node.dst[0]] = ops.concat_channels(xs)
+            return
+        y = ops.concat_channels(
+            [self._deq(i, x) for i, x in zip(node.src, xs)]
+        )
+        self.values[node.dst[0]] = self._cast_act(
+            self._maybe_emit_int8(node, y)
         )
 
     def _upsample(self, node: Node):
@@ -283,8 +438,11 @@ class _Executor:
         p = dict(node.param)
         p["net_w"] = self.net.tensors[0].w
         p["net_h"] = self.net.tensors[0].h
+        # the head in fp32 whatever the activation dtype (bcnn_tpu/
+        # compile.py:685)
         y, aux = yolo_ops.yolo_forward(
-            self.values[node.src[0]], self.values.get(1), p, self.mode
+            self.values[node.src[0]].to(torch.float32), self.values.get(1),
+            p, self.mode,
         )
         self.values[node.dst[0]] = y
         if aux is not None:
@@ -316,8 +474,13 @@ def execute(
 
 
 def output_value(ex: _Executor, i: int) -> torch.Tensor:
-    """Tensor i as the caller sees it: NCHW, the executor's own layout."""
-    return ex.values[i]
+    """Tensor i as the caller sees it: NCHW, the executor's own layout;
+    an int8-flow tensor dequantized with its planned scale
+    (`bcnn_tpu/compile.py:765-771`)."""
+    v = ex.values[i]
+    if v.dtype == torch.int8:
+        v = v.to(torch.float32) * ex.int8_flow[i]
+    return v
 
 
 def get_loss(ex: _Executor) -> torch.Tensor:
@@ -340,7 +503,9 @@ def make_detect_fn(
     topk_first selects on the objectness logits and decodes only the
     selected rows; otherwise every candidate is decoded, by the K1 CUDA
     kernel (`ops.yolo_decode.decode_fused`, the port of the Pallas
-    kernel) when use_pallas is set, else by its plain version."""
+    kernel) when use_pallas is set, else by its plain version. Heads in
+    bf16 (act_dtype) are decoded in bf16 as `bcnn_tpu` decodes them,
+    except by K1, which takes fp32: its input is cast up."""
     from .ops.yolo import device_decode_nms, device_detect_topk
     from .ops.yolo_decode import decode_fused, decode_grid_ref
 
@@ -361,10 +526,13 @@ def make_detect_fn(
                 raws, [prm for _, prm in yolo_nodes],
                 net_w, net_h, max_dets=max_dets, thresh=thresh,
             )
-        dec = decode_fused if use_pallas else decode_grid_ref
         all_b, all_o, all_p = [], [], []
         for raw, (_, prm) in zip(raws, yolo_nodes):
-            b, o, p = dec(raw, prm, net_w, net_h)
+            if use_pallas:
+                b, o, p = decode_fused(raw.to(torch.float32), prm, net_w,
+                                       net_h)
+            else:
+                b, o, p = decode_grid_ref(raw, prm, net_w, net_h)
             all_b.append(b)
             all_o.append(o)
             all_p.append(p)
@@ -441,6 +609,7 @@ def make_train_step(
         raise NotImplementedError(
             "bcnn_tpu_torch: remat and accum_steps are not ported yet"
         )
+    refuse_unported(net, Mode.TRAIN)
     if device_augment is None:
         device_augment = getattr(net, "device_augment", None)
     loss_fn = _make_train_loss_fn(net, device_augment)

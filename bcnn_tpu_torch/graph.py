@@ -124,6 +124,16 @@ class Net:
         # True once BN constants were folded into scales/biases
         # (bcnn_net.c:1281-1292 semantics)
         self.bn_folded = False
+        # precision knobs, as bcnn_tpu/compile.py:174-215 reads them (None:
+        # fp32 throughout, the parity path):
+        # - compute_dtype (torch.bfloat16): bf16 conv/FC inputs, fp32
+        #   accumulation and master params (PREDICT/VALID; TRAIN raises);
+        # - act_dtype (torch.bfloat16): bf16 activations between layers in
+        #   PREDICT;
+        # - quant: the int8 PTQ dict of ops.quant (PREDICT only).
+        self.compute_dtype = None
+        self.act_dtype = None
+        self.quant = None
         self._used_keys: set = set()
         # tensor 0: input, tensor 1: label (bcnn_net.c:67-77)
         self.add_tensor(TensorSpec(name="input"))

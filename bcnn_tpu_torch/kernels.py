@@ -127,6 +127,14 @@ def library() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.bcnn_depthwise.restype = ctypes.c_int
+    lib.bcnn_conv_int8.argtypes = [
+        p, p, p, p, p, p, p, p,  # x, w, d, scale, bias, mean, inv, out
+        i, i, i, i,             # n, c, h, w
+        i, i, i, i,             # o, k, stride, pad
+        i, i, i, f,             # bn, act, out_int8, s_out
+        p,                      # stream
+    ]
+    lib.bcnn_conv_int8.restype = ctypes.c_int
     lib.bcnn_cuda_error_string.argtypes = [i]
     lib.bcnn_cuda_error_string.restype = ctypes.c_char_p
     return lib

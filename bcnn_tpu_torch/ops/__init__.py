@@ -5,7 +5,9 @@ pooling, FC, softmax, concat, upsample, the detection tail and training
 deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
 (`yolo_decode.decode_fused`, K1; `row_shift.row_shift` and
 `row_shift.col_shift`, K2;
-`depthwise.depthwise_fused`, K3).
+`depthwise.depthwise_fused`, K3), and for the int8 conv that PyTorch
+lacks on CUDA (`conv_int8.conv_int8_fused`, K4). `quant` holds the int8
+post-training quantization.
 """
 
 from .activations import apply_activation

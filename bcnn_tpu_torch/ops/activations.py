@@ -1,34 +1,120 @@
 """Activation functions, as `bcnn_tpu.ops.activations.apply_activation`
 computes them (bcnn_activation_layer.c:90-163): LRELU has slope 0.1 and
-RAMP is x*(x>0) + 0.1*x. PRELU is not ported yet."""
+RAMP is x*(x>0) + 0.1*x. PRELU is not ported yet.
+
+Where a gradient is recorded, RELU, ABS and CLAMP take JAX's gradient at
+their kinks (`bcnn_tpu/ops/activations.py:67-78`: `jnp.maximum` splits a
+tie, `jnp.abs` takes the + side, `jnp.clip` is a max then a min), not
+PyTorch's: RELU 0.5 at 0 (PyTorch 0), ABS 1 at 0 (PyTorch 0), CLAMP 0.5
+at 0 and at 1 (PyTorch 1).
+
+A constant meets x in x's dtype (`weak`): JAX rounds the 0.1 of LRELU to
+bf16 before it multiplies a bf16 x, where PyTorch would multiply by the
+fp32 0.1.
+"""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..types import Activation
 
 
+def weak(v: float, x: torch.Tensor):
+    """v as a constant that rounds to x's dtype first, as a weak-typed
+    Python number does in JAX: the float itself for an fp32 x, else a 0-d
+    CPU tensor of x's dtype (made once)."""
+    return v if x.dtype == torch.float32 else _weak_tensor(v, x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _weak_tensor(v: float, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(v, dtype=dtype)
+
+
+def in_f32(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) taken in fp32 and rounded to x's dtype once, as XLA takes a
+    transcendental on a bf16 operand. (PyTorch's CPU kernels may round a
+    bf16 rsqrt twice, after the sqrt and after the reciprocal.)"""
+    if x.dtype == torch.float32:
+        return fn(x)
+    return fn(x.to(torch.float32)).to(x.dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function. On bf16, as XLA expands `jax.nn.sigmoid`:
+    1 / (1 + exp(-x)) with each step rounded to bf16 (`torch.sigmoid`
+    rounds once, and differs in a third of the values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+
+    def r(t):  # round to x's dtype, carry on in fp32
+        return t.to(x.dtype).to(torch.float32)
+
+    e = r(torch.exp(-x.to(torch.float32)))
+    return (1.0 / r(e + 1.0)).to(x.dtype)
+
+
+class _KinkGrad(torch.autograd.Function):
+    """y = fn(x) with dy/dx = slope(x), both given per activation."""
+
+    @staticmethod
+    def forward(ctx, x, act):
+        ctx.save_for_backward(x)
+        ctx.act = act
+        return _FORWARD[act](x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _SLOPE[ctx.act](x).to(g.dtype), None
+
+
+def _relu_slope(x):
+    return torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+
+
+def _abs_slope(x):
+    return torch.where(x >= 0, 1.0, -1.0)
+
+
+def _clamp_slope(x):
+    inside = (x > 0) & (x < 1)
+    return torch.where(inside, 1.0, torch.where((x == 0) | (x == 1), 0.5, 0.0))
+
+
+_FORWARD = {
+    Activation.RELU: torch.relu,
+    Activation.ABS: torch.abs,
+    Activation.CLAMP: lambda x: torch.clamp(x, 0.0, 1.0),
+}
+_SLOPE = {
+    Activation.RELU: _relu_slope,
+    Activation.ABS: _abs_slope,
+    Activation.CLAMP: _clamp_slope,
+}
+
+
 def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
     if act == Activation.NONE:
         return x
+    if act in _FORWARD:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _KinkGrad.apply(x, act)
+        return _FORWARD[act](x)
     if act == Activation.TANH:
         return torch.tanh(x)
-    if act == Activation.RELU:
-        return torch.relu(x)
     if act == Activation.LRELU:
-        return torch.where(x > 0, x, 0.1 * x)
+        return torch.where(x > 0, x, weak(0.1, x) * x)
     if act == Activation.RAMP:
-        return x * (x > 0) + 0.1 * x
+        return x * (x > 0) + weak(0.1, x) * x
     if act == Activation.SOFTPLUS:
         # logaddexp(x, 0), as jnp.logaddexp(x, 0.0)
         return torch.logaddexp(x, torch.zeros_like(x))
-    if act == Activation.ABS:
-        return torch.abs(x)
-    if act == Activation.CLAMP:
-        return torch.clamp(x, 0.0, 1.0)
     if act == Activation.LOGISTIC:
-        return torch.sigmoid(x)
+        return sigmoid(x)
     if act == Activation.PRELU:
         raise NotImplementedError("PRELU is not ported to bcnn_tpu_torch yet")
     raise ValueError(f"unknown activation {act}")

@@ -1,6 +1,6 @@
-"""fp32 convolution, the counterpart of `bcnn_tpu.ops.conv.conv2d` on its
-fp32 path (`lax.conv_general_dilated` at Precision.HIGHEST), in both
-directions.
+"""Convolution, the counterpart of `bcnn_tpu.ops.conv.conv2d`: fp32 (its
+`lax.conv_general_dilated` at Precision.HIGHEST) in both directions, and
+the bf16 forwards of PREDICT/VALID (`bcnn_tpu/ops/conv.py:192-222`).
 
 The JAX package leaves the conv to XLA, outside any Pallas kernel, so the
 port leaves it to cuDNN. cuDNN runs fp32 convs in TF32 by default (about
@@ -11,6 +11,15 @@ in TF32. So the conv is an `autograd.Function` whose backward calls
 
 Layouts: activations NCHW, weights OIHW. Output size (h + 2p - k)/s + 1,
 as the builder computes it (bcnn_conv_layer.c:126-135).
+
+bf16 (compute_dtype set), two cases:
+  - out_dtype set too (bench.py's act_dtype path): cuDNN's bf16 conv, a
+    bf16 output from an fp32 sum, as XLA lowers this conv;
+  - out_dtype unset: bf16 inputs, fp32 sum and output. A bf16 cuDNN call
+    cannot give fp32, so x and w are rounded to bf16, cast back, and
+    convolved in fp32 with TF32 allowed: a bf16 value has 8 significant
+    bits and fits TF32's 11, so every product is exact either way and
+    the result is that of the fp32 conv of the rounded inputs.
 """
 
 from __future__ import annotations
@@ -19,13 +28,13 @@ import torch
 import torch.nn.functional as F
 
 
-def _no_tf32():
+def _tf32(allow: bool):
     cudnn = torch.backends.cudnn
     return cudnn.flags(
         enabled=cudnn.enabled,
         benchmark=cudnn.benchmark,
         deterministic=cudnn.deterministic,
-        allow_tf32=False,
+        allow_tf32=allow,
     )
 
 
@@ -34,14 +43,14 @@ class _Conv2dFp32(torch.autograd.Function):
     def forward(ctx, x, w, stride, pad, groups):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, pad, groups)
-        with _no_tf32():
+        with _tf32(False):
             return F.conv2d(x, w, None, stride, pad, 1, groups)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         stride, pad, groups = ctx.conf
-        with _no_tf32():
+        with _tf32(False):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, [stride] * 2, [pad] * 2, [1, 1], False,
                 [0, 0], groups,
@@ -51,13 +60,33 @@ class _Conv2dFp32(torch.autograd.Function):
 
 
 def conv2d(
-    x: torch.Tensor, w: torch.Tensor, stride: int, pad: int, groups: int = 1
+    x: torch.Tensor,
+    w: torch.Tensor,
+    stride: int,
+    pad: int,
+    groups: int = 1,
+    compute_dtype=None,
+    out_dtype=None,
 ) -> torch.Tensor:
     """x: (N,C,H,W), w: (O,C//groups,k,k) -> (N,O,H',W'), in fp32 in the
-    forward and, where autograd records it, in the backward."""
+    forward and, where autograd records it, in the backward; with
+    compute_dtype, bf16 forwards only (see the module's docstring). An x
+    stored in bf16 without compute_dtype is cast up to fp32."""
+    if compute_dtype is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise NotImplementedError(
+                "conv2d: the bf16 conv backward is not ported yet"
+            )
+        xc, wc = x.to(compute_dtype), w.to(compute_dtype)
+        if out_dtype is not None:
+            return F.conv2d(xc, wc, None, stride, pad, 1, groups).to(out_dtype)
+        with _tf32(True):
+            return F.conv2d(xc.to(torch.float32), wc.to(torch.float32), None,
+                            stride, pad, 1, groups)
+    x = x.to(torch.float32)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv2dFp32.apply(x, w, stride, pad, groups)
-    with _no_tf32():
+    with _tf32(False):
         return F.conv2d(x, w, None, stride, pad, 1, groups)
 
 

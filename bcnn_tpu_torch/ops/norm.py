@@ -1,7 +1,9 @@
 """Batch normalization, as `bcnn_tpu.ops.norm.batch_norm` computes it
 (bcnn_batchnorm_layer.c:147-245), on NCHW tensors.
 
-PREDICT/VALID:
+PREDICT/VALID, in x's dtype (bf16 on the act_dtype path: every
+per-channel tensor is cast to it, as bcnn_tpu/ops/norm.py:119-122 and
+its executor do):
   unfolded: (x - run_mean) * rsqrt(run_var + 1e-6) * scales + biases
   folded:   x * scales + biases   (constants folded at weight load,
                                    bcnn_net.c:1281-1292)
@@ -23,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from .activations import in_f32, weak
+
 EPS = 1e-6
 EPS_BWD = 1e-5  # the reference backward's eps (bcnn_batchnorm_layer.c:278)
 RUN_MOMENTUM = 0.9
@@ -42,10 +46,13 @@ def batch_norm(
     folded: bool = False,
 ) -> torch.Tensor:
     """x: NCHW; the other tensors are per channel (C,)."""
+    scales, biases, run_mean, run_var = (
+        v.to(x.dtype) for v in (scales, biases, run_mean, run_var)
+    )
     if folded:
         return x * _per_channel(scales) + _per_channel(biases)
-    x_norm = (x - _per_channel(run_mean)) * torch.rsqrt(
-        _per_channel(run_var) + EPS
+    x_norm = (x - _per_channel(run_mean)) * in_f32(
+        torch.rsqrt, _per_channel(run_var) + weak(EPS, x)
     )
     return x_norm * _per_channel(scales) + _per_channel(biases)
 

@@ -8,6 +8,11 @@ exactly what the builder's output size needs, and then pooled with no
 padding. `F.max_pool2d(padding=...)` pads both sides and would shift the
 windows; `lid12` of YOLOv3-tiny (size 2, stride 1, SAME) needs exactly
 this one-sided pad.
+
+An int8 tensor (the int8 activation flow) pads with the int8 minimum, as
+the JAX package does (bcnn_tpu/ops/pool.py:108-118), and is pooled as an
+exact bf16 copy (every int8 value is exact there) cast back:
+`F.max_pool2d` has no int8 kernel on CUDA (torch 2.11 on an H100).
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ def maxpool(
     pad_h = max(0, (out_h - 1) * stride + size - h)
     pad_w = max(0, (out_w - 1) * stride + size - w)
     if pad_h or pad_w:
-        x = F.pad(x, (0, pad_w, 0, pad_h), value=float("-inf"))
+        fill = float("-inf") if x.is_floating_point() else torch.iinfo(
+            x.dtype).min
+        x = F.pad(x, (0, pad_w, 0, pad_h), value=fill)
+    if x.dtype == torch.int8:
+        return F.max_pool2d(x.to(torch.bfloat16), size, stride).to(torch.int8)
     return F.max_pool2d(x, size, stride)
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..types import DETECTION_MAX_BOXES, Mode
+from .activations import in_f32, sigmoid
 
 NMS_THRESH = 0.45  # bcnn_yolo.c:626
 NOOBJ_IOU_THRESH = 0.5  # bcnn_yolo.c:310
@@ -35,7 +36,7 @@ def yolo_head(x: torch.Tensor, num: int, classes: int) -> torch.Tensor:
     n, c, h, w = x.shape
     y = x.reshape(n, num, 5 + classes, h, w)
     y = torch.cat(
-        [torch.sigmoid(y[:, :, 0:2]), y[:, :, 2:4], torch.sigmoid(y[:, :, 4:])],
+        [sigmoid(y[:, :, 0:2]), y[:, :, 2:4], sigmoid(y[:, :, 4:])],
         dim=2,
     )
     return y.reshape(n, c, h, w)
@@ -68,8 +69,8 @@ def _decode_grid(y, anchors_wh, mask, net_w, net_h):
     ah = torch.tensor([anchors_wh[2 * m + 1] for m in mask], **opts)
     bx = (col + y[..., 0]) / w
     by = (row + y[..., 1]) / h
-    bw = torch.exp(y[..., 2]) * aw / net_w
-    bh = torch.exp(y[..., 3]) * ah / net_h
+    bw = in_f32(torch.exp, y[..., 2]) * aw / net_w
+    bh = in_f32(torch.exp, y[..., 3]) * ah / net_h
     return bx, by, bw, bh
 
 
@@ -313,7 +314,7 @@ def device_detect_topk(
         off += h * w * num
 
     objl = torch.cat([fh[..., 4] for fh in flat_heads], dim=1)
-    masked = torch.where(torch.sigmoid(objl) > thresh, objl, float("-inf"))
+    masked = torch.where(sigmoid(objl) > thresh, objl, float("-inf"))
     k = min(max_dets, masked.shape[1])
     topv_l, topi = _top_k(masked, k)
     valid = topv_l > float("-inf")
@@ -329,13 +330,13 @@ def device_detect_topk(
         meta, topi.device
     )[:, topi]
 
-    bx = (csel + torch.sigmoid(sel[..., 0])) / gwsel
-    by = (rsel + torch.sigmoid(sel[..., 1])) / ghsel
-    bw = torch.exp(sel[..., 2]) * awsel / net_w
-    bh = torch.exp(sel[..., 3]) * ahsel / net_h
+    bx = (csel + sigmoid(sel[..., 0])) / gwsel
+    by = (rsel + sigmoid(sel[..., 1])) / ghsel
+    bw = in_f32(torch.exp, sel[..., 2]) * awsel / net_w
+    bh = in_f32(torch.exp, sel[..., 3]) * ahsel / net_h
     bsel = torch.stack([bx, by, bw, bh], dim=-1)
-    obj = torch.sigmoid(sel[..., 4]) * valid
-    psel = obj[..., None] * torch.sigmoid(sel[..., 5 : 5 + classes])
+    obj = sigmoid(sel[..., 4]) * valid
+    psel = obj[..., None] * sigmoid(sel[..., 5 : 5 + classes])
 
     keep = _greedy_nms_mask(bsel, valid, nms_thresh)
     psel, obj = psel * keep[..., None], obj * keep

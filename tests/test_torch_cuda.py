@@ -338,3 +338,125 @@ def test_fc_on_the_card_is_fp32(cuda):
     got = ops.full_connected(x.to(cuda), w.to(cuda), b.to(cuda)).cpu()
     torch.testing.assert_close(got.reshape(64, -1), ref, rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------ K4, bf16 and int8 paths
+
+from bcnn_tpu_torch.ops import conv as conv_ops  # noqa: E402
+from bcnn_tpu_torch.ops import pool as pool_ops  # noqa: E402
+from bcnn_tpu_torch.ops.conv_int8 import (conv_int8_fused,  # noqa: E402
+                                          conv_int8_fused_ref)
+from bcnn_tpu_torch.ops.quant import ptq_synthetic  # noqa: E402
+
+
+@pytest.mark.parametrize(
+    "n,c,h,w,o,k,stride,pad,bn,act,int8_out",
+    [(1, 3, 9, 9, 16, 3, 1, 1, 2, Activation.LRELU, True),  # K = 27
+     (1, 16, 13, 13, 255, 1, 1, 0, 0, Activation.NONE, False),  # a head
+     (2, 8, 13, 11, 70, 3, 2, 1, 1, Activation.RELU, True),  # stride 2
+     (3, 7, 6, 5, 12, 3, 1, 1, 2, Activation.NONE, True),  # K = 63
+     (1, 64, 13, 13, 130, 3, 1, 1, 2, Activation.LRELU, False),  # ragged
+     (2, 20, 7, 7, 9, 5, 2, 0, 0, Activation.LRELU, True)],
+)
+def test_k4_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad, bn,
+                                  act, int8_out):
+    gen = torch.Generator().manual_seed(c * o)
+    x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
+                      dtype=torch.int8)
+    wt = torch.randint(-127, 128, (o, c, k, k), generator=gen,
+                       dtype=torch.int8)
+    vec = lambda lo, hi: (lo + (hi - lo) * torch.rand(o, generator=gen)  # noqa
+                          ).to(cuda)
+    kw = dict(act=act, s_out=0.1 if int8_out else None)
+    if bn >= 1:
+        kw["scale"] = vec(0.5, 1.5)
+    if bn == 2:
+        kw["mean"], kw["inv"] = vec(-0.1, 0.1), vec(0.8, 1.2)
+    args = (x.to(cuda), wt.to(cuda), vec(1e-5, 1e-4), vec(-1, 1), stride,
+            pad)
+    before = conv_int8_fused.launches
+    got = conv_int8_fused(*args, **kw)
+    want = conv_int8_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert conv_int8_fused.launches == before + 1
+    assert got.dtype == (torch.int8 if int8_out else torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 4, 5, 5, dtype=torch.int8, device=cuda)
+    w = torch.zeros(3, 4, 3, 3, dtype=torch.int8, device=cuda)
+    d = b = torch.ones(3, device=cuda)
+    with pytest.raises(TypeError):
+        conv_int8_fused(x.float(), w, d, b, 1, 1)
+    with pytest.raises(ValueError):
+        conv_int8_fused(x, w[:, :2], d, b, 1, 1)  # groups
+    with pytest.raises(ValueError):
+        conv_int8_fused(x, w, d, b, 1, 1, act=Activation.TANH)
+    with pytest.raises(ValueError):
+        conv_int8_fused(x.transpose(2, 3), w, d, b, 1, 1)
+    with pytest.raises(ValueError):
+        conv_int8_fused(x, w, d.cpu(), b, 1, 1)
+
+
+def test_bf16_conv_with_fp32_out_is_the_fp32_conv_of_rounded_inputs(cuda):
+    """conv2d(compute_dtype=bf16) without out_dtype runs the fp32 conv of
+    the bf16-rounded inputs with TF32 allowed: every product is exact in
+    TF32, so it equals the TF32-off fp32 conv of those inputs up to the
+    order of the sum."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 26, 26, generator=gen).to(cuda)
+    w = torch.randn(128, 64, 3, 3, generator=gen).to(cuda)
+    got = conv_ops.conv2d(x, w, 1, 1, 1, torch.bfloat16)
+    xr, wr = x.bfloat16().float(), w.bfloat16().float()
+    want = conv_ops.conv2d(xr, wr, 1, 1)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    bf = conv_ops.conv2d(x, w, 1, 1, 1, torch.bfloat16, torch.bfloat16)
+    assert bf.dtype == torch.bfloat16
+    torch.testing.assert_close(bf.float(), want, rtol=2**-7, atol=1e-2)
+
+
+def test_maxpool_on_int8(cuda):
+    x = torch.randint(-127, 128, (2, 5, 13, 13), dtype=torch.int8)
+    for size, stride, oh in ((2, 2, 7), (2, 1, 13)):
+        got = pool_ops.maxpool(x.to(cuda), size, stride, oh, oh)
+        assert got.dtype == torch.int8
+        assert torch.equal(got.cpu(), pool_ops.maxpool(x, size, stride, oh,
+                                                       oh))
+
+
+def test_int8_detect_on_the_card_equals_the_cpu(cuda):
+    """One quant dict, made on the CPU, for both sessions: every int8
+    flow tensor and both raw heads equal, 13 K4 launches a request."""
+    from bcnn_tpu_torch.compile import execute
+
+    net = yolov3_tiny(2, 96, 96, 4)
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    cpu = Session(net, 0, device="cpu").compile_net()
+    ptq_synthetic(net, cpu)
+    gpu = Session(net, 0, device=cuda)
+    gpu.params = {k: v.to(cuda) for k, v in cpu.params.items()}
+    gpu.state = {k: v.to(cuda) for k, v in cpu.state.items()}
+    gpu.compile_net()
+    quant_cpu = net.quant
+    quant_gpu = dict(quant_cpu, weights={
+        k: {kk: vv.to(cuda) for kk, vv in e.items()}
+        for k, e in quant_cpu["weights"].items()})
+    x = torch.rand(2, 3, 96, 96, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = execute(net, cpu.params, cpu.state, {"input": x},
+                       Mode.PREDICT)
+        net.quant = quant_gpu
+        before = conv_int8_fused.launches
+        got = execute(net, gpu.params, gpu.state, {"input": x.to(cuda)},
+                      Mode.PREDICT)
+        torch.cuda.synchronize()
+        assert conv_int8_fused.launches == before + 13
+    net.quant = quant_cpu
+    n_int8 = 0
+    for i, v in want.values.items():
+        if v.dtype in (torch.int8, torch.bfloat16) and v.dim() == 4:
+            n_int8 += v.dtype == torch.int8
+            assert torch.equal(got.values[i].cpu(), v), net.tensors[i].name
+    assert n_int8 >= 10

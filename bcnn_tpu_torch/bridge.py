@@ -149,8 +149,9 @@ def quant_from_numpy(
     """A JAX `net.quant` (`bcnn_tpu.ops.quant`: PTQ scales and int8
     weights, leaves as numpy arrays or JAX arrays) as the port's:
     `act_scales` keep their tensor-index keys and float values; each
-    weight's `q` goes HWIO -> OIHW (conv, depthwise) as int8 on `device`
-    with its fp32 `scale`; `act_flow`, `flow_pass` and `flow_joiners`
+    weight's `q` goes HWIO -> OIHW (conv, depthwise; held channels-last,
+    as `ops.quant.quantize_weights` holds it) as int8 on `device` with its
+    fp32 `scale`; `act_flow`, `flow_pass` and `flow_joiners`
     are copied."""
     conv_w = _conv_weight_keys(net)
     weights = {}
@@ -158,10 +159,12 @@ def quant_from_numpy(
         q = np.asarray(entry["q"])
         if q.dtype != np.int8:
             raise ValueError(f"{k}: int8 weights expected, got {q.dtype}")
-        if k in conv_w:
-            q = q.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        t = torch.from_numpy(np.array(q, order="C"))
+        if k in conv_w:  # HWIO -> OIHW, (O, H, W, I) in memory
+            t = t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
         weights[k] = {
-            "q": torch.from_numpy(np.array(q, order="C")).to(device),
+            "q": t.to(device),
             "scale": torch.from_numpy(
                 np.array(entry["scale"], np.float32)).to(device),
         }

@@ -9,8 +9,9 @@ calls one op per node; nothing is traced, and autograd records the TRAIN
 forward for the backward. Conventions:
   - `params`: dict key -> tensor, the learned tensors (PARAM specs);
   - `state`:  dict key -> tensor, BN running stats (STATE specs);
-  - `values`: tensor index -> tensor; activations are NCHW throughout,
-    conv weights OIHW.
+  - `values`: tensor index -> tensor; activations have NCHW shapes
+    throughout, conv weights OIHW; the int8 flow's activations are held
+    channels-last (NHWC in memory), the layout K4 reads and writes.
 """
 
 from __future__ import annotations
@@ -281,14 +282,15 @@ class _Executor:
 
     def _quant_in(self, x, sx: float):
         """A quantized node's input: already int8 (the plan guarantees
-        its scale is sx), else quantized here."""
+        its scale is sx; its producer wrote it channels-last), else
+        quantized here, straight into channels-last."""
         from .ops.quant import quantize_tensor
 
         return x if x.dtype == torch.int8 else quantize_tensor(x, sx)
 
     def _maybe_emit_int8(self, node: Node, y):
         """Requantize the output when the flow plan says every consumer
-        reads it as int8."""
+        reads it as int8: channels-last, the int8 flow's layout."""
         s = self.int8_flow.get(node.dst[0])
         if s is None:
             return y
@@ -308,9 +310,10 @@ class _Executor:
         """The quantized conv (`bcnn_tpu/compile.py:438-468`): K4 sums the
         int8 product and runs the dequant, BN or bias, the activation and,
         where the plan routes the output as int8, the requantize, in one
-        launch on the card. inv = 1 / sqrt(var + eps) takes two correctly
-        rounded ops where bcnn_tpu takes rsqrt, so the card and the CPU
-        agree bit for bit."""
+        launch on the card, on channels-last x and the quant weight, held
+        channels-last since it was made. inv = 1 /
+        sqrt(var + eps) takes two correctly rounded ops where bcnn_tpu
+        takes rsqrt, so the card and the CPU agree bit for bit."""
         from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
 
         p = node.param

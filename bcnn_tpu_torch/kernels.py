@@ -132,12 +132,20 @@ def library() -> ctypes.CDLL:
         i, i, i, i,             # n, c, h, w
         i, i, i, i,             # o, k, stride, pad
         i, i, i, f,             # bn, act, out_int8, s_out
+        i, i, i, p, p,          # plan: cfg, splits, split_steps; ws, counters
         p,                      # stream
     ]
     lib.bcnn_conv_int8.restype = ctypes.c_int
     lib.bcnn_cuda_error_string.argtypes = [i]
     lib.bcnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the tile plans'
+    target)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

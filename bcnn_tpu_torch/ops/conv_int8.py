@@ -23,14 +23,27 @@ so it is exact in any order; cuDNN is kept out of it, so no transform
 algorithm rounds), then the epilogue as separate torch ops in that
 order. K4 rounds each step as those ops do and is bit-equal to it.
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back.
-`conv_int8_fused.launches` counts the kernel's launches.
+Layouts: the int8 program holds its int8 activations channels-last
+(logical NCHW, NHWC in memory), and K4 takes x so and w (O, C, k, k)
+channels-last, i.e. (O, k, k, C) in memory, k in (r, s, c) order (the
+quant dicts hold their weights so; `channels_last_weight` repacks
+another). It
+writes an int8 output channels-last and an fp32 output (the linear
+heads) NCHW-contiguous, as the heads' readers take them.
+
+The wrapper runs the plain version only for tensors on the CPU, and
+returns the same layouts there. For CUDA tensors it launches the kernel
+or raises, also on an x or w that is not channels-last; nothing falls
+back and nothing is copied. `plan_conv_int8` chooses the kernel's tile
+and its split of K here, where the CPU tests reach it; the kernel checks
+the plan. `conv_int8_fused.launches` counts the kernel's launches: one
+a call, split or not (a split launch first zeroes its tiles' counters
+with one `cudaMemsetAsync` on the same stream, which is not counted).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,14 +51,116 @@ import torch.nn.functional as F
 from .. import kernels
 from ..types import Activation
 
-# the kernel's tile: output pixels and output channels a block, the
-# reduction depth of one step (one mma.m16n8k32), threads a block, the
-# bytes of a shared-memory row (32 + 16 of padding);
-# tests/test_torch_conv_int8_plan.py emulates the kernel with them
-TILE_M, TILE_N, TILE_K, THREADS, ROW_BYTES = 128, 64, 32, 256, 48
+# the kernel's tile shapes (csrc/conv_int8.cu kCfgs): output pixels and
+# output channels a block, warps along each; the reduction depth of one
+# mma.m16n8k32, the k values of a stage (two of them) and the stages of
+# a block's ring; tests/test_torch_conv_int8_plan.py emulates the kernel
+# with them
+CONFIGS = ((128, 64, 4, 2), (64, 64, 2, 2), (128, 32, 4, 1), (128, 16, 4, 1))
+TILE_K, STAGE_K, STAGES = 32, 64, 4
+# The plan's rules, from timing every tile shape and split at the 13
+# YOLOv3-tiny convs on an H100 (tools/k4_compare.py --sweep, PERF.md):
+# 128 x 32 tiles where K is deep, 128 x 64 where they make two blocks an
+# SM, else 64 x 64; K split only where it is deeper still and the tiles
+# make fewer than two blocks an SM (a split costs a partial round trip
+# and a counter reset that the short-K layers do not earn back).
+DEEP_K, SPLIT_K = 1024, 2048
+SMEM_BLOCK = 232448  # shared memory a block may take, bytes (227 KB)
 
 # the activations K4 fuses, and their codes in csrc/conv_int8.cu
 FUSED_ACT = {Activation.NONE: 0, Activation.RELU: 1, Activation.LRELU: 2}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ConvPlan(NamedTuple):
+    """The tiles and the split of K of one K4 launch."""
+
+    cfg: int          # index into CONFIGS
+    bm: int           # output pixels a tile
+    bn: int           # output channels a tile
+    threads: int      # threads a block
+    tiles_m: int
+    tiles_n: int
+    splits: int       # blocks a tile, each a run of K
+    split_steps: int  # stages of STAGE_K k values a run
+    steps: int        # stages in all
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the ring, or the staged
+        output tile that reuses it (fp32 transposed, rows of bm + 4
+        floats; int8, rows of `int8_stage_row(bn)` bytes)."""
+        ring = STAGES * (self.bm + self.bn) * STAGE_K
+        return max(ring, self.bn * (self.bm + 4) * 4,
+                   self.bm * int8_stage_row(self.bn))
+
+    @property
+    def workspace_ints(self) -> int:
+        """int32 partial sums of a split launch (0 without a split)."""
+        if self.splits == 1:
+            return 0
+        return self.tiles_m * self.tiles_n * self.splits * self.bm * self.bn
+
+
+def int8_stage_row(bn: int) -> int:
+    """Bytes of a pixel's row in the staged int8 output tile: bn and 16
+    or 32 more, an odd number of 16-byte units, so that the epilogue's
+    2-byte writes of a warp land on 32 banks."""
+    return bn + (32 if (bn // 16) % 2 else 16)
+
+
+def out_size(h: int, w: int, k: int, stride: int, pad: int):
+    return (max(0, (h + 2 * pad - k) // stride + 1),
+            max(0, (w + 2 * pad - k) // stride + 1))
+
+
+def plan_conv_int8(n: int, c: int, h: int, w: int, o: int, k: int,
+                   stride: int, pad: int, sms: int = 132) -> ConvPlan:
+    """K4's plan for x (n, c, h, w), o output channels, a k x k window:
+    for O <= 16 or <= 32 the tile of that width; else 128 x 32 where K =
+    C k k is at least DEEP_K, 128 x 64 where that makes two blocks an
+    SM, else 64 x 64; then, where K is at least SPLIT_K and the tiles
+    make fewer than two blocks an SM (the deepest 13x13 layers), K split
+    into the fewest runs of whole stages that reach two, as even as
+    whole stages go, every run non-empty."""
+    oh, ow = out_size(h, w, k, stride, pad)
+    m = n * oh * ow
+    if m < 1 or o < 1 or c < 1:
+        raise ValueError(f"plan_conv_int8: no output for {(n, c, h, w)} "
+                         f"-> {o}, k {k}, stride {stride}, pad {pad}")
+    kdim = c * k * k
+    steps = _cdiv(kdim, STAGE_K)
+    if o <= 16:
+        cfg = 3
+    elif o <= 32 or kdim >= DEEP_K:
+        cfg = 2
+    else:
+        cfg = 0 if _cdiv(m, 128) * _cdiv(o, 64) >= 2 * sms else 1
+    bm, bn, wm, wn = CONFIGS[cfg]
+    tiles_m, tiles_n = _cdiv(m, bm), _cdiv(o, bn)
+    target = 2 * sms if kdim >= SPLIT_K else 1
+    for want in range(1, steps + 1):
+        split_steps = _cdiv(steps, want)  # runs as even as whole stages go
+        splits = _cdiv(steps, split_steps)
+        if tiles_m * tiles_n * splits >= target:
+            break
+    return ConvPlan(cfg, bm, bn, 32 * wm * wn, tiles_m, tiles_n, splits,
+                    split_steps, steps)
+
+
+def channels_last_weight(w: torch.Tensor) -> torch.Tensor:
+    """w (O, C, k, k) held channels-last, (O, k, k, C) in memory: K4's
+    (r, s, c) order of k; w itself where it is so already. The quant
+    dicts hold their conv weights so from the start; this repack is for
+    weights made elsewhere."""
+    return w.contiguous(memory_format=torch.channels_last)
 
 
 def _vec(v: torch.Tensor) -> torch.Tensor:
@@ -111,16 +226,20 @@ def conv_int8_fused(
     s_out: Optional[float] = None,
 ) -> torch.Tensor:
     """K4: `conv_int8_fused_ref` as one CUDA kernel for CUDA tensors. x
-    int8 (N,C,H,W), w int8 (O,C,k,k), groups 1; d, bias and the BN
-    vectors fp32 (O,); returns int8 when s_out is given, else fp32."""
+    int8 (N,C,H,W) and w int8 (O,C,k,k), groups 1, on the card both
+    channels-last in memory (x NHWC, w (O,k,k,C)); d, bias and the BN
+    vectors fp32 (O,). Returns int8 channels-last when s_out is given,
+    else fp32 NCHW-contiguous, on either device."""
     act = Activation(act)
     if mean is not None and (inv is None or scale is None):
         raise ValueError("conv_int8_fused: BN needs mean, inv and scale")
     vecs = [v for v in (d, bias, scale, mean, inv) if v is not None]
     ts = [x, w, *vecs]
+    fmt = torch.contiguous_format if s_out is None else torch.channels_last
     if all(t.device.type == "cpu" for t in ts):
         return conv_int8_fused_ref(x, w, d, bias, stride, pad, act, scale,
-                                   mean, inv, s_out)
+                                   mean, inv, s_out).contiguous(
+                                       memory_format=fmt)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(
             "conv_int8_fused: unsupported devices "
@@ -144,22 +263,37 @@ def conv_int8_fused(
             f"conv_int8_fused: x {tuple(x.shape)} is not (N, C, H, W), w "
             f"{tuple(w.shape)} not (O, C, k, k) or a vector not (O,)"
         )
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("conv_int8_fused: every tensor must be contiguous")
+    cl = torch.channels_last
+    if not (x.is_contiguous(memory_format=cl)
+            and w.is_contiguous(memory_format=cl)
+            and all(v.is_contiguous() for v in vecs)):
+        raise ValueError(
+            "conv_int8_fused: on the card x and w must be channels-last "
+            "contiguous (x NHWC, w (O, k, k, C) in memory: "
+            "channels_last_weight) and the vectors contiguous; got x "
+            f"strides {x.stride()}, w strides {w.stride()}"
+        )
     if stride < 1 or pad < 0:
         raise ValueError(f"conv_int8_fused: stride {stride}, pad {pad}")
     if s_out is not None and not s_out > 0:
         raise ValueError(f"conv_int8_fused: s_out {s_out}")
     n, c, h, wd = x.shape
     o, _, k, _ = w.shape
-    oh = max(0, (h + 2 * pad - k) // stride + 1)
-    ow = max(0, (wd + 2 * pad - k) // stride + 1)
+    oh, ow = out_size(h, wd, k, stride, pad)
     out = torch.empty(
         (n, o, oh, ow),
         dtype=torch.float32 if s_out is None else torch.int8,
-        device=x.device,
+        device=x.device, memory_format=fmt,
     )
     if out.numel():
+        plan = plan_conv_int8(n, c, h, wd, o, k, stride, pad,
+                              kernels.sm_count(x.device))
+        ws = counters = None
+        if plan.splits > 1:
+            ws = torch.empty(plan.workspace_ints, dtype=torch.int32,
+                             device=x.device)
+            counters = torch.empty(plan.tiles_m * plan.tiles_n,
+                                   dtype=torch.int32, device=x.device)
         bn = 0 if scale is None else 1 if mean is None else 2
         ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
         lib = kernels.library()
@@ -170,6 +304,8 @@ def conv_int8_fused(
                 n, c, h, wd, o, k, stride, pad, bn, FUSED_ACT[act],
                 int(s_out is not None),
                 0.0 if s_out is None else float(s_out),
+                plan.cfg, plan.splits, plan.split_steps, ptr(ws),
+                ptr(counters),
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         kernels.check(rc, "conv_int8_fused")

@@ -194,7 +194,8 @@ def depthwise_fused(
     y = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
     if y.numel():
         lib = kernels.library()
-        plan = plan_tiles(n, c, h, wd, k, stride, pad, _sms(x.device))
+        plan = plan_tiles(n, c, h, wd, k, stride, pad,
+                          kernels.sm_count(x.device))
         with torch.cuda.device(x.device):
             rc = lib.bcnn_depthwise(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, c,
@@ -207,8 +208,3 @@ def depthwise_fused(
 
 
 depthwise_fused.launches = 0
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

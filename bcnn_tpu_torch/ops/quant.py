@@ -13,8 +13,9 @@ Scheme (symmetric PTQ, as in the JAX package):
   - `plan_int8_flow` decides which activations live as int8 between
     layers.
 
-Layout: conv and depthwise weights are OIHW here, so their scale runs
-over dim 0 (HWIO and the last dim in the JAX package); FC weights are
+Layout: conv and depthwise weights are OIHW here (held channels-last,
+(O, k, k, C) in memory, as K4 reads them), so their scale runs over dim
+0 (HWIO and the last dim in the JAX package); FC weights are
 (in, out) in both. `bridge.quant_from_numpy` carries a JAX `net.quant`
 across.
 """
@@ -46,7 +47,8 @@ def quantize_weights(net, params) -> Dict[str, Dict]:
     """Per-output-channel int8 for conv and depthwise (OIHW, scale over
     O) and FC ((in, out), scale over out), `bcnn_tpu/ops/quant.py:35-67`.
     Returns {param_key: {"q": int8 tensor, "scale": fp32 tensor (O,)}} on
-    the params' device."""
+    the params' device; a conv's q is held channels-last ((O, k, k, C) in
+    memory), the layout K4 reads."""
     out = {}
     for node in net.nodes:
         if node.type in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D):
@@ -60,8 +62,10 @@ def quantize_weights(net, params) -> Dict[str, Dict]:
         q, scale = _per_channel_int8(
             t.detach().cpu().numpy().astype(np.float32), axis
         )
+        q = torch.from_numpy(q).to(t.device)
         out[key] = {
-            "q": torch.from_numpy(q).to(t.device),
+            "q": q.contiguous(memory_format=torch.channels_last)
+            if q.dim() == 4 else q,
             "scale": torch.from_numpy(scale).to(t.device),
         }
     return out
@@ -216,9 +220,13 @@ def quantize_tensor(x: torch.Tensor, scale: float) -> torch.Tensor:
     a true division in x's dtype (a bf16 x divides by bf16(scale), as a
     weak-typed JAX scalar does), then rounding half to even. The scale
     goes in as a 0-d tensor on x's device: PyTorch turns a division by a
-    Python number on the card into a product with its reciprocal."""
+    Python number on the card into a product with its reciprocal. The
+    cast to int8 writes a 4-d x channels-last (NHWC in memory), the int8
+    flow's layout, in the same pass."""
     s = torch.tensor(scale, dtype=x.dtype, device=x.device)
-    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    fmt = torch.channels_last if x.dim() == 4 else torch.preserve_format
+    return torch.clamp(torch.round(x / s), -127, 127).to(
+        torch.int8, memory_format=fmt)
 
 
 def conv2d_int8(

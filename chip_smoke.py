@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from bcnn_tpu_torch/csrc and holds each
 against its plain PyTorch version on the card: K1 (YOLO decode), K2
 (the shear shift, row mode and column mode, bit for bit), K3
 (depthwise conv + bias + activation) and K4 (the int8 conv with its
-dequant/BN/activation/requant epilogue, bit for bit) at the shapes their
-paths give them, each warm and cold, and K3 and K4 on ragged shapes (K3
+dequant/BN/activation/requant epilogue, bit for bit, on channels-last
+int8 x and the (O, k, k, C) weight, each shape's tile plan and split of
+K printed) at the shapes their paths give them, each warm and cold, and K3 and K4 on ragged shapes (K3
 with each fused activation); then the whole shear chain of rotation
 augmentation (three K2 launches, no copy) against its CPU run. Then it drives the main
 paths (full width and depth, random weights from a seed):
@@ -22,8 +23,9 @@ paths (full width and depth, random weights from a seed):
   - YOLOv3-tiny serving at bf16 (compute_dtype = act_dtype = bf16, as
     bench.py runs it), both branches, against the CPU port; then bench.py's
     int8 program (ptq_synthetic, int8 activations between layers, K4 on
-    all 13 convs) on the top-k-first branch, card against CPU with one
-    quant dict: every int8 tensor equal;
+    all 13 convs, the int8 flow channels-last) on the top-k-first
+    branch, card against CPU with one quant dict: every int8 tensor
+    equal;
   - MobileNet-v1 at bf16 (K3 on the bf16-rounded values);
   - YOLOv3-tiny training: Session.train_on_batch at batch 32, SGD (lr 0.001,
     momentum 0.9, decay 0.0005), on uint8 images augmented on the card
@@ -58,7 +60,10 @@ from bcnn_tpu_torch import Session, bridge, kernels
 from bcnn_tpu_torch.compile import execute
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
-from bcnn_tpu_torch.ops.conv_int8 import conv_int8_fused, conv_int8_fused_ref
+from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
+                                          conv_int8_fused,
+                                          conv_int8_fused_ref,
+                                          plan_conv_int8)
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.quant import ptq_synthetic
 from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
@@ -132,7 +137,9 @@ K4_RAGGED = [
     (1, 3, 416, 416, 16, 3, 1, 1),     # batch 1, C = 3 (K = 27)
     (1, 512, 13, 13, 255, 1, 1, 0),    # batch 1, 13x13, O = 255
     (3, 64, 27, 25, 70, 3, 2, 1),      # stride 2, odd planes, O = 70
-    (2, 7, 13, 13, 9, 5, 2, 0),        # K = 175, not a multiple of 8
+    (2, 7, 13, 13, 9, 5, 2, 0),        # K = 175, C not a multiple of 16
+    (1, 512, 13, 13, 255, 3, 1, 1),    # batch 1, K split in 18 runs
+    (2, 48, 26, 26, 40, 3, 2, 1),      # C = 48: K % 64 = 48, O = 40
 ]
 # bf16 serving against the CPU port: cuDNN's and oneDNN's bf16 convs sum
 # in other orders, so a value near a bf16 rounding boundary rounds the
@@ -571,13 +578,15 @@ def k4_path_cases():
 
 
 def k4_args(shape, bn, act, int8_out, gen):
-    """Random int8 x and w on the card and the epilogue's vectors, d
+    """Random int8 x (channels-last, as the int8 flow holds it) and w
+    ((O, k, k, C) in memory) on the card and the epilogue's vectors, d
     scaled so that y spreads over the int8 codes of s_out = 2/127."""
     n, c, h, w, o, k, stride, pad = shape
     x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
-                      dtype=torch.int8)
-    wt = torch.randint(-127, 128, (o, c, k, k), generator=gen,
-                       dtype=torch.int8)
+                      dtype=torch.int8).contiguous(
+                          memory_format=torch.channels_last)
+    wt = channels_last_weight(torch.randint(
+        -127, 128, (o, c, k, k), generator=gen, dtype=torch.int8))
     u = lambda lo, hi: (lo + (hi - lo) * torch.rand(o, generator=gen)  # noqa
                         ).cuda()
     # |acc| ~ (127^2 / 3) sqrt(K)
@@ -593,10 +602,11 @@ def check_k4():
     """K4 against conv_int8_fused_ref on the card, bit for bit: the 13
     YOLOv3-tiny 416 convs at batch 8 in their path's form and in the
     other (int8 or fp32 out, BN or none, LRELU or NONE), then ragged
-    shapes in both forms. Each path shape timed warm in turns (plain,
-    kernel, library, library, kernel, plain), the library being the
-    cuDNN bf16 conv of the same values (F.conv2d on bf16 tensors: PyTorch
-    has no int8 conv on CUDA), then cold. Returns (path rows, all rows)."""
+    shapes in both forms, each shape's plan printed. Each path shape
+    timed warm in turns (plain, kernel, library, library, kernel, plain),
+    the library being the cuDNN bf16 conv of the same values (F.conv2d
+    on NCHW bf16 tensors: PyTorch has no int8 conv on CUDA), then cold.
+    Returns (path rows, all rows)."""
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
     path, rows = [], []
@@ -625,12 +635,18 @@ def check_k4():
                                    f" to its plain version: {e}")
             err = max(err, e)
         rows.append(dict(name=name, max_abs_err=err))
+        plan = plan_conv_int8(*shape, sms=kernels.sm_count(
+            torch.device("cuda")))
+        plan_s = (f"plan {plan.bm}x{plan.bn} tiles, K in {plan.splits} "
+                  f"run(s) of {plan.split_steps} of {plan.steps} steps, "
+                  f"{plan.blocks} blocks")
         if not timed:
-            print(f"K4 {name} {shape}: bit-equal in both forms")
+            print(f"K4 {name} {shape}: bit-equal in both forms; {plan_s}")
             continue
         args, kw = k4_args(shape, bn, act, int8_out, gen)
         x, wt, _, _, stride, pad = args
-        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+        xb = x.contiguous().to(torch.bfloat16)
+        wb = wt.contiguous().to(torch.bfloat16)
         kern = lambda: conv_int8_fused(*args, **kw)  # noqa: E731
         plain = lambda: conv_int8_fused_ref(*args, **kw)  # noqa: E731
         lib = lambda: F.conv2d(xb, wb, None, stride, pad)  # noqa: E731
@@ -658,7 +674,7 @@ def check_k4():
               f"kernel {1e3 * r['cold_ms']:.1f} us "
               f"({r['bound'][0] / r['cold_ms']:.0%} of the bound), library "
               f"{1e3 * r['library_cold_ms']:.1f} us; "
-              f"{r['gop'] / r['ms']:.1f} TOPS warm")
+              f"{r['gop'] / r['ms']:.1f} TOPS warm; {plan_s}")
     del flush
     tot = {key: sum(r[key][0] if key == "bound" else r[key] for r in path)
            for key in ("ms", "cold_ms", "plain_ms", "library_ms",
@@ -807,6 +823,10 @@ def yolo_int8_phase(gpu):
         name = net.tensors[i].name
         if v.dtype == torch.int8:
             n_int8 += 1
+            if not got.values[i].is_contiguous(
+                    memory_format=torch.channels_last):
+                raise RuntimeError(f"int8 path: {name} is not channels-last"
+                                   " on the card")
         if v.dtype in (torch.int8, torch.bfloat16) and not torch.equal(g, v):
             raise RuntimeError(f"int8 path: {name} ({v.dtype}) differs between"
                                " card and CPU")
@@ -820,7 +840,8 @@ def yolo_int8_phase(gpu):
         torch.testing.assert_close(g.cpu().float(), c.float(), rtol=2.0**-7,
                                    atol=1e-6)
     print(f"int8 path card vs CPU, two images, one quant dict: all {n_int8} "
-          f"int8 flow tensors and both bf16 heads bit-equal; detections "
+          f"int8 flow tensors (channels-last) and both bf16 heads "
+          f"bit-equal; detections "
           f"{'bit-equal' if exact else 'within one bf16 rounding'} "
           f"({int(alive.sum())} kept)")
     return k4_launches

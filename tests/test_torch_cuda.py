@@ -344,8 +344,8 @@ def test_fc_on_the_card_is_fp32(cuda):
 
 from bcnn_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from bcnn_tpu_torch.ops import pool as pool_ops  # noqa: E402
-from bcnn_tpu_torch.ops.conv_int8 import (conv_int8_fused,  # noqa: E402
-                                          conv_int8_fused_ref)
+from bcnn_tpu_torch.ops.conv_int8 import (  # noqa: E402
+    channels_last_weight, conv_int8_fused, conv_int8_fused_ref)
 from bcnn_tpu_torch.ops.quant import ptq_synthetic  # noqa: E402
 
 
@@ -356,10 +356,22 @@ from bcnn_tpu_torch.ops.quant import ptq_synthetic  # noqa: E402
      (2, 8, 13, 11, 70, 3, 2, 1, 1, Activation.RELU, True),  # stride 2
      (3, 7, 6, 5, 12, 3, 1, 1, 2, Activation.NONE, True),  # K = 63
      (1, 64, 13, 13, 130, 3, 1, 1, 2, Activation.LRELU, False),  # ragged
-     (2, 20, 7, 7, 9, 5, 2, 0, 0, Activation.LRELU, True)],
+     (2, 20, 7, 7, 9, 5, 2, 0, 0, Activation.LRELU, True),
+     (8, 256, 13, 13, 128, 1, 1, 0, 2, Activation.LRELU, True),  # 64 x 64
+     (8, 512, 13, 13, 255, 1, 1, 0, 0, Activation.NONE, False),  # a head
+     (8, 256, 13, 13, 512, 3, 1, 1, 2, Activation.LRELU, True),  # split 2
+     (1, 512, 13, 13, 255, 3, 1, 1, 0, Activation.NONE, False),  # split 18
+     (2, 256, 13, 13, 64, 3, 1, 1, 1, Activation.RELU, True),  # split 36
+     (8, 32, 52, 52, 128, 3, 1, 1, 2, Activation.LRELU, True),  # 128 x 64
+     (2, 48, 9, 9, 40, 3, 2, 1, 1, Activation.RELU, True),  # K % 32 = 16
+     (3, 16, 30, 17, 32, 3, 1, 1, 2, Activation.LRELU, True),  # two taps
+     (1, 32, 20, 20, 16, 3, 1, 1, 0, Activation.NONE, False)],  # 128 x 16
 )
 def test_k4_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad, bn,
                                   act, int8_out):
+    """K4 on channels-last x and the (O, k, k, C) weight, every tile
+    shape of the plan and split-K among them, bit-equal to the plain
+    version on the NCHW tensors."""
     gen = torch.Generator().manual_seed(c * o)
     x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
                       dtype=torch.int8)
@@ -372,14 +384,18 @@ def test_k4_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad, bn,
         kw["scale"] = vec(0.5, 1.5)
     if bn == 2:
         kw["mean"], kw["inv"] = vec(-0.1, 0.1), vec(0.8, 1.2)
-    args = (x.to(cuda), wt.to(cuda), vec(1e-5, 1e-4), vec(-1, 1), stride,
-            pad)
+    x, wt = x.to(cuda), wt.to(cuda)
+    d = vec(1e-5, 1e-4) * (64 / (c * k * k)) ** 0.5
+    b = vec(-1, 1)
     before = conv_int8_fused.launches
-    got = conv_int8_fused(*args, **kw)
-    want = conv_int8_fused_ref(*args, **kw)
+    got = conv_int8_fused(x.contiguous(memory_format=torch.channels_last),
+                          channels_last_weight(wt), d, b, stride, pad, **kw)
+    want = conv_int8_fused_ref(x, wt, d, b, stride, pad, **kw)
     torch.cuda.synchronize()
     assert conv_int8_fused.launches == before + 1
     assert got.dtype == (torch.int8 if int8_out else torch.float32)
+    assert got.is_contiguous(memory_format=torch.channels_last if int8_out
+                             else torch.contiguous_format)
     assert torch.equal(got, want)
 
 
@@ -397,6 +413,68 @@ def test_k4_refuses_what_it_does_not_take(cuda):
         conv_int8_fused(x.transpose(2, 3), w, d, b, 1, 1)
     with pytest.raises(ValueError):
         conv_int8_fused(x, w, d.cpu(), b, 1, 1)
+
+
+def test_k4_raises_on_an_nchw_int8_x_or_w(cuda):
+    """The card takes the int8 flow's channels-last layout only: an NCHW
+    x or w raises, and nothing is copied behind the caller's back."""
+    x = torch.ones(2, 16, 5, 5, dtype=torch.int8, device=cuda)
+    w = torch.ones(8, 16, 3, 3, dtype=torch.int8, device=cuda)
+    d = b = torch.ones(8, device=cuda)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    before = conv_int8_fused.launches
+    with pytest.raises(ValueError, match="channels-last"):
+        conv_int8_fused(x, channels_last_weight(w), d, b, 1, 1)
+    with pytest.raises(ValueError, match="channels-last"):
+        conv_int8_fused(xc, w, d, b, 1, 1)
+    assert conv_int8_fused.launches == before
+    y = conv_int8_fused(xc, channels_last_weight(w), d, b, 1, 1)
+    assert torch.equal(y, conv_int8_fused_ref(x, w, d, b, 1, 1))
+
+
+def test_k4_takes_an_output_past_2_31_values(cuda):
+    """An unsplit launch whose int8 output holds more than 2^31 values
+    (bench_torch's serve batch of 1024 has such a first conv): it
+    launches, and its last rows equal the plain version's on the input
+    rows they read."""
+    h = w = 11600  # M * O = 11600^2 * 16 > 2^31
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-127, 128, (1, 3, h, w), generator=gen,
+                      dtype=torch.int8, device=cuda).contiguous(
+                          memory_format=torch.channels_last)
+    wt = torch.randint(-127, 128, (16, 3, 3, 3), generator=gen,
+                       dtype=torch.int8, device=cuda)
+    d = torch.full((16,), 2e-5, device=cuda)
+    b = torch.zeros(16, device=cuda)
+    kw = dict(act=Activation.LRELU, s_out=0.05)
+    y = conv_int8_fused(x, channels_last_weight(wt), d, b, 1, 1, **kw)
+    assert y.numel() > 2**31
+    # output rows h-5.. read input rows h-6.. (and the bottom pad)
+    want = conv_int8_fused_ref(x[:, :, h - 6:], wt, d, b, 1, 1, **kw)
+    assert torch.equal(y[:, :, h - 5:], want[:, :, 1:])
+    del x, y
+
+
+def test_int8_pass_through_ops_keep_channels_last_on_the_card(cuda):
+    """maxpool, upsample and concat on channels-last int8, as the int8
+    flow runs them on the card: still channels-last, values as on the
+    CPU."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(-127, 128, (2, 16, 13, 13), generator=gen,
+                      dtype=torch.int8).contiguous(
+                          memory_format=torch.channels_last)
+    xg = x.to(cuda)
+    outs = [
+        (pool_ops.maxpool(xg, 2, 1, 13, 13), pool_ops.maxpool(x, 2, 1, 13, 13)),
+        (pool_ops.maxpool(xg, 2, 2, 7, 7), pool_ops.maxpool(x, 2, 2, 7, 7)),
+        (ops.upsample_nn(xg, 2), ops.upsample_nn(x, 2)),
+        (ops.concat_channels([xg, xg]), ops.concat_channels([x, x])),
+        (ops.concat_channels([xg]), ops.concat_channels([x])),
+    ]
+    for got, want in outs:
+        assert got.dtype == torch.int8
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got.cpu(), want)
 
 
 def test_bf16_conv_with_fp32_out_is_the_fp32_conv_of_rounded_inputs(cuda):
@@ -459,4 +537,7 @@ def test_int8_detect_on_the_card_equals_the_cpu(cuda):
         if v.dtype in (torch.int8, torch.bfloat16) and v.dim() == 4:
             n_int8 += v.dtype == torch.int8
             assert torch.equal(got.values[i].cpu(), v), net.tensors[i].name
+            if v.dtype == torch.int8:  # the int8 flow is channels-last
+                assert got.values[i].is_contiguous(
+                    memory_format=torch.channels_last), net.tensors[i].name
     assert n_int8 >= 10

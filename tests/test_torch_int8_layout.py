@@ -1,0 +1,253 @@
+"""The int8 program's channels-last flow on the CPU: every int8 activation
+of YOLOv3-tiny's int8 program is held channels-last (logical NCHW, NHWC in
+memory), the layout K4 reads and writes, down to H = W = 1; the quant
+weights are held (O, k, k, C) in memory from the start and the repack
+round-trips; K4's plain path on channels-last
+inputs equals the NCHW result bit for bit; the pass-through ops (maxpool,
+upsample, concat) keep the layout with equal values; and no layout copy
+runs on the path. Imports no JAX."""
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from bcnn_tpu_torch import Session, bridge, ops
+from bcnn_tpu_torch.compile import execute
+from bcnn_tpu_torch.models import yolov3_tiny
+from bcnn_tpu_torch.ops import conv_int8 as k4
+from bcnn_tpu_torch.ops import pool as pool_ops
+from bcnn_tpu_torch.ops.quant import (ptq_synthetic, quantize_tensor,
+                                      quantize_weights)
+from bcnn_tpu_torch.types import Activation, Mode
+
+torch.set_num_threads(1)
+
+CL = torch.channels_last
+aten = torch.ops.aten
+
+
+def int8_cl(shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    return x.contiguous(memory_format=CL)
+
+
+class LayoutCopies(TorchDispatchMode):
+    """Records every copy of a 4-d tensor into the same dtype (clone,
+    _to_copy, copy_): a change of layout, or a copy for nothing. Calls
+    inside K4's wrapper are left out (on the CPU it runs the plain
+    version; on the card one kernel)."""
+
+    COPIES = (aten.clone.default, aten._to_copy.default, aten.copy_.default)
+
+    def __init__(self):
+        super().__init__()
+        self.copies, self.inside = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        src = args[0] if args else None
+        if (not self.inside and func in self.COPIES
+                and isinstance(src, torch.Tensor) and src.dim() == 4
+                and isinstance(out, torch.Tensor) and out.dtype == src.dtype):
+            self.copies.append((str(func), tuple(src.shape), src.stride(),
+                                out.stride()))
+        return out
+
+
+@pytest.fixture(scope="module")
+def int8_net():
+    """YOLOv3-tiny at 64 px, batch 2, after ptq_synthetic on the CPU."""
+    net = yolov3_tiny(2, 64, 64, 4)
+    sess = Session(net, 0, device="cpu").compile_net()
+    ptq_synthetic(net, sess)
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 3, 64, 64).astype(
+        np.float32))
+    return net, sess, x
+
+
+def run(net, sess, x, bf16):
+    net.compute_dtype = net.act_dtype = torch.bfloat16 if bf16 else None
+    try:
+        with torch.inference_mode():
+            return execute(net, sess.params, sess.state, {"input": x},
+                           Mode.PREDICT)
+    finally:
+        net.compute_dtype = net.act_dtype = None
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_every_int8_flow_tensor_is_channels_last(int8_net, bf16):
+    net, sess, x = int8_net
+    ex = run(net, sess, x, bf16)
+    int8 = {i: v for i, v in ex.values.items() if v.dtype == torch.int8}
+    assert set(int8) == set(ex.int8_flow) and len(int8) >= 10
+    for i, v in int8.items():
+        assert v.dim() == 4 and not v.is_contiguous(), net.tensors[i].name
+        assert v.is_contiguous(memory_format=CL), net.tensors[i].name
+    # the heads leave K4 in fp32, NCHW, as their readers take them
+    for node in net.nodes:
+        if node.type.name == "YOLOV3":
+            assert ex.values[node.src[0]].is_contiguous()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_no_layout_copy_on_the_int8_path(int8_net, bf16, monkeypatch):
+    """A request copies no 4-d tensor into its own dtype outside K4, and
+    every K4 call gets the channels-last x and w the card takes: the
+    input is quantized straight into channels-last, every pass-through
+    keeps it, and the quant weights are held so from the start."""
+    net, sess, x = int8_net
+    mode = LayoutCopies()
+    fused = k4.conv_int8_fused
+
+    def counted(x, w, *args, **kw):
+        # what the card takes: channels-last x and w, never a copy
+        assert x.is_contiguous(memory_format=CL) and not x.is_contiguous()
+        assert w.is_contiguous(memory_format=CL)
+        mode.inside += 1
+        try:
+            return fused(x, w, *args, **kw)
+        finally:
+            mode.inside -= 1
+
+    monkeypatch.setattr(k4, "conv_int8_fused", counted)
+    with mode:
+        run(net, sess, x, bf16)
+    assert mode.copies == []
+
+
+def test_weight_repack_round_trips_and_is_made_once():
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randint(-127, 128, (8, 16, 3, 3), generator=gen,
+                      dtype=torch.int8)
+    cl = k4.channels_last_weight(w)
+    assert k4.channels_last_weight(cl) is cl  # held so: no second copy
+    assert cl.is_contiguous(memory_format=CL) and torch.equal(cl, w)
+    # in memory: (O, k, k, C), k in (r, s, c) order
+    mem = torch.as_strided(cl, (cl.numel(),), (1,))
+    assert torch.equal(mem, w.permute(0, 2, 3, 1).reshape(-1))
+    assert torch.equal(cl.contiguous(), w)  # and back
+    one = torch.randint(-127, 128, (8, 16, 1, 1), dtype=torch.int8)
+    assert k4.channels_last_weight(one) is one  # 1x1: already (O, 1, 1, C)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 3, 11, 9, 16, 3, 1, 1),     # lid1's C = 3
+    (1, 16, 8, 8, 24, 3, 2, 1),     # stride 2
+    (2, 32, 5, 7, 255, 1, 1, 0),    # a head, fp32 out
+    (1, 48, 6, 6, 40, 3, 1, 0),     # pad 0, K % 32 = 16
+])
+def test_k4_plain_path_on_channels_last_equals_nchw(shape):
+    """K4's CPU path on the channels-last x and the repacked weight
+    equals the plain version on the NCHW tensors, bit for bit, in
+    the int8 and the fp32 form."""
+    n, c, h, w, o, k, stride, pad = shape
+    gen = torch.Generator().manual_seed(c * o)
+    x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
+                      dtype=torch.int8)
+    wt = torch.randint(-127, 128, (o, c, k, k), generator=gen,
+                       dtype=torch.int8)
+    d = torch.rand(o, generator=gen) * 1e-3
+    b = torch.randn(o, generator=gen)
+    bn = dict(scale=torch.rand(o, generator=gen) + 0.5,
+              mean=torch.randn(o, generator=gen) * 0.1,
+              inv=torch.rand(o, generator=gen) + 0.5)
+    xc, wc = x.contiguous(memory_format=CL), k4.channels_last_weight(wt)
+    for kw in (dict(act=Activation.LRELU, s_out=0.05, **bn),
+               dict(act=Activation.NONE)):
+        want = k4.conv_int8_fused_ref(x, wt, d, b, stride, pad, **kw)
+        got = k4.conv_int8_fused(xc, wc, d, b, stride, pad, **kw)
+        assert torch.equal(got, want)
+        assert got.is_contiguous(
+            memory_format=CL if "s_out" in kw else torch.contiguous_format)
+
+
+PASS_THROUGH = {
+    "maxpool_2s2": lambda x: pool_ops.maxpool(x, 2, 2, 7, 7),
+    "maxpool_2s1_pad": lambda x: pool_ops.maxpool(x, 2, 1, 13, 13),
+    "upsample_2": lambda x: ops.upsample_nn(x, 2),
+    "upsample_3": lambda x: ops.upsample_nn(x, 3),
+    "upsample_2_from_1x1": lambda x: ops.upsample_nn(
+        x[:, :, :1, :1].contiguous(), 2),  # NCHW and NHWC strides both
+    "concat_two": lambda x: ops.concat_channels([x, x[:, :5]]),
+    "concat_one": lambda x: ops.concat_channels([x]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PASS_THROUGH))
+def test_pass_through_ops_keep_channels_last(name):
+    x = int8_cl((2, 16, 13, 13), 7)
+    got = PASS_THROUGH[name](x)
+    want = PASS_THROUGH[name](x.contiguous())  # the NCHW tensor
+    assert got.dtype == torch.int8
+    assert got.is_contiguous(memory_format=CL)
+    assert torch.equal(got, want)
+
+
+def test_upsample_keeps_nchw_on_the_float_paths():
+    """The fp32 and bf16 paths stay NCHW: upsample of an NCHW tensor is
+    the NCHW repeat it was."""
+    x = torch.randn(2, 5, 4, 3)
+    y = ops.upsample_nn(x, 2)
+    assert y.is_contiguous()
+    assert torch.equal(y, x.repeat_interleave(2, 2).repeat_interleave(2, 3))
+
+
+def test_quantize_writes_the_requested_layout():
+    """quantize_tensor writes a 4-d tensor channels-last, whatever x's
+    layout, with the values of the NCHW quantize; other ranks as they
+    are."""
+    x = torch.randn(2, 8, 5, 6)
+    q = quantize_tensor(x, 0.02)
+    assert q.is_contiguous(memory_format=CL) and not q.is_contiguous()
+    want = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
+    assert torch.equal(q, want)
+    assert torch.equal(quantize_tensor(x.contiguous(memory_format=CL), 0.02),
+                       want)
+    v = torch.randn(3, 7)
+    assert quantize_tensor(v, 0.02).is_contiguous()
+
+
+def test_quant_weights_are_held_channels_last():
+    """quantize_weights and quant_from_numpy hold a conv's q (O, C, k, k)
+    channels-last, (O, k, k, C) in memory, with the OIHW values: K4 reads
+    it as it is, and no request repacks."""
+    net = yolov3_tiny(1, 32, 32, 4)
+    sess = Session(net, 0, device="cpu").compile_net()
+    quant = quantize_weights(net, sess.params)
+    assert len(quant) == 13
+    for key, e in quant.items():
+        q = e["q"]
+        assert q.is_contiguous(memory_format=CL), key
+        assert k4.channels_last_weight(q) is q
+    rng = np.random.RandomState(0)
+    hwio = {k: rng.randint(-127, 128, tuple(e["q"].permute(2, 3, 1, 0).shape)
+                           ).astype(np.int8) for k, e in quant.items()}
+    port = bridge.quant_from_numpy(net, {
+        "act_scales": {}, "weights": {
+            k: {"q": q, "scale": np.ones(q.shape[-1], np.float32)}
+            for k, q in hwio.items()}})
+    for key, q in hwio.items():
+        got = port["weights"][key]["q"]
+        assert got.is_contiguous(memory_format=CL), key
+        np.testing.assert_array_equal(got.numpy(), q.transpose(3, 2, 0, 1))
+
+
+def test_int8_flow_stays_channels_last_down_to_one_pixel():
+    """At 32 px the 13x13 route of 416 px is 1 x 1, where NCHW and NHWC
+    strides both hold: the upsample after it still writes channels-last,
+    so the concat and the conv after them get what the card takes."""
+    net = yolov3_tiny(2, 32, 32, 4)
+    sess = Session(net, 0, device="cpu").compile_net()
+    ptq_synthetic(net, sess)
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 3, 32, 32).astype(
+        np.float32))
+    ex = run(net, sess, x, True)
+    int8 = {i: v for i, v in ex.values.items() if v.dtype == torch.int8}
+    assert set(int8) == set(ex.int8_flow) and len(int8) >= 10
+    assert any(v.shape[2:] == (1, 1) for v in int8.values())
+    for i, v in int8.items():
+        assert v.is_contiguous(memory_format=CL), net.tensors[i].name
+        assert 0 not in v.stride(), net.tensors[i].name

@@ -1,5 +1,6 @@
 """Stateful net handle, the ported subset of `bcnn_tpu.api.Session`:
-compile, predict, detect and train on a batch.
+compile, predict, detect and train on a batch, and the split-phase
+forward / backward / update.
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .compile import (
+    child_generators,
     execute,
     get_loss,
     init_params,
@@ -43,6 +45,11 @@ class Session:
         # the per-step generators derive from this one, as bcnn_tpu's
         # step keys derive from PRNGKey(seed ^ 0x5EED)
         self._rng = torch.Generator().manual_seed(seed ^ 0x5EED)
+        # set by train_on_batch when net.yolo_stats: one dict of floats a
+        # YOLO layer (bcnn_tpu/api.py:52-54)
+        self.last_yolo_stats = None
+        # the split-phase API: the last TRAIN forward's (surrogate, leaves)
+        self._cur = None
 
     def compile_net(self):
         """bcnn_compile_net analogue: materialize params/state (and, outside
@@ -89,12 +96,89 @@ class Session:
             self._train_step = make_train_step(self.net)
         x = torch.as_tensor(x, device=self.device)
         batch = {"input": x, "label": self._input(label)}
-        sub = int(torch.randint(2**62, (), generator=self._rng))
-        gen = torch.Generator().manual_seed(sub)
-        self.params, self.state, self.opt_state, loss = self._train_step(
+        (gen,) = child_generators(self._rng, 1)
+        out = self._train_step(
             self.params, self.state, self.opt_state, batch, gen
         )
+        self.params, self.state, self.opt_state, loss = out[:4]
+        if len(out) == 5:  # net.yolo_stats
+            self.last_yolo_stats = [
+                {k: float(v) for k, v in st.items()} for st in out[4]]
         return loss
+
+    def train_scan_on_batches(self, k: int):
+        """bcnn_tpu's k loader batches in one call: the loaders are not
+        ported yet. `compile.make_train_scan` runs k staged batches."""
+        raise NotImplementedError(
+            "train_scan_on_batches(): the data loaders are not ported to "
+            "bcnn_tpu_torch yet; call compile.make_train_scan on staged "
+            "batches"
+        )
+
+    def train_scan_resident_on_batches(self, k: int, shuffle: bool = False):
+        """bcnn_tpu's scan over a record set uploaded once: the record
+        loader is not ported yet. `compile.make_train_scan_resident`
+        runs on a dataset and an index already on the device."""
+        raise NotImplementedError(
+            "train_scan_resident_on_batches(): the data loaders are not "
+            "ported to bcnn_tpu_torch yet; call "
+            "compile.make_train_scan_resident on a device dataset"
+        )
+
+    # -- split-phase API (bcnn_forward / bcnn_backward / bcnn_update) ----- #
+
+    def forward(self, x=None, label=None) -> torch.Tensor:
+        """bcnn_forward (`bcnn_tpu/api.py:349-381`): the forward in the
+        net's mode; in TRAIN its autograd record is kept for backward()
+        and the new running stats are written. No augmentation runs
+        here. Returns the loss."""
+        if x is None:
+            raise NotImplementedError(
+                "forward(): the data loaders are not ported to "
+                "bcnn_tpu_torch yet; pass the batch"
+            )
+        batch = {"input": self._input(x)}
+        if label is not None:
+            batch["label"] = self._input(label)
+        mode = self.net.mode
+        self._cur = None
+        if mode == Mode.TRAIN:
+            specs = {t.key: t for t in self.net.param_specs()}
+            leaves = {k: v.detach().requires_grad_(specs[k].trainable)
+                      for k, v in self.params.items()}
+            ex = execute(self.net, leaves, self.state, batch, mode)
+            self.state = ex.state
+            self._cur = (ex.surrogate, leaves)
+        else:
+            with torch.inference_mode():
+                ex = execute(self.net, self.params, self.state, batch, mode)
+        return get_loss(ex).detach()
+
+    def backward(self) -> Dict[str, torch.Tensor]:
+        """bcnn_backward: the gradients of the last TRAIN forward's
+        surrogate in the trainable params, kept for update(). The port
+        differentiates that forward's own record, as the reference's
+        backward reads the forward's buffers; bcnn_tpu runs the forward
+        again, after its running stats were written."""
+        if self._cur is None:
+            raise RuntimeError("backward() needs a forward() in TRAIN mode")
+        sur, leaves = self._cur
+        self._cur = None  # the record is spent
+        if sur is not None:
+            sur.backward()
+        self._cur_grads = {
+            k: v.grad if v.grad is not None else torch.zeros_like(v)
+            for k, v in leaves.items() if v.requires_grad
+        }
+        return self._cur_grads
+
+    def update(self):
+        """bcnn_update: one optimizer step with backward()'s gradients."""
+        from .learner import apply_updates
+
+        self.params, self.opt_state = apply_updates(
+            self.net, self.params, self._cur_grads, self.opt_state
+        )
 
     def predict_on_batch(
         self,

@@ -2,7 +2,10 @@
 subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny and
 MobileNet-v1 layers) in fp32, at bf16 (net.compute_dtype, net.act_dtype)
 and, in PREDICT, at int8 (net.quant: PTQ with int8 activations between
-layers, the convs on K4), the detection program and the fp32 TRAIN step.
+layers, the convs on K4), the detection program, and training in fp32
+or bf16 (net.compute_dtype, net.train_act_dtype) in every form of the
+step: plain, remat, accum_steps, a K-step scan over staged or
+device-resident batches, with net.bn_frozen_stats and net.yolo_stats.
 
 PyTorch runs eagerly, so the executor is a loop over the nodes that
 calls one op per node; nothing is traced, and autograd records the TRAIN
@@ -125,11 +128,7 @@ _grad_split = _GradSplit.apply
 # net attributes that bcnn_tpu honours and the port does not yet, each
 # with the modes in which bcnn_tpu reads it
 _UNPORTED = (
-    ("train_act_dtype", (Mode.TRAIN,)),
     ("qat", (Mode.TRAIN, Mode.VALID)),
-    ("bn_frozen_stats", (Mode.TRAIN,)),
-    ("yolo_stats", (Mode.TRAIN,)),
-    ("compute_dtype", (Mode.TRAIN,)),
 )
 
 
@@ -163,12 +162,22 @@ class _Executor:
         self.surrogate: Optional[torch.Tensor] = None
         self.metrics = []  # per cost node reported value
         refuse_unported(net, mode)
-        # bcnn_tpu/compile.py:174-215: compute_dtype in every mode (TRAIN
-        # refused above), act_dtype in PREDICT only
+        # bcnn_tpu/compile.py:174-204: compute_dtype in every mode,
+        # act_dtype in PREDICT only, train_act_dtype (the stored boundary
+        # tensors; the epilogue math stays fp32) in TRAIN only
         self.compute_dtype = getattr(net, "compute_dtype", None)
         self.act_dtype = (
             getattr(net, "act_dtype", None) if mode == Mode.PREDICT else None
         )
+        self.train_act_dtype = (
+            getattr(net, "train_act_dtype", None)
+            if mode == Mode.TRAIN else None
+        )
+        self.bn_frozen = bool(getattr(net, "bn_frozen_stats", False))
+        # net.yolo_stats: one dict of 0-d tensors per YOLO layer
+        self.want_stats = mode == Mode.TRAIN and bool(
+            getattr(net, "yolo_stats", False))
+        self.yolo_stats = []
         # int8 activation flow (ops.quant.plan_int8_flow): tensor index ->
         # the scale its int8 codes carry
         quant = getattr(net, "quant", None)
@@ -228,10 +237,11 @@ class _Executor:
 
     def _apply_conv_epilogue(self, node: Node, y, bias_idx, extra):
         """Bias or BN, then the activation, in y's dtype (bf16 on the
-        act_dtype path, as `bcnn_tpu/compile.py:316-349` casts). With
-        batch_norm the bias tensor is the BN shift, added after
-        normalisation; TRAIN normalizes with batch stats and writes the
-        new running stats into `state`."""
+        act_dtype path, as `bcnn_tpu/compile.py:316-349` casts; fp32 in
+        TRAIN). With batch_norm the bias tensor is the BN shift, added
+        after normalisation; TRAIN normalizes with batch stats (or, with
+        net.bn_frozen_stats, the step-start running stats) and writes
+        the new running stats into `state`."""
         p = node.param
         if p.get("batch_norm"):
             mean_k = self.key_of(node.src[extra["mean"]])
@@ -240,7 +250,8 @@ class _Executor:
             biases = self.p(bias_idx)
             if self.mode == Mode.TRAIN:
                 y, nm, nv = ops.batch_norm_train(
-                    y, scales, biases, self.state[mean_k], self.state[var_k]
+                    y, scales, biases, self.state[mean_k], self.state[var_k],
+                    frozen=self.bn_frozen,
                 )
                 self.state[mean_k], self.state[var_k] = nm, nv
             else:
@@ -299,12 +310,23 @@ class _Executor:
         return quantize_tensor(y, s)
 
     def _cast_act(self, y):
-        """Boundary cast to act_dtype for fp32 values the conv's own
-        out_dtype misses (a quantized conv's fp32 output, a mixed
-        concat)."""
-        if self.act_dtype is not None and y.dtype == torch.float32:
-            return y.to(self.act_dtype)
+        """Boundary cast to the stored activation dtype: train_act_dtype
+        in TRAIN (`bcnn_tpu/compile.py:427-436`); in PREDICT, act_dtype
+        for fp32 values the conv's own out_dtype misses (a quantized
+        conv's fp32 output, a mixed concat). In TRAIN autograd's
+        transpose of the cast takes the gradient back to fp32."""
+        ad = self.train_act_dtype or self.act_dtype
+        if ad is not None and y.dtype == torch.float32:
+            return y.to(ad)
         return y
+
+    def _refuse_bf16_training(self, node: Node):
+        """compute_dtype in TRAIN is ported for CONV2D only."""
+        if self.mode == Mode.TRAIN and self.compute_dtype is not None:
+            raise NotImplementedError(
+                f"bcnn_tpu_torch: compute_dtype in TRAIN on "
+                f"{node.type.name} is not ported yet"
+            )
 
     def _conv2d_int8(self, node: Node, x, wq, sx: float):
         """The quantized conv (`bcnn_tpu/compile.py:438-468`): K4 sums the
@@ -367,6 +389,7 @@ class _Executor:
         round (`bcnn_tpu/compile.py:470-496`), a difference of at most
         a bf16 rounding."""
         self._refuse_quantized(node)
+        self._refuse_bf16_training(node)
         p = node.param
         x, w = self.values[node.src[0]], self.p(node.src[1])
         if self.compute_dtype is not None:
@@ -382,6 +405,7 @@ class _Executor:
     def _full_connected(self, node: Node):
         """`bcnn_tpu/compile.py:529-551`: fp32 out, no boundary cast."""
         self._refuse_quantized(node)
+        self._refuse_bf16_training(node)
         y = ops.full_connected(
             self.values[node.src[0]],
             self.p(node.src[1]),
@@ -391,6 +415,32 @@ class _Executor:
         self.values[node.dst[0]] = self._maybe_emit_int8(
             node, ops.apply_activation(y, node.param["activation"])
         )
+
+    def _batchnorm(self, node: Node):
+        """The standalone BN layer (`bcnn_tpu/compile.py:566-590`). Under
+        train_act_dtype its input is cast up, so that the reference's BN
+        statistics and backward run in fp32, and its output cast back.
+        Outside TRAIN the per-channel scales and biases stay fp32, so a
+        bf16 x meets them in fp32, as in bcnn_tpu."""
+        x = self.values[node.src[0]]
+        if self.train_act_dtype is not None:
+            x = x.to(torch.float32)
+        mean_k = self.key_of(node.src[1])
+        var_k = self.key_of(node.src[2])
+        scales, biases = self.p(node.src[3]), self.p(node.src[4])
+        if self.mode == Mode.TRAIN:
+            y, nm, nv = ops.batch_norm_train(
+                x, scales, biases, self.state[mean_k], self.state[var_k],
+                frozen=self.bn_frozen,
+            )
+            self.state[mean_k], self.state[var_k] = nm, nv
+        else:
+            y = ops.batch_norm(
+                x, scales, biases, self.state[mean_k], self.state[var_k],
+                folded=self.net.bn_folded and self.mode == Mode.PREDICT,
+                affine_fp32=True,
+            )
+        self.values[node.dst[0]] = self._cast_act(y)
 
     def _maxpool(self, node: Node):
         p = node.param
@@ -445,15 +495,17 @@ class _Executor:
         # compile.py:685)
         y, aux = yolo_ops.yolo_forward(
             self.values[node.src[0]].to(torch.float32), self.values.get(1),
-            p, self.mode,
+            p, self.mode, with_stats=self.want_stats,
         )
         self.values[node.dst[0]] = y
         if aux is not None:
-            sur, cost = aux
+            sur, cost = aux[:2]
             self.surrogate = sur if self.surrogate is None else (
                 self.surrogate + sur
             )
             self.metrics.append(cost)
+            if self.want_stats:
+                self.yolo_stats.append(aux[2])
 
 
 def execute(
@@ -550,13 +602,36 @@ def make_detect_fn(
     return detect
 
 
-def _make_train_loss_fn(net: Net, device_augment: Optional[dict]):
+def child_generators(generator: Optional[torch.Generator], n: int):
+    """n CPU generators drawn in turn from `generator` (None: n Nones),
+    each seeded with one 62-bit draw: a step's or a microbatch's own
+    stream, as bcnn_tpu splits or folds a key."""
+    if generator is None:
+        return [None] * n
+    return [
+        torch.Generator().manual_seed(
+            int(torch.randint(2**62, (), generator=generator)))
+        for _ in range(n)
+    ]
+
+
+def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
+                        remat: bool = False):
     """The TRAIN-mode loss closure: optional on-device augmentation of a
     uint8 batch (and, on a detection net, of its boxes; the transform is
     `data.device_augment`), then the TRAIN forward. Returns
-    (surrogate, (state, loss)); the surrogate's gradient in the params is
-    the reference's backward. The surrogate is None where no loss layer
-    saw a label: every gradient is then 0, as in the JAX package."""
+    (surrogate, (state, loss, yolo_stats)); the surrogate's gradient in
+    the params is the reference's backward. The surrogate is None where
+    no loss layer saw a label: every gradient is then 0, as in the JAX
+    package.
+
+    remat: the forward runs under `torch.utils.checkpoint` (non-reentrant,
+    so the custom Functions are recomputed as they ran), which keeps
+    only its inputs and recomputes the rest in the backward. The
+    augmentation runs before it, once: its draws come from an explicit
+    generator, whose state a recompute would not restore. The running
+    stats, loss and stats are those of the first forward; the
+    recompute's are dropped."""
     is_detection = any(n.type == LayerType.YOLOV3 for n in net.nodes)
     if device_augment is not None and is_detection:
         if float(device_augment.get("max_distortion", 0.0)) > 0.0:
@@ -565,7 +640,7 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict]):
                 "detection training (no box transform represents it)"
             )
 
-    def loss_fn(params, state, batch, generator):
+    def prepare(batch, generator):
         if device_augment is not None:
             from .data import device_augment as da
 
@@ -573,17 +648,42 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict]):
                 x, lab = da.augment_batch_with_boxes_nchw(
                     batch["input"], batch["label"], generator, device_augment
                 )
-                batch = dict(batch, input=x, label=lab)
-            else:
-                batch = dict(batch, input=da.augment_batch_nchw(
-                    batch["input"], generator, device_augment
-                ))
-        elif batch["input"].dtype != torch.float32:
-            batch = dict(batch, input=batch["input"].to(torch.float32))
+                return dict(batch, input=x, label=lab)
+            return dict(batch, input=da.augment_batch_nchw(
+                batch["input"], generator, device_augment
+            ))
+        if batch["input"].dtype != torch.float32:
+            return dict(batch, input=batch["input"].to(torch.float32))
+        return batch
+
+    def forward(params, state, batch):
         ex = execute(net, params, state, batch, Mode.TRAIN)
-        return ex.surrogate, (ex.state, get_loss(ex))
+        return ex.surrogate, (ex.state, get_loss(ex), ex.yolo_stats)
+
+    def loss_fn(params, state, batch, generator):
+        batch = prepare(batch, generator)
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            return checkpoint(forward, params, state, batch,
+                              use_reentrant=False)
+        return forward(params, state, batch)
 
     return loss_fn
+
+
+def _sum_stats(a, b):
+    """Per-layer stats dicts added key by key (stats are batch sums)."""
+    return [{k: x[k] + y[k] for k in x} for x, y in zip(a, b)]
+
+
+def _stack_stats(steps):
+    """Per-step lists of per-layer stats dicts -> one list of dicts whose
+    values have a leading step axis."""
+    return [
+        {k: torch.stack([st[i][k] for st in steps]) for k in steps[0][i]}
+        for i in range(len(steps[0]))
+    ]
 
 
 def make_train_step(
@@ -595,27 +695,43 @@ def make_train_step(
     """One bcnn_train_on_batch equivalent (bcnn_net.c:452-463): forward,
     backward (autograd through the reference's custom gradients), update,
     loss. Returns train_step(params, state, opt_state, batch, generator)
-    -> (params, state, opt_state, loss), where params and opt_state are
-    updated in place (learner.apply_updates) and state is a new dict.
+    -> (params, state, opt_state, loss), or, with net.yolo_stats, a
+    5-tuple ending in the list (one dict per YOLO layer) of the step's
+    stats; params and opt_state are updated in place
+    (learner.apply_updates) and state is a new dict.
+
+    remat (or net.remat): the forward is recomputed in the backward
+    (`torch.utils.checkpoint`), which trades operations for activation
+    memory; the step's numbers are those of the plain step.
+
+    accum_steps (or net.accum_steps): the batch runs as that many
+    sequential microbatches of batch_size / accum_steps (a batch they do
+    not divide raises ValueError), each with its own generator drawn
+    from the step's; gradients, losses and stats are SUMMED over them,
+    with no division, then ONE optimizer update. BN in TRAIN normalizes
+    each microbatch with its own batch stats, and the running stats go
+    through the microbatches in turn (`bcnn_tpu/compile.py:919-985`).
 
     device_augment (or net.device_augment): an Augmenter-style config;
     the batch then arrives as raw uint8 pixels (NCHW) and the augmentation
     and [-1, 1] normalisation run on the batch's device, drawing from
-    `generator`. remat and accum_steps are not ported."""
+    `generator`."""
     from .learner import apply_updates
 
     if remat is None:
         remat = bool(getattr(net, "remat", False))
     if accum_steps is None:
         accum_steps = int(getattr(net, "accum_steps", 1) or 1)
-    if remat or accum_steps > 1:
-        raise NotImplementedError(
-            "bcnn_tpu_torch: remat and accum_steps are not ported yet"
+    if accum_steps > 1 and net.batch_size % accum_steps:
+        raise ValueError(
+            f"batch_size {net.batch_size} not divisible by "
+            f"accum_steps {accum_steps}"
         )
     refuse_unported(net, Mode.TRAIN)
     if device_augment is None:
         device_augment = getattr(net, "device_augment", None)
-    loss_fn = _make_train_loss_fn(net, device_augment)
+    want_stats = bool(getattr(net, "yolo_stats", False))
+    loss_fn = _make_train_loss_fn(net, device_augment, remat)
     specs = {t.key: t for t in net.param_specs()}
 
     def train_step(params, state, opt_state, batch, generator=None):
@@ -623,14 +739,103 @@ def make_train_step(
             k: v.detach().requires_grad_(specs[k].trainable)
             for k, v in params.items()
         }
-        sur, (new_state, loss) = loss_fn(leaves, state, batch, generator)
-        if sur is not None:
-            sur.backward()
+        if accum_steps > 1:
+            mb = net.batch_size // accum_steps
+            micro = [{k: v[m * mb:(m + 1) * mb] for k, v in batch.items()}
+                     for m in range(accum_steps)]
+            gens = child_generators(generator, accum_steps)
+        else:
+            micro, gens = [batch], [generator]
+        loss = stats = None
+        for mbatch, gen in zip(micro, gens):
+            # leaf gradients add up over the microbatches' backwards
+            sur, (state, l_m, s_m) = loss_fn(leaves, state, mbatch, gen)
+            if sur is not None:
+                sur.backward()
+            loss = l_m if loss is None else loss + l_m
+            stats = s_m if stats is None else _sum_stats(stats, s_m)
         grads = {
             k: v.grad if v.grad is not None else torch.zeros_like(v)
             for k, v in leaves.items() if specs[k].trainable
         }
         params, opt_state = apply_updates(net, params, grads, opt_state)
-        return params, new_state, opt_state, loss
+        if want_stats:
+            return params, state, opt_state, loss.detach(), stats
+        return params, state, opt_state, loss.detach()
 
     return train_step
+
+
+def make_train_scan(net: Net, device_augment: Optional[dict] = None):
+    """K training steps in one call over pre-staged device batches
+    (`bcnn_tpu/compile.py:988-1031`): train_scan(params, state,
+    opt_state, batches, generator) with batches {"input": (K, B, C, H,
+    W), "label": (K, B, L)}; step k draws from the k-th of
+    `child_generators(generator, K)`. Returns (params, state, opt_state,
+    losses (K,)), and with net.yolo_stats the per-layer stats with a
+    leading K axis. The steps are the bare step (no remat, no
+    accum_steps), as in bcnn_tpu, and equal K calls of it."""
+    step = make_train_step(net, remat=False, device_augment=device_augment,
+                           accum_steps=1)
+    want_stats = bool(getattr(net, "yolo_stats", False))
+
+    def train_scan(params, state, opt_state, batches, generator=None):
+        k_steps = batches["input"].shape[0]
+        return _run_steps(
+            step, want_stats, params, state, opt_state,
+            ({"input": batches["input"][k], "label": batches["label"][k]}
+             for k in range(k_steps)),
+            child_generators(generator, k_steps),
+        )
+
+    return train_scan
+
+
+def _run_steps(step, want_stats, params, state, opt_state, batches, gens):
+    losses, stats = [], []
+    for batch, gen in zip(batches, gens):
+        out = step(params, state, opt_state, batch, gen)
+        params, state, opt_state, loss = out[:4]
+        losses.append(loss)
+        if want_stats:
+            stats.append(out[4])
+    if want_stats:
+        return params, state, opt_state, torch.stack(losses), _stack_stats(
+            stats)
+    return params, state, opt_state, torch.stack(losses)
+
+
+def make_train_scan_resident(net: Net,
+                             device_augment: Optional[dict] = None):
+    """make_train_scan over a dataset held on the device
+    (`bcnn_tpu/compile.py:1034-1087`): train_scan(params, state,
+    opt_state, dataset, idx, generator), dataset {"input": (N, C, H, W),
+    "label": (N, L)} on the device (uint8 images with device_augment,
+    normalised fp32 otherwise) and idx a (K, B) int64 tensor there; step
+    k gathers rows idx[k] on the device. Equal to make_train_scan on the
+    gathered batches."""
+    step = make_train_step(net, remat=False, device_augment=device_augment,
+                           accum_steps=1)
+    want_stats = bool(getattr(net, "yolo_stats", False))
+
+    def train_scan(params, state, opt_state, dataset, idx, generator=None):
+        return _run_steps(
+            step, want_stats, params, state, opt_state,
+            ({k: v.index_select(0, i) for k, v in dataset.items()}
+             for i in idx),
+            child_generators(generator, idx.shape[0]),
+        )
+
+    return train_scan
+
+
+def make_eval_step(net: Net):
+    """bcnn_predict_on_batch in VALID mode (`bcnn_tpu/compile.py:
+    1090-1100`): eval_step(params, state, batch) -> the loss, with no
+    state change and no autograd."""
+
+    def eval_step(params, state, batch):
+        with torch.inference_mode():
+            return get_loss(execute(net, params, state, batch, Mode.VALID))
+
+    return eval_step

@@ -127,9 +127,14 @@ class Net:
         # precision knobs, as bcnn_tpu/compile.py:174-215 reads them (None:
         # fp32 throughout, the parity path):
         # - compute_dtype (torch.bfloat16): bf16 conv/FC inputs, fp32
-        #   accumulation and master params (PREDICT/VALID; TRAIN raises);
+        #   accumulation and master params, in every mode; in TRAIN the
+        #   conv backward runs in bf16 too (ops.conv), while FC and
+        #   depthwise raise there;
         # - act_dtype (torch.bfloat16): bf16 activations between layers in
         #   PREDICT;
+        # - train_act_dtype (torch.bfloat16): bf16 activations between
+        #   layers in TRAIN (read like bn_frozen_stats, yolo_stats, remat,
+        #   accum_steps and device_augment with getattr: unset is off);
         # - quant: the int8 PTQ dict of ops.quant (PREDICT only).
         self.compute_dtype = None
         self.act_dtype = None
@@ -438,6 +443,30 @@ class Net:
             activation=Activation(activation),
             quantize=int(quantize),
         )
+        self.add_node(node)
+
+    def add_batchnorm_layer(self, src_id: str, dst_id: str):
+        """bcnn_add_batchnorm_layer (bcnn_batchnorm_layer.c:36-140).
+
+        src wiring: [x, run_mean, run_var, scales, biases]. The reference
+        has no update() for this layer: scales and biases get gradients
+        but are never stepped; only the running stats change."""
+        node = Node(type=LayerType.BATCHNORM)
+        if not self.nodes:
+            raise BuildError(
+                "Batchnorm layer can't be the first layer of the network"
+            )
+        self._resolve_src(node, src_id, "Batchnorm layer")
+        s = self._src(node)
+        vec = ((1, 1, 1, s.c), (s.c,))
+        for stat in ("run_mean", "run_var"):
+            self._add_param(node, f"{src_id}_{stat}", *vec, None,
+                            kind=TensorKind.STATE)
+        self._add_param(node, f"{src_id}_scales", *vec,
+                        Filler(type=FillerType.FIXED, value=1.0))
+        self._add_param(node, f"{src_id}_b", *vec, None)
+        self._add_dst(node, dst_id, s.n, s.c, s.h, s.w)
+        node.param = dict()
         self.add_node(node)
 
     def add_maxpool_layer(

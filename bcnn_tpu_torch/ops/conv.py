@@ -1,6 +1,6 @@
 """Convolution, the counterpart of `bcnn_tpu.ops.conv.conv2d`: fp32 (its
 `lax.conv_general_dilated` at Precision.HIGHEST) in both directions, and
-the bf16 forwards of PREDICT/VALID (`bcnn_tpu/ops/conv.py:192-222`).
+bf16 (`bcnn_tpu/ops/conv.py:140-222`) in every mode.
 
 The JAX package leaves the conv to XLA, outside any Pallas kernel, so the
 port leaves it to cuDNN. cuDNN runs fp32 convs in TF32 by default (about
@@ -19,7 +19,12 @@ bf16 (compute_dtype set), two cases:
     cannot give fp32, so x and w are rounded to bf16, cast back, and
     convolved in fp32 with TF32 allowed: a bf16 value has 8 significant
     bits and fits TF32's 11, so every product is exact either way and
-    the result is that of the fp32 conv of the rounded inputs.
+    the result is that of the fp32 conv of the rounded inputs. Where
+    autograd records it (TRAIN), this forward is `_Conv2dMixed`, the
+    port of `_conv2d_mixed` and its custom VJP: it keeps the bf16 x and
+    w for the backward, casts the cotangent to bf16, runs both
+    transposed convs in bf16 and casts dx to x's dtype and dw to w's,
+    so fp32 master params get fp32 gradients.
 """
 
 from __future__ import annotations
@@ -59,6 +64,32 @@ class _Conv2dFp32(torch.autograd.Function):
         return gx, gw, None, None, None
 
 
+class _Conv2dMixed(torch.autograd.Function):
+    """bf16 conv inputs, fp32 sum and output; the backward in bf16
+    (`bcnn_tpu/ops/conv.py:155-189`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pad, groups, cd):
+        x16, w16 = x.to(cd), w.to(cd)
+        ctx.save_for_backward(x16, w16)
+        ctx.conf = (stride, pad, groups, x.dtype, w.dtype)
+        with _tf32(True):
+            return F.conv2d(x16.to(torch.float32), w16.to(torch.float32),
+                            None, stride, pad, 1, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x16, w16 = ctx.saved_tensors
+        stride, pad, groups, xdt, wdt = ctx.conf
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gy.to(x16.dtype), x16, w16, None, [stride] * 2, [pad] * 2,
+            [1, 1], False, [0, 0], groups,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+        )
+        return (None if gx is None else gx.to(xdt),
+                None if gw is None else gw.to(wdt), None, None, None, None)
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -70,13 +101,14 @@ def conv2d(
 ) -> torch.Tensor:
     """x: (N,C,H,W), w: (O,C//groups,k,k) -> (N,O,H',W'), in fp32 in the
     forward and, where autograd records it, in the backward; with
-    compute_dtype, bf16 forwards only (see the module's docstring). An x
-    stored in bf16 without compute_dtype is cast up to fp32."""
+    compute_dtype, in bf16 both ways (see the module's docstring;
+    out_dtype is an inference setting). An x stored in bf16 without
+    compute_dtype is cast up to fp32."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     if compute_dtype is not None:
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            raise NotImplementedError(
-                "conv2d: the bf16 conv backward is not ported yet"
-            )
+        if grad:
+            return _Conv2dMixed.apply(x, w, stride, pad, groups,
+                                      compute_dtype)
         xc, wc = x.to(compute_dtype), w.to(compute_dtype)
         if out_dtype is not None:
             return F.conv2d(xc, wc, None, stride, pad, 1, groups).to(out_dtype)
@@ -84,7 +116,7 @@ def conv2d(
             return F.conv2d(xc.to(torch.float32), wc.to(torch.float32), None,
                             stride, pad, 1, groups)
     x = x.to(torch.float32)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if grad:
         return _Conv2dFp32.apply(x, w, stride, pad, groups)
     with _tf32(False):
         return F.conv2d(x, w, None, stride, pad, 1, groups)

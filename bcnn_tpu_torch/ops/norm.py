@@ -17,6 +17,11 @@ is the reference's hand-written rule (bcnn_backward_batchnorm_cpu,
   - the d(var) term is scaled by -0.5/(var^1.5 + 1e-5) (bcnn_varnorm,
     bcnn_mat.c:692-696): eps added to var^1.5, not to var;
   - the d(mean) term has no variance-path contribution.
+
+Frozen stats (`frozen=True`, net.bn_frozen_stats; bcnn_tpu/ops/norm.py:
+80-116): TRAIN normalizes with the step-start running stats, detached,
+as constants (eps 1e-6), and autograd takes the plain gradient of that;
+the running stats are still updated from the batch stats.
 """
 
 from __future__ import annotations
@@ -44,11 +49,14 @@ def batch_norm(
     run_mean: torch.Tensor,
     run_var: torch.Tensor,
     folded: bool = False,
+    affine_fp32: bool = False,
 ) -> torch.Tensor:
-    """x: NCHW; the other tensors are per channel (C,)."""
-    scales, biases, run_mean, run_var = (
-        v.to(x.dtype) for v in (scales, biases, run_mean, run_var)
-    )
+    """x: NCHW; the other tensors are per channel (C,). affine_fp32 keeps
+    scales and biases fp32, so that a bf16 x is promoted where it meets
+    them (bcnn_tpu's standalone BN layer, which does not cast them)."""
+    run_mean, run_var = run_mean.to(x.dtype), run_var.to(x.dtype)
+    if not affine_fp32:
+        scales, biases = scales.to(x.dtype), biases.to(x.dtype)
     if folded:
         return x * _per_channel(scales) + _per_channel(biases)
     x_norm = (x - _per_channel(run_mean)) * in_f32(
@@ -106,10 +114,18 @@ def batch_norm_train(
     biases: torch.Tensor,
     run_mean: torch.Tensor,
     run_var: torch.Tensor,
+    frozen: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: NCHW. Returns (y, new_run_mean, new_run_var); the new stats
     carry no gradient."""
-    y, mean, var = _BnTrainRef.apply(x, scales, biases)
+    if frozen:
+        with torch.no_grad():
+            mean, var = _batch_stats(x)
+        rm, rv = _per_channel(run_mean.detach()), _per_channel(run_var.detach())
+        y = ((x - rm) * torch.rsqrt(rv + EPS) * _per_channel(scales)
+             + _per_channel(biases))
+    else:
+        y, mean, var = _BnTrainRef.apply(x, scales, biases)
     new_mean = RUN_MOMENTUM * run_mean + (1.0 - RUN_MOMENTUM) * mean
     new_var = RUN_MOMENTUM * run_var + (1.0 - RUN_MOMENTUM) * var
     return y, new_mean, new_var

@@ -75,8 +75,13 @@ def _decode_grid(y, anchors_wh, mask, net_w, net_h):
 
 
 def yolo_train_deltas(
-    y: torch.Tensor, label: torch.Tensor, param: Dict, net_w: int, net_h: int
-) -> torch.Tensor:
+    y: torch.Tensor,
+    label: torch.Tensor,
+    param: Dict,
+    net_w: int,
+    net_h: int,
+    with_stats: bool = False,
+):
     """y: (N, A*(5+K), H, W) activated head; label (N, 50*5) flat
     [x, y, w, h, class] per truth. Returns delta in y's layout, with
     dL/d(pre-activation) == delta semantics (bcnn_yolo.c:250-414).
@@ -95,6 +100,12 @@ def yolo_train_deltas(
         scatter-max of the truth index, with one dummy slot for truths
         the layer does not own;
       - truths end at the first x == 0 (:286-289).
+
+    with_stats=True also returns the per-batch diagnostics the reference
+    prints (bcnn_yolo.c:258-264, 404-414), as 0-d tensors: sums for Avg
+    IOU, Class, Obj, No Obj, .5R and .75R, and the count of OWNED
+    truths, a truth a later one overwrites included
+    (`bcnn_tpu/ops/yolo.py:250-273`).
     """
     num, classes = param["num"], param["classes"]
     anchors, mask, total = param["anchors"], param["mask"], param["total"]
@@ -180,25 +191,88 @@ def yolo_train_deltas(
     ch4 = torch.where(has_winner, scat[..., 4], delta_obj.reshape(n, hwa))
     delta = torch.cat([scat[..., :4], ch4[..., None], scat[..., 5:]], dim=-1)
     # (N, H*W*A, E) -> (N, A*E, H, W)
-    return delta.reshape(n, h, w, num, e).permute(0, 3, 4, 1, 2).reshape(
+    delta = delta.reshape(n, h, w, num, e).permute(0, 3, 4, 1, 2).reshape(
         n, num * e, h, w
     )
+    if not with_stats:
+        return delta
+    # per owned truth, as the reference's loop accumulates them (:321-398,
+    # and the avg_anyobj sweep :313)
+    px = (ci + cur[..., 0]) / w
+    py = (cj + cur[..., 1]) / h
+    pw_t = torch.exp(cur[..., 2]) * aw / net_w
+    ph_t = torch.exp(cur[..., 3]) * ah / net_h
+    iou_t = _box_iou((px, py, pw_t, ph_t), (txx, tyy, tww, thh))
+    ow = owned.to(torch.float32)
+    # as jnp.take_along_axis reads a class index: a negative one counts
+    # from the end, one out of range reads nan
+    t = torch.where(tcls < 0, tcls + classes, tcls)
+    oob = (t < 0) | (t >= classes)
+    cat = torch.gather(cur[..., 5:], -1,
+                       t.clamp(0, classes - 1)[..., None])[..., 0]
+    cat = torch.where(oob, float("nan"), cat)
+    stats = {
+        "iou_sum": torch.sum(iou_t * ow),
+        "recall50": torch.sum((iou_t > 0.5) * ow),
+        "recall75": torch.sum((iou_t > 0.75) * ow),
+        "obj_sum": torch.sum(cur[..., 4] * ow),
+        "cat_sum": torch.sum(cat * ow),
+        "count": torch.sum(ow),
+        "anyobj_sum": torch.sum(yr[..., 4]),
+        # the reference's static divisor w*h*num*batch (:411-412)
+        "n_slots": torch.tensor(float(n * hwa), device=dev),
+    }
+    return delta, stats
 
 
 def yolo_forward(
-    x: torch.Tensor, label: Optional[torch.Tensor], param: Dict, mode: Mode
-) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    x: torch.Tensor,
+    label: Optional[torch.Tensor],
+    param: Dict,
+    mode: Mode,
+    with_stats: bool = False,
+) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Returns (activated output, aux): aux is None outside TRAIN or
     without a label, else (surrogate, cost) with surrogate
     sum(delta.detach() * x), whose gradient in x is delta, and the
-    reported cost sum(delta^2) (bcnn_yolo.c:404-407)."""
+    reported cost sum(delta^2) (bcnn_yolo.c:404-407); with_stats,
+    (surrogate, cost, stats) with the cost among the stats."""
     y = yolo_head(x, param["num"], param["classes"])
     if mode != Mode.TRAIN or label is None:
         return y, None
-    delta = yolo_train_deltas(
-        y.detach(), label, param, param["net_w"], param["net_h"]
-    ).detach()
-    return y, (torch.sum(delta * x), torch.sum(torch.square(delta)))
+    with torch.no_grad():
+        out = yolo_train_deltas(
+            y.detach(), label, param, param["net_w"], param["net_h"],
+            with_stats=with_stats,
+        )
+    delta, stats = out if with_stats else (out, None)
+    cost = torch.sum(torch.square(delta))
+    if with_stats:
+        return y, (torch.sum(delta * x), cost, dict(stats, cost=cost))
+    return y, (torch.sum(delta * x), cost)
+
+
+def format_yolo_stats(stats: Dict) -> str:
+    """The reference's per-batch stderr line, byte for byte
+    (bcnn_yolo.c:408-414): means over the owned-truth count (0/0 gives
+    nan, as the C float division does), No Obj over every (cell, anchor)
+    slot."""
+    cnt = float(stats["count"])
+    div = (lambda s: float(s) / cnt) if cnt else (lambda s: float("nan"))
+    return (
+        "Yolo Avg IOU: %f Class: %f Obj: %f No Obj: %f .5R: %f, "
+        ".75R: %f num_boxes: %d cost: %f"
+        % (
+            div(stats["iou_sum"]),
+            div(stats["cat_sum"]),
+            div(stats["obj_sum"]),
+            float(stats["anyobj_sum"]) / float(stats["n_slots"]),
+            div(stats["recall50"]),
+            div(stats["recall75"]),
+            int(cnt),
+            float(stats["cost"]),
+        )
+    )
 
 
 def _top_k(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,12 +1,13 @@
 """Benchmark of the PyTorch + CUDA port: YOLOv3-tiny 416x416 inference
-throughput on one GPU, in the modes of `bench.py` (which times the JAX
-package and stays as it is).
+and training throughput on one GPU, in the modes of `bench.py` (which
+times the JAX package and stays as it is).
 
     BENCH_MODE=serve python3 bench_torch.py
 
 Prints ONE JSON line with `bench.py`'s keys (metric, value, unit, batch,
 best_ms, median_best_ms, median_best_img_s, n_rounds, avg_ms, device;
-serve adds the forward_* keys). Modes (BENCH_MODE, default serve):
+serve adds the forward_* keys, train the loss and, with a scan,
+scan_steps). Modes (BENCH_MODE, default serve):
   forward      bf16 conv inputs and activations (net.compute_dtype and
                net.act_dtype, or fp32 activations with BENCH_PRED_ACT=fp32),
                the two heads summed on the card;
@@ -15,9 +16,13 @@ serve adds the forward_* keys). Modes (BENCH_MODE, default serve):
                activations between layers, the convs on K4;
   detect_int8  int8 + detection;
   serve        detect_int8, then forward, in one line;
-  train        not ported (bf16 training raises NotImplementedError).
-BENCH_BATCH (default 1024 for serve, 512 otherwise), BENCH_SIZE (416),
-BENCH_RUNS (20). Weights come from seed 0 and the input is drawn on the
+  train        make_train_step on YOLOv3-tiny in TRAIN with bf16 convs
+               both ways (net.compute_dtype) and, unless BENCH_ACT=fp32,
+               bf16 activations between layers (net.train_act_dtype),
+               on one input and one box a image; with BENCH_SCAN=K > 1,
+               K steps a call through make_train_scan (per-step time).
+BENCH_BATCH (default 1024 for serve, 64 for train, 512 otherwise),
+BENCH_SIZE (416), BENCH_RUNS (20). Weights come from seed 0 and the input is drawn on the
 card from a seeded generator, uniform in [0, 1). Needs CUDA: on a
 machine without it the script raises; the functions take a device for
 the CPU tests. Imports no JAX.
@@ -129,13 +134,95 @@ def _timed(mode, batch, size, runs, device):
     return measure(fn, runs, sync)
 
 
-def run(mode, batch, size, runs, device):
-    """One mode's measurement as `bench.py`'s JSON record."""
+def build_train(batch, size, device, act="bf16", scan=1):
+    """`bench.py`'s training program (bench_train, _bench_train_scan) as
+    a no-argument callable that runs one step, or `scan` steps through
+    make_train_scan, and returns the last loss (a 0-d tensor on the
+    device). The input is RandomState(0).rand on the host, uploaded once,
+    with the box [0.5, 0.5, 0.25, 0.25, class 1] an image."""
+    from bcnn_tpu_torch import Mode, Session
+    from bcnn_tpu_torch.compile import make_train_scan, make_train_step
+    from bcnn_tpu_torch.models import yolov3_tiny
+    from bcnn_tpu_torch.types import DETECTION_MAX_BOXES
+
+    net = yolov3_tiny(batch_size=batch, width=size, height=size,
+                      mode=Mode.TRAIN)
+    net.compute_dtype = torch.bfloat16
+    if act == "bf16":
+        net.train_act_dtype = torch.bfloat16
+    sess = Session(net, seed=0, device=device).compile_net()
+    lead = (scan,) if scan > 1 else ()
+    if scan > 1:  # float32 straight from the generator, as bench.py
+        x = np.random.default_rng(0).random((scan, batch, 3, size, size),
+                                            dtype=np.float32)
+    else:
+        x = np.random.RandomState(0).rand(batch, 3, size, size).astype(
+            np.float32)
+    label = np.zeros(lead + (batch, DETECTION_MAX_BOXES * 5), np.float32)
+    label[..., 0:5] = [0.5, 0.5, 0.25, 0.25, 1]
+    data = {"input": torch.as_tensor(x, device=device),
+            "label": torch.as_tensor(label, device=device)}
+    gen = torch.Generator().manual_seed(0)
+    st = [sess.params, sess.state, sess.opt_state]
+    step = make_train_scan(net) if scan > 1 else make_train_step(net)
+
+    def run():
+        out = step(*st, data, gen)
+        st[:] = out[:3]
+        return out[3][-1] if scan > 1 else out[3]
+
+    return run
+
+
+def run_train(batch, size, runs, device, act="bf16", scan=1):
+    """`bench.py`'s train protocol and record: one warm-up call, then
+    max(2, runs // 4) rounds, each of two timed calls and (single steps
+    only) a burst of 4 back-to-back steps; per-step times, the loss read
+    back after each timed call."""
+    fn = build_train(batch, size, device, act, scan)
+    float(fn())  # warm-up: reading the loss waits for the card
+    times, round_bests = [], []
+    for _ in range(max(2, runs // 4)):
+        rb = []
+        for _ in range(3 if scan > 1 else 2):
+            t0 = time.perf_counter()
+            loss = float(fn())
+            dt = (time.perf_counter() - t0) / scan
+            times.append(dt)
+            rb.append(dt)
+        if scan == 1:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                out = fn()
+            loss = float(out)
+            rb.append((time.perf_counter() - t0) / 4)
+        round_bests.append(min(rb))
+    best = min(round_bests)
+    median_best = float(np.median(round_bests))
+    rec = {
+        "metric": f"yolov3_tiny_{size}_train_bf16"
+        + ("_act16" if act == "bf16" else "")
+        + (f"_scan{scan}" if scan > 1 else ""),
+        "value": round(batch / best, 1),
+        "unit": "img/s/chip",
+        "batch": batch,
+    }
+    if scan > 1:
+        rec["scan_steps"] = scan
+    rec.update(best_ms=round(best * 1e3, 2),
+               median_best_ms=round(median_best * 1e3, 2),
+               median_best_img_s=round(batch / median_best, 1),
+               n_rounds=len(round_bests),
+               avg_ms=round(sum(times) / len(times) * 1e3, 2),
+               loss=loss, device=_device_name(device))
+    return rec
+
+
+def run(mode, batch, size, runs, device, act="bf16", scan=1):
+    """One mode's measurement as `bench.py`'s JSON record; act and scan
+    (BENCH_ACT, BENCH_SCAN) are read by the train mode only."""
     if mode == "train":
-        raise NotImplementedError(
-            "bench_torch: BENCH_MODE=train needs bf16 training, which is "
-            "not ported yet"
-        )
+        return run_train(batch, size, runs, device, act, scan)
     if mode != "serve" and mode not in METRICS:
         raise ValueError(f"unknown BENCH_MODE {mode!r}")
     best, median_best, times = _timed(
@@ -172,7 +259,9 @@ def main():
     ))
     runs = int(os.environ.get("BENCH_RUNS", "20"))
     size = int(os.environ.get("BENCH_SIZE", "416"))
-    print(json.dumps(run(mode, batch, size, runs, "cuda")))
+    print(json.dumps(run(mode, batch, size, runs, "cuda",
+                         act=os.environ.get("BENCH_ACT", "bf16"),
+                         scan=int(os.environ.get("BENCH_SCAN", "1")))))
 
 
 if __name__ == "__main__":

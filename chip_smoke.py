@@ -31,7 +31,14 @@ paths (full width and depth, random weights from a seed):
     momentum 0.9, decay 0.0005), on uint8 images augmented on the card
     with flip, contrast, brightness and rotation 10 (three K2 launches a
     step); one warm-up step, then 5 steps; then one batch-2 step on the
-    card and on the CPU from the same weights and augmentation draws.
+    card and on the CPU from the same weights and augmentation draws;
+  - bench.py's training program: YOLOv3-tiny 416 at batch 64 with bf16
+    convs both ways and bf16 activations between layers
+    (compute_dtype = train_act_dtype = bf16), one warm-up step and 10
+    timed, then fp32 at batch 64 the same way; a bf16 step at 96 px,
+    batch 2, card against CPU; make_train_scan of 4 steps at batch 32
+    with rotation (12 K2 launches); a remat step and an accum_steps=2
+    step at batch 32 against the plain step they stand for.
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -57,7 +64,9 @@ import torch
 import torch.nn.functional as F
 
 from bcnn_tpu_torch import Session, bridge, kernels
-from bcnn_tpu_torch.compile import execute
+from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
+                                    make_train_step)
+from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
@@ -150,6 +159,21 @@ K4_RAGGED = [
 # largest (13 layers more, K3's fp32 bias before one bf16 round).
 BF16_HEAD_TOL, BF16_FC_TOL = 2.0**-5, 2.0**-4
 SERVE_STEADY = 20
+# bench.py's training program (bench_train): batch 64 at 416 px, its
+# input and box; bf16 + act16, then fp32, one warm-up step and 10 timed
+T16_BATCH, T16_STEPS = 64, 10
+# the bf16 step card against CPU at 96 px, batch 2, under the gate of
+# tests/test_torch_train_bf16.py: per tensor, where the CPU's bf16
+# gradient meets bcnn_tpu's bf16 gate against the CPU's fp32 one
+# (cosine >= 0.99, max|d| < 0.5 rms), the card's meets 1 - cosine <=
+# 4 * 2.35e-3 and max|d| < 0.5 rms against the CPU's bf16 one; elsewhere
+# it is at most twice that bf16-to-fp32 gap; the loss within 2^-5
+T16_SMALL, COS_GAP, RMS_GAP, NOISE_RATIO = 96, 4 * 2.35e-3, 0.5, 2.0
+T16_LOSS_RTOL = 2.0**-5
+# the step forms at batch 32: make_train_scan of 4 steps with rotation;
+# remat and accum_steps=2 within one bf16 rounding (2^-7) of each
+# tensor's largest update from the step they stand for
+FORMS_BATCH, SCAN_K, FORM_TOL = 32, 4, 2.0**-7
 # a write of this many floats between launches empties the 50 MB L2
 FLUSH_FLOATS = 64 * 2**20  # 256 MB
 
@@ -1132,6 +1156,336 @@ def cross_device_step():
           f"{state_err:.3g}")
 
 
+def bench_batch(batch, size, device):
+    """bench.py's training input: RandomState(0).rand and the box [0.5,
+    0.5, 0.25, 0.25, class 1] an image."""
+    x = np.random.RandomState(0).rand(batch, 3, size, size).astype(
+        np.float32)
+    lab = np.zeros((batch, 250), np.float32)
+    lab[:, 0:5] = [0.5, 0.5, 0.25, 0.25, 1]
+    return {"input": torch.as_tensor(x, device=device),
+            "label": torch.as_tensor(lab, device=device)}
+
+
+def train_net(batch, size, bf16=True):
+    """YOLOv3-tiny in TRAIN, compute_dtype = train_act_dtype = bf16 as
+    bench.py's train mode sets them, or fp32."""
+    net = yolov3_tiny(batch, size, size, CLASSES, mode=Mode.TRAIN)
+    if bf16:
+        net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    return net
+
+
+def check_fp32(what, params, state, opt_state):
+    """Master params, running stats and optimizer buffers: fp32, finite."""
+    for name, table in (("param", params), ("running stat", state),
+                        ("velocity", opt_state["velocity"])):
+        for k, v in table.items():
+            if v.dtype != torch.float32 or not torch.isfinite(v).all():
+                raise RuntimeError(f"{what}: {name} {k} is {v.dtype} "
+                                   "or not finite")
+
+
+def kernel_group(name):
+    """A device kernel's kind, from its name: the convs (cuDNN and the
+    GEMMs it calls), layout and dtype copies, max-pool, reductions, the
+    rest elementwise."""
+    if any(t in name for t in ("cudnn::engines_precompiled::nchwToNhwc",
+                               "nhwcToNchw", "copy")):
+        return "copies and casts"
+    if any(t in name for t in ("cudnn", "xmma", "gemm", "dgrad", "wgrad",
+                               "convolve", "conv")):
+        return "convs"
+    if "max_pool" in name:
+        return "max-pool"
+    if "reduce_kernel" in name:
+        return "reductions"
+    return "elementwise"
+
+
+def timed_training(gpu, bf16):
+    """make_train_step at batch T16_BATCH, 416 px, on bench.py's input:
+    one warm-up step, T16_STEPS timed steps (host clock, the loss read
+    back each step), device time by name over 3 steps, peak memory.
+    Returns (median ms, busy ms, peak GiB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = train_net(T16_BATCH, SIZE, bf16)
+    sess = Session(net, SEED, device="cuda").compile_net()
+    step = make_train_step(net)
+    data = bench_batch(T16_BATCH, SIZE, "cuda")
+    st = [sess.params, sess.state, sess.opt_state]
+
+    def one():
+        out = step(*st, data, None)
+        st[:] = out[:3]
+        return out[3]
+
+    losses, times = [float(one())], []
+    for _ in range(T16_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(one()))
+        times.append(1e3 * (time.perf_counter() - t0))
+    what = "bf16 + act16" if bf16 else "fp32 (TF32 off)"
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{what} training losses {losses}")
+    check_fp32(what, *st)
+    med = statistics.median(times)
+    dev = device_us(one, iters=3)
+    busy = sum(dev.values()) / 3 / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"bench.py's training program, {what}: YOLOv3-tiny {SIZE} px, "
+          f"batch {T16_BATCH}, {CLASSES} classes on {gpu}: steps "
+          + ", ".join(f"{v:.1f}" for v in times)
+          + f" ms (after one warm-up); median {med:.2f} ms = "
+          f"{T16_BATCH / med * 1e3:.1f} images/s; losses "
+          + ", ".join(f"{v:.3f}" for v in losses)
+          + "; device busy "
+          + (f"{busy:.2f} ms per step ({100 * busy / med:.0f}% of the "
+             "median)" if busy else "not measured")
+          + f"; peak memory {peak:.2f} GiB")
+    groups = {}
+    for k, us in dev.items():
+        g = kernel_group(k)
+        groups[g] = groups.get(g, 0.0) + us / 3 / 1e3
+    print("    by kind, ms a step: " + ", ".join(
+        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(),
+                                           key=lambda kv: -kv[1])))
+    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / 3 / 1e3:8.3f} ms  {k[:90]}")
+    del sess, st, step
+    return med, busy, peak
+
+
+def grad_gaps(ref, got):
+    """Per tensor: (1 - cosine, max|d| / rms of ref), in float64."""
+    out = {}
+    for k, r in ref.items():
+        a, b = r.double().flatten(), got[k].double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        if na == 0 and nb == 0:
+            continue
+        rms = float(a.square().mean().sqrt())
+        out[k] = (1.0 - float(a @ b) / (na * nb + 1e-30),
+                  float((a - b).abs().max()) / rms)
+    return out
+
+
+def cross_device_bf16():
+    """One bf16 + act16 forward and backward at 96 px, batch 2, on the
+    card and on the CPU from the same weights and batch, held to each
+    other by tests/test_torch_train_bf16.py's gate, the CPU's fp32 run
+    giving the noise bf16 itself brings."""
+    rng = np.random.RandomState(SEED + 4)
+    x = torch.from_numpy(
+        (rng.rand(2, 3, T16_SMALL, T16_SMALL) * 2 - 1).astype(np.float32))
+    lab = torch.from_numpy(det_labels(rng, 2))
+    ref_net = train_net(2, T16_SMALL)
+    params = Session(ref_net, SEED, device="cpu").compile_net().params
+    state = bn_stats(ref_net)
+
+    def grads(bf16, device):
+        net = train_net(2, T16_SMALL, bf16)
+        leaves = {k: v.detach().to(device, copy=True).requires_grad_()
+                  for k, v in params.items()}
+        ex = execute(net, leaves, {k: v.to(device) for k, v in
+                                   state.items()},
+                     {"input": x.to(device), "label": lab.to(device)},
+                     Mode.TRAIN)
+        ex.surrogate.backward()
+        return ({k: v.grad.cpu() for k, v in leaves.items()},
+                float(get_loss(ex)))
+
+    g32, _ = grads(False, "cpu")
+    g16, loss_c = grads(True, "cpu")
+    gg, loss_g = grads(True, "cuda")
+    if any(v.dtype != torch.float32 for v in gg.values()):
+        raise RuntimeError("a bf16 gradient on the card is not fp32")
+    if not np.isclose(loss_g, loss_c, rtol=T16_LOSS_RTOL, atol=0):
+        raise RuntimeError(f"bf16 loss: card {loss_g}, CPU {loss_c}")
+    noise, gaps = grad_gaps(g32, g16), grad_gaps(g16, gg)
+    worst = {True: (0.0, 0.0), False: (0.0, 0.0)}
+    for k, (cg, rg) in gaps.items():
+        clean = noise[k][0] <= 0.01 and noise[k][1] < 0.5
+        lim = ((COS_GAP, RMS_GAP) if clean else
+               (NOISE_RATIO * noise[k][0], NOISE_RATIO * noise[k][1]))
+        if cg > lim[0] or rg > lim[1]:
+            raise RuntimeError(
+                f"bf16 gradient of {k}, card vs CPU: 1 - cosine {cg:.3g}, "
+                f"max|d| {rg:.3g} rms (limits {lim[0]:.3g}, {lim[1]:.3g})")
+        worst[clean] = (max(worst[clean][0], cg / (lim[0] or 1)),
+                        max(worst[clean][1], rg / lim[1]))
+    n_clean = sum(1 for v in noise.values() if v[0] <= 0.01 and v[1] < 0.5)
+    print(f"bf16 + act16 step at {T16_SMALL} px, batch 2, card vs CPU: "
+          f"loss {loss_g:.5f} vs {loss_c:.5f} (rel "
+          f"{abs(loss_g - loss_c) / abs(loss_c):.2g}); gradients of "
+          f"{len(gaps)} tensors, {n_clean} where bf16 meets bcnn_tpu's "
+          f"gate against fp32 (worst share of the limit: cosine "
+          f"{worst[True][0]:.2f}, max|d| {worst[True][1]:.2f}); elsewhere "
+          f"within {NOISE_RATIO}x bf16's own gap (worst share: "
+          f"{worst[False][0]:.2f}, {worst[False][1]:.2f})")
+
+
+def uint8_batches(rng, lead, batch):
+    x = rng.randint(0, 256, lead + (batch, 3, SIZE, SIZE)).astype(np.uint8)
+    lab = np.stack([det_labels(rng, batch) for _ in range(int(np.prod(
+        lead, dtype=int)))]).reshape(lead + (batch, 250))
+    return {"input": torch.from_numpy(x).cuda(),
+            "label": torch.from_numpy(lab).cuda()}
+
+
+def fresh(net, params, state):
+    p = {k: v.clone() for k, v in params.items()}
+    return p, {k: v.clone() for k, v in state.items()}, init_opt_state(
+        net, p)
+
+
+def scan_phase(gpu):
+    """make_train_scan: SCAN_K bf16 + act16 steps at FORMS_BATCH, 416 px,
+    with rotation augmentation on uint8 batches staged on the card, in
+    one call, after one warm-up call. Returns K2's launches in the timed
+    call (3 a step)."""
+    net = train_net(FORMS_BATCH, SIZE)
+    net.device_augment = AUGMENT
+    sess = Session(net, SEED, device="cuda")
+    sess.state = bn_stats(net)
+    sess.compile_net()
+    batches = uint8_batches(np.random.RandomState(SEED + 5), (SCAN_K,),
+                            FORMS_BATCH)
+    scan = make_train_scan(net)
+    st = [sess.params, sess.state, sess.opt_state]
+    gen = torch.Generator().manual_seed(SEED)
+    st[:] = scan(*st, batches, gen)[:3]  # warm-up
+    torch.cuda.synchronize()
+    row_shift.launches = 0
+    decode_fused.launches = 0
+    t0 = time.perf_counter()
+    out = scan(*st, batches, gen)
+    losses = out[3].cpu()
+    ms = 1e3 * (time.perf_counter() - t0)
+    k2 = row_shift.launches
+    if k2 != 3 * SCAN_K or decode_fused.launches:
+        raise RuntimeError(f"the scan launched K2 {k2} times and K1 "
+                           f"{decode_fused.launches} times")
+    if tuple(losses.shape) != (SCAN_K,) or not torch.isfinite(losses).all():
+        raise RuntimeError(f"scan losses {losses}")
+    check_fp32("the scan", *out[:3])
+    print(f"make_train_scan, {SCAN_K} bf16 + act16 steps at batch "
+          f"{FORMS_BATCH}, {SIZE} px, augment {AUGMENT}, on {gpu}: one call "
+          f"{ms:.1f} ms ({ms / SCAN_K:.1f} ms a step, "
+          f"{FORMS_BATCH * SCAN_K / ms * 1e3:.1f} images/s); losses "
+          + ", ".join(f"{v:.3f}" for v in losses.tolist())
+          + f"; K2 launched {k2} times")
+    return k2
+
+
+def max_update_gap(p0, a, b):
+    """max over tensors of max|du_a - du_b| / max|du_b|."""
+    worst = 0.0
+    for k in p0:
+        da, db = a[k] - p0[k], b[k] - p0[k]
+        scale = float(db.abs().max())
+        if scale:
+            worst = max(worst, float((da - db).abs().max()) / scale)
+    return worst
+
+
+def forms_phase(gpu):
+    """At FORMS_BATCH, 416 px, bf16 + act16, from one set of weights: a
+    remat step against the plain step (rotation augmentation, one
+    generator seed: the same draws), and an accum_steps=2 step against
+    the two half-batch forwards and backwards it stands for, gradients
+    summed, the running stats carried from one half to the other. Time
+    (median of 3 after a warm-up) and peak memory of each."""
+    aug = train_net(FORMS_BATCH, SIZE)
+    aug.device_augment = AUGMENT
+    plain = train_net(FORMS_BATCH, SIZE)
+    sess = Session(plain, SEED, device="cuda")
+    sess.state = bn_stats(plain)
+    sess.compile_net()
+    p0, s0 = sess.params, sess.state
+    rng = np.random.RandomState(SEED + 6)
+    u8 = uint8_batches(rng, (), FORMS_BATCH)
+    fl = bench_batch(FORMS_BATCH, SIZE, "cuda")
+    runs = {
+        "plain": (aug, dict(), u8),
+        "remat": (aug, dict(remat=True), u8),
+        "accum_steps=2": (plain, dict(accum_steps=2), fl),
+    }
+    res = {}
+    for name, (net, kw, batch) in runs.items():
+        step = make_train_step(net, **kw)
+        times = []
+        for i in range(4):
+            args = fresh(net, p0, s0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = step(*args, batch, torch.Generator().manual_seed(SEED))
+            float(out[3])
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = (out, statistics.median(times[1:]), peak)
+
+    # the accumulation by hand: two half batches, one update
+    net = plain
+    params, state, opt = fresh(net, p0, s0)
+    specs = {t.key: t for t in net.param_specs()}
+    leaves = {k: v.detach().requires_grad_(specs[k].trainable)
+              for k, v in params.items()}
+    loss = 0.0
+    half = FORMS_BATCH // 2
+    for lo in (0, half):
+        ex = execute(net, leaves, state,
+                     {k: v[lo:lo + half] for k, v in fl.items()},
+                     Mode.TRAIN)
+        ex.surrogate.backward()
+        state = ex.state
+        loss = loss + get_loss(ex)
+    params, opt = apply_updates(
+        net, params, {k: v.grad for k, v in leaves.items()
+                      if specs[k].trainable}, opt)
+
+    for name, ref in (("remat", res["plain"][0]),
+                      ("accum_steps=2", (params, state, opt, loss))):
+        out = res[name][0]
+        check_fp32(name, *out[:3])
+        err = max_update_gap(p0, out[0], ref[0])
+        lerr = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+        serr = max(float((out[1][k] - ref[1][k]).abs().max()) for k in s0)
+        if err > FORM_TOL or lerr > FORM_TOL:
+            raise RuntimeError(f"{name}: updates differ by {err:.3g} of "
+                               f"their largest entry, loss by {lerr:.3g}")
+        res[name] += (err, lerr, serr)
+    print(f"step forms, bf16 + act16, batch {FORMS_BATCH}, {SIZE} px, on "
+          f"{gpu}: " + "; ".join(
+              f"{name} {r[1]:.1f} ms, peak {r[2]:.2f} GiB"
+              + (f" (updates within {r[3]:.3g} of their largest entry, "
+                 f"loss {r[4]:.3g} relative, running stats "
+                 f"{r[5]:.3g} absolute, of the "
+                 + ("plain step)" if name == "remat"
+                    else "two half batches by hand)") if len(r) > 3 else "")
+              for name, r in res.items()))
+
+
+def bf16_training_phase(gpu):
+    """bench.py's training program and the forms of the step. Returns
+    K2's launches in the scan."""
+    t0 = time.perf_counter()
+    b16 = timed_training(gpu, bf16=True)
+    f32 = timed_training(gpu, bf16=False)
+    print(f"batch {T16_BATCH} training on {gpu}: bf16 + act16 "
+          f"{T16_BATCH / b16[0] * 1e3:.1f} images/s against fp32 "
+          f"{T16_BATCH / f32[0] * 1e3:.1f} ({f32[0] / b16[0]:.2f}x); "
+          f"device busy {b16[1]:.2f} / {f32[1]:.2f} ms a step; peak memory "
+          f"{b16[2]:.2f} / {f32[2]:.2f} GiB")
+    cross_device_bf16()
+    k2 = scan_phase(gpu)
+    forms_phase(gpu)
+    print(f"bf16 training phase: {time.perf_counter() - t0:.1f} s")
+    return k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1246,6 +1600,9 @@ def main() -> int:
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
     k2_launches = train_phase(gpu)
     cross_device_step()
+
+    # -- phase 8: bench.py's training program at bf16, the step forms ------
+    k2_launches += bf16_training_phase(gpu)
 
     served = k1[:2]  # the two head shapes the served path gives K1
     trained = k2[:3]  # the three shears of one training step

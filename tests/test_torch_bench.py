@@ -1,12 +1,14 @@
 """bench_torch.py, the port's benchmark, on the CPU at a small size: its
-builder and its measurement in `detect` and `detect_int8`, and the keys
-of its JSON line (`bench.py`'s). The script itself refuses the CPU."""
+builders and its measurement in `detect`, `detect_int8` and `train`,
+and the keys of its JSON line (`bench.py`'s). The script itself refuses
+the CPU."""
 
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,9 +38,27 @@ def test_detect_int8_runs_the_int8_program():
     assert torch.isfinite(boxes).all()
 
 
-def test_train_mode_raises():
-    with pytest.raises(NotImplementedError):
-        bench_torch.run("train", 2, 64, 4, "cpu")
+@pytest.mark.parametrize("act,scan", [("bf16", 1), ("fp32", 1), ("bf16", 2)])
+def test_train_line_on_the_cpu(act, scan):
+    """BENCH_MODE=train: bench.py's training program and keys (the loss
+    added; scan_steps with BENCH_SCAN)."""
+    rec = bench_torch.run("train", 2, 64, 4, "cpu", act=act, scan=scan)
+    line = json.loads(json.dumps(rec))
+    want = KEYS | {"loss"} | ({"scan_steps"} if scan > 1 else set())
+    assert set(line) == want
+    assert line["metric"] == ("yolov3_tiny_64_train_bf16"
+                              + ("_act16" if act == "bf16" else "")
+                              + (f"_scan{scan}" if scan > 1 else ""))
+    assert line["n_rounds"] == 2 and line["batch"] == 2
+    assert line["value"] > 0 and line["loss"] > 0
+    if scan > 1:
+        assert line["scan_steps"] == scan
+
+
+def test_train_program_steps_the_weights():
+    fn = bench_torch.build_train(2, 64, "cpu", scan=2)
+    losses = [float(fn()) for _ in range(3)]
+    assert all(np.isfinite(losses)) and len(set(losses)) == 3
 
 
 def test_script_refuses_the_cpu():

@@ -227,6 +227,79 @@ def test_conv_gradients_on_the_card_are_fp32(cuda, stride):
                                    atol=1e-5 * float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mixed_conv_backward_on_the_card(cuda, stride):
+    """The bf16 conv of TRAIN (compute_dtype) on the card against the
+    CPU's: the fp32 forward within 1e-5 of its largest value (products
+    of bf16 values are exact in TF32 and fp32), dx (bf16, as x) and dw
+    (fp32) within 2^-7 of their largest |value| (the transposed convs'
+    bf16 outputs, summed in another order)."""
+    gen = torch.Generator().manual_seed(10 + stride)
+    x = torch.randn(4, 64, 24, 24, generator=gen).to(torch.bfloat16)
+    w = torch.randn(48, 64, 3, 3, generator=gen) * 0.05
+    g = torch.randn(4, 48, 24 // stride, 24 // stride, generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).detach().requires_grad_()
+        wd = w.to(dev).detach().requires_grad_()
+        y = ops.conv2d(xd, wd, stride, 1, 1, torch.bfloat16)
+        y.backward(g.to(dev))
+        assert y.dtype == torch.float32
+        assert xd.grad.dtype == torch.bfloat16
+        assert wd.grad.dtype == torch.float32
+        outs.append((y.detach().cpu(), xd.grad.cpu().float(),
+                     wd.grad.cpu()))
+    for (ref, got), tol in zip(zip(*outs), (1e-5, 2.0**-7, 2.0**-7)):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("form", ["plain", "remat", "accum_steps",
+                                  "scan"])
+def test_bf16_training_forms_on_the_card(cuda, form):
+    """A bf16 + act16 YOLOv3-tiny step on the card in each form, with
+    rotation (K2, three launches a step, and a microbatch under
+    accum_steps): finite loss, every param, running stat and velocity
+    fp32, the weights moved."""
+    from bcnn_tpu_torch.compile import make_train_scan, make_train_step
+
+    net = yolov3_tiny(4, 96, 96, 4, mode=Mode.TRAIN)
+    net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    net.device_augment = dict(rotation_range=10.0, random_fliph=1)
+    net.yolo_stats = True
+    sess = Session(net, 0, device=cuda).compile_net()
+    rng = np.random.RandomState(1)
+    steps = 2 if form == "scan" else 1
+    x = torch.from_numpy(rng.randint(0, 256, (steps, 4, 3, 96, 96)).astype(
+        np.uint8)).to(cuda)
+    lab = np.zeros((steps, 4, 250), np.float32)
+    lab[..., :5] = [0.4, 0.6, 0.3, 0.2, 1]
+    lab = torch.from_numpy(lab).to(cuda)
+    w0 = sess.params["input_w"].clone()
+    before = row_shift.launches
+    gen = torch.Generator().manual_seed(0)
+    if form == "scan":
+        out = make_train_scan(net)(sess.params, sess.state, sess.opt_state,
+                                   {"input": x, "label": lab}, gen)
+        assert out[3].shape == (2,)
+        assert all(v.shape == (2,) for st in out[4] for v in st.values())
+    else:
+        kw = {"remat": {"remat": True},
+              "accum_steps": {"accum_steps": 2}}.get(form, {})
+        out = make_train_step(net, **kw)(
+            sess.params, sess.state, sess.opt_state,
+            {"input": x[0], "label": lab[0]}, gen)
+        assert len(out[4]) == 2  # one stats dict a head
+    torch.cuda.synchronize()
+    augments = 2 if form == "accum_steps" else steps
+    assert row_shift.launches == before + 3 * augments
+    assert bool(torch.isfinite(out[3]).all())
+    for table in (out[0], out[1], out[2]["velocity"]):
+        assert all(v.dtype == torch.float32 and v.device.type == "cuda"
+                   for v in table.values())
+    assert not torch.equal(w0, out[0]["input_w"])
+
+
 @pytest.mark.parametrize(
     "n,c,h,w,k,stride,pad,act",
     [(2, 32, 16, 16, 3, 1, 1, Activation.RELU),

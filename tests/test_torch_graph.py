@@ -119,17 +119,18 @@ def test_filler_distributions(ftype):
 
 
 def test_fixed_filler_and_training_mode_refused():
-    """TRAIN builds now; what the training step still refuses is remat
-    and gradient accumulation."""
+    """TRAIN builds, and the training step takes remat and gradient
+    accumulation; what it refuses is a batch that accum_steps does not
+    divide (given or read from the net), as bcnn_tpu does."""
     v = Filler(type=FillerType.FIXED, value=1.5)(torch.Generator(), (3,))
     assert torch.equal(v, torch.full((3,), 1.5))
     net = yolov3_tiny(2, 64, 64, 4, mode=Mode.TRAIN)
-    with pytest.raises(NotImplementedError):
-        make_train_step(net, remat=True)
-    with pytest.raises(NotImplementedError):
-        make_train_step(net, accum_steps=2)
-    net.remat = True
-    with pytest.raises(NotImplementedError):
+    assert callable(make_train_step(net, remat=True))
+    assert callable(make_train_step(net, accum_steps=2))
+    with pytest.raises(ValueError, match="not divisible"):
+        make_train_step(net, accum_steps=3)
+    net.accum_steps = 3
+    with pytest.raises(ValueError, match="not divisible"):
         make_train_step(net)
 
 

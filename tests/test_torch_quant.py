@@ -431,18 +431,54 @@ def test_quant_from_numpy_carries_the_dict(pair):
 # ------------------------------------------------- what is not ported #
 
 
-@pytest.mark.parametrize("attr", ["train_act_dtype", "qat", "bn_frozen_stats",
-                                  "yolo_stats", "compute_dtype"])
-def test_unported_training_attributes_raise(attr):
-    net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
-    setattr(net, attr, torch.bfloat16 if "dtype" in attr else True)
-    with pytest.raises(NotImplementedError, match=attr):
-        make_train_step(net)
-    sess = Session(net, 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match=attr):
+def _small_train_net(layer):
+    """A TRAIN net of one FC or depthwise layer with compute_dtype."""
+    net = tgraph.Net(Mode.TRAIN)
+    net.set_input_shape(6, 6, 2, 2)
+    if layer == "FULL_CONNECTED":
+        net.add_fullc_layer(3, ttypes.FillerType.XAVIER,
+                            ttypes.Activation.NONE, 0, "input", "f")
+    else:
+        net.add_depthwise_conv_layer(3, 1, 1, 0, ttypes.FillerType.XAVIER,
+                                     ttypes.Activation.RELU, "input", "d")
+    net.compute_dtype = torch.bfloat16
+    return net
+
+
+@pytest.mark.parametrize("case", [
+    "qat", "compute_dtype FULL_CONNECTED", "compute_dtype DEPTHWISE_CONV2D",
+    "train_scan_on_batches", "train_scan_resident_on_batches"])
+def test_unported_training_attributes_raise(case):
+    """What the port still refuses in training: net.qat; compute_dtype
+    in TRAIN on FC and depthwise (the conv alone has its bf16 backward),
+    naming the layer; Session's scans over the data loaders."""
+    if case == "qat":
+        net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
+        net.qat = True
+        with pytest.raises(NotImplementedError, match="qat"):
+            make_train_step(net)
+        sess = Session(net, 0, device="cpu").compile_net()
+        with pytest.raises(NotImplementedError, match="qat"):
+            with torch.no_grad():
+                execute(net, sess.params, sess.state,
+                        {"input": torch.zeros(1, 3, 64, 64)}, Mode.TRAIN)
+    elif case.startswith("compute_dtype"):
+        layer = case.split()[1]
+        net = _small_train_net(layer)
+        sess = Session(net, 0, device="cpu").compile_net()
+        with pytest.raises(NotImplementedError,
+                           match=f"compute_dtype in TRAIN on {layer}"):
+            execute(net, sess.params, sess.state,
+                    {"input": torch.zeros(2, 2, 6, 6)}, Mode.TRAIN)
+        # inference at bf16 runs
         with torch.no_grad():
             execute(net, sess.params, sess.state,
-                    {"input": torch.zeros(1, 3, 64, 64)}, Mode.TRAIN)
+                    {"input": torch.zeros(2, 2, 6, 6)}, Mode.VALID)
+    else:
+        sess = Session(yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN), 0,
+                       device="cpu").compile_net()
+        with pytest.raises(NotImplementedError, match="loaders"):
+            getattr(sess, case)(2)
 
 
 def test_qat_raises_in_valid_mode():

@@ -2,15 +2,21 @@
 Hopper).
 
 It sits beside the JAX package `bcnn_tpu`, which stays the reference,
-and mirrors its module names. It imports torch and never JAX. So far it
-runs three paths in fp32: YOLOv3-tiny detection serving (PREDICT), the
-YOLOv3-tiny training step (TRAIN, SGD or Adam) with on-device
-augmentation, rotation included, and MobileNet-v1 classification
-serving (PREDICT). Its hand-written CUDA kernels, the YOLO decode
-(`csrc/yolo_decode.cu`), the shear shift along rows or columns
-(`csrc/row_shift.cu`) and
-the fused depthwise conv (`csrc/depthwise.cu`), are built with nvcc at
-first CUDA use into `_build/`.
+and mirrors its module names. It imports torch and never JAX. It runs:
+- detection serving (PREDICT) of YOLOv3-tiny and of full YOLOv3 (built
+  from examples/yolo/yolov3.cfg, its 23 shortcut adds included) in
+  fp32, bf16 and int8 (PTQ, int8 activations between layers), on both
+  detection branches, and the host-exact `Session.yolo_get_detections`;
+- MobileNet-v1 classification serving in fp32 and bf16;
+- the YOLOv3-tiny training step in fp32 and bf16, SGD or Adam, with
+  on-device augmentation, in every form of `bcnn_tpu`'s step;
+- Darknet `.cfg` / `.conf` parsing (`config`), `.bcnnmodel` and Darknet
+  `.weights` files (`serialization`), detection metrics (`metrics_det`).
+Its hand-written CUDA kernels, the YOLO decode (`csrc/yolo_decode.cu`),
+the shear shift along rows or columns (`csrc/row_shift.cu`), the fused
+depthwise conv (`csrc/depthwise.cu`) and the int8 conv
+(`csrc/conv_int8.cu`), are built with nvcc at first CUDA use into
+`_build/`.
 """
 
 from .api import Session

@@ -1,6 +1,7 @@
 """Stateful net handle, the ported subset of `bcnn_tpu.api.Session`:
-compile, predict, detect and train on a batch, and the split-phase
-forward / backward / update.
+compile, predict, detect and train on a batch, the split-phase
+forward / backward / update, weight files, and the host-exact YOLO
+detections.
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -41,6 +42,10 @@ class Session:
         self.params: Dict[str, torch.Tensor] = {}
         self.state: Dict[str, torch.Tensor] = {}
         self.opt_state = None
+        # a detection stream for metrics_det.map_eval: any object whose
+        # next_batch() returns (x, labels); the data loaders are not
+        # ported yet
+        self.loader = None
         self._train_step = None
         # the per-step generators derive from this one, as bcnn_tpu's
         # step keys derive from PRNGKey(seed ^ 0x5EED)
@@ -54,8 +59,14 @@ class Session:
     def compile_net(self):
         """bcnn_compile_net analogue: materialize params/state (and, outside
         PREDICT, the optimizer state) on the device. Keeps values already
-        set whose shapes agree, so weights staged before compile survive."""
+        set whose shapes agree, so weights staged before compile survive;
+        weights that config.load_net staged on the net come first
+        (`bcnn_tpu/api.py:63-69`)."""
         params, state = init_params(self.net, self.seed, self.device)
+        loaded_p = getattr(self.net, "_loaded_params", None)
+        if loaded_p is not None:
+            self.params = dict(loaded_p)
+            self.state = dict(getattr(self.net, "_loaded_state", {}))
         for have, fresh in ((self.params, params), (self.state, state)):
             for k, v in have.items():
                 if k in fresh and fresh[k].shape == v.shape:
@@ -234,6 +245,63 @@ class Session:
         )
         with torch.inference_mode():
             return detect(self.params, self.state, {"input": self._input(x)})
+
+    def yolo_get_detections(
+        self,
+        x,
+        w: int,
+        h: int,
+        netw: int,
+        neth: int,
+        thresh: float,
+        relative: int = 1,
+        batch_item: int = 0,
+    ):
+        """bcnn_yolo_get_detections (bcnn_yolo.c:548-643), host-exact as
+        `bcnn_tpu/api.py:436-475`: the forward, then on the host every
+        YOLO layer's boxes above `thresh` for image `batch_item`, the
+        letterbox undone, greedy NMS. A list of dicts (x, y, w, h,
+        objectness, num_classes, prob); a suppressed box keeps its slot
+        with objectness 0, as in the reference."""
+        from .ops import yolo as yolo_ops
+
+        yolo_nodes = [
+            n for n in self.net.nodes if n.type == LayerType.YOLOV3
+        ]
+        if not yolo_nodes:
+            return []
+        names = [self.net.tensors[n.dst[0]].name for n in yolo_nodes]
+        outs, _ = self.predict_on_batch(x, outputs=names)
+        dets = []
+        for node, out in zip(yolo_nodes, outs):
+            # (C, H, W) -> (H, W, C)
+            arr = out[batch_item].float().cpu().numpy().transpose(1, 2, 0)
+            dets += yolo_ops.decode_layer(
+                arr, node.param, self.net.tensors[0].w,
+                self.net.tensors[0].h, thresh,
+            )
+        if not dets:
+            return []
+        for d in dets:
+            d["x"], d["y"], d["w"], d["h"] = yolo_ops.correct_region_boxes(
+                d["x"], d["y"], d["w"], d["h"], w, h, netw, neth, relative
+            )
+        return yolo_ops.nms_obj(dets)
+
+    def save_weights(self, path: str):
+        """bcnn_save_weights: the bit-compatible .bcnnmodel format."""
+        from .serialization import save_weights
+
+        save_weights(self.net, self.params, self.state, path)
+
+    def load_weights(self, path: str):
+        """bcnn_load_weights: .bcnnmodel or Darknet .weights, by the
+        extension, onto the session's device; in PREDICT the BN constants
+        are folded (net.bn_folded)."""
+        from .serialization import load_weights
+
+        load_weights(self.net, self.params, self.state, path, self.device)
+        return self
 
     def get_tensor(self, name: str) -> np.ndarray:
         """Host copy of a param/state tensor, in the port's layout."""

@@ -92,7 +92,7 @@ def opt_state_from_numpy(
 
 
 def he_numpy_weights(
-    net: Net, seed: int = 0
+    net: Net, seed: int = 0, residual_scale: float = 1.0
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """(params, state) of `net` as numpy arrays in bcnn_tpu's layout,
     drawn in tensor order from `np.random.RandomState(seed)`, for parity
@@ -103,7 +103,12 @@ def he_numpy_weights(
     MobileNet-v1's fade to nothing over its 27 ReLU layers. Biases and BN
     shifts are U(-0.1, 0.1), BN scales U(0.8, 1.2), run_mean
     U(-0.1, 0.1), run_var U(0.5, 1.5). Tensors are told apart by their
-    node's type and src slot, never by name."""
+    node's type and src slot, never by name. residual_scale multiplies
+    the BN scales of each conv whose output is an eltwise's first input
+    (a residual branch, Darknet's [shortcut] from the layer before):
+    each residual add then grows the trunk's variance by residual_scale^2
+    instead of doubling it, so a deep residual net (YOLOv3's 23
+    shortcuts) keeps its activations O(1)."""
     role = {}
     for node in net.nodes:
         if node.type in (
@@ -116,6 +121,12 @@ def he_numpy_weights(
             if node.type == LayerType.CONV2D and node.param["batch_norm"]:
                 for slot, r in ((3, "mean"), (4, "var"), (5, "scales")):
                     role[node.src[slot]] = r
+    branch = {n.src[0] for n in net.nodes if n.type == LayerType.ELTWISE}
+    damped = {
+        n.src[5] for n in net.nodes
+        if n.type == LayerType.CONV2D and n.param["batch_norm"]
+        and n.dst[0] in branch
+    }
     conv_w = _conv_weight_keys(net)
     bounds = {"b": (-0.1, 0.1), "mean": (-0.1, 0.1), "var": (0.5, 1.5),
               "scales": (0.8, 1.2)}
@@ -137,6 +148,8 @@ def he_numpy_weights(
             a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
         else:
             a = rng.uniform(*bounds[r], shape)
+            if i in damped:
+                a = a * residual_scale
         (state if r in ("mean", "var") else params)[t.key] = a.astype(
             np.float32
         )

@@ -480,6 +480,35 @@ class _Executor:
             self._maybe_emit_int8(node, y)
         )
 
+    def _eltwise(self, node: Node):
+        """`bcnn_tpu/compile.py:645-670`: the add, the activation, then
+        the requantize or the boundary cast. Two int8 inputs carry one
+        scale (plan_int8_flow's joiner fixpoint): their sum is exact in
+        int32, then one dequant multiply; both are channels-last, and
+        every step keeps that layout. A mixed pair is dequantized first.
+        TRAIN through the layer is not ported (Darknet-53 training)."""
+        if self.mode == Mode.TRAIN:
+            raise NotImplementedError(
+                "bcnn_tpu_torch: ELTWISE in TRAIN mode is not ported yet"
+            )
+        p = node.param
+        a = self.values[node.src[0]]
+        b = self.values[node.src[1]]
+        if a.dtype == torch.int8 and b.dtype == torch.int8:
+            y = ops.eltwise_add(
+                a.to(torch.int32), b.to(torch.int32), p["stride"],
+                p["min_dim"],
+            ).to(torch.float32) * self.int8_flow[node.src[0]]
+        else:
+            y = ops.eltwise_add(
+                self._deq(node.src[0], a), self._deq(node.src[1], b),
+                p["stride"], p["min_dim"],
+            )
+        y = ops.apply_activation(y, p["activation"])
+        self.values[node.dst[0]] = self._cast_act(
+            self._maybe_emit_int8(node, y)
+        )
+
     def _upsample(self, node: Node):
         self.values[node.dst[0]] = ops.upsample_nn(
             self.values[node.src[0]], node.param["size"]

@@ -1,6 +1,8 @@
-"""Declarative graph IR: the tensor table, the learner config and the
-`add_*_layer` methods of the ported slices (YOLOv3-tiny, MobileNet-v1), ported
-from `bcnn_tpu.graph`.
+"""Declarative graph IR: the tensor table, the learner config, the
+augmentation config and every `add_*_layer` method that `config.add_layer`
+dispatches to, ported from `bcnn_tpu.graph`. The executor runs the
+layers of the ported slices; the graph alone holds LRN, deconv, cost,
+standalone activation and dropout nodes, which the executor refuses.
 
 The port carries its own copy because every module of `bcnn_tpu` imports
 JAX when it is loaded, and the port never does. Names, pytree keys, node
@@ -9,9 +11,11 @@ run_var, scales, PReLU slopes) and the shape formulas are those of
 `bcnn_tpu.graph`; `tests/test_torch_graph.py` holds the two to each other.
 
 Layout: `TensorSpec.shape` is the reference's NCHW. `mem_shape` is the
-port's in-memory layout: conv weights are OIHW `(n, c/groups, k, k)` and
-depthwise weights `(c, 1, k, k)`, where `bcnn_tpu` keeps HWIO; FC
-weights are `(in, out)` in both, rows in NCHW flatten order.
+port's in-memory layout: conv weights are OIHW `(n, c/groups, k, k)`,
+depthwise weights `(c, 1, k, k)` and deconv weights `(c_src, n, k, k)`
+(`conv_transpose2d`'s), where `bcnn_tpu` keeps HWIO; FC weights are
+`(in, out)` in both, rows in NCHW flatten order. Each conv-family layout
+is the flat order of the reference's weight blob.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from .types import (
     Activation,
     FillerType,
     LayerType,
+    Loss,
     LrDecay,
+    Metric,
     Mode,
     Optimizer,
     Padding,
@@ -110,8 +116,8 @@ class BuildError(ValueError):
 
 
 class Net:
-    """The graph: the `add_*_layer` methods the YOLOv3-tiny and
-    MobileNet-v1 graphs need."""
+    """The graph builder: the public surface of `bcnn_tpu.graph.Net`
+    but `resize` and `set_num_threads`."""
 
     def __init__(self, mode: Mode = Mode.PREDICT):
         self.mode = Mode(mode)
@@ -140,6 +146,9 @@ class Net:
         self.act_dtype = None
         self.quant = None
         self._used_keys: set = set()
+        # data augmentation config (bcnn_data.h:53-94), written by
+        # config.net_set_param
+        self.data_aug: Dict[str, Any] = {}
         # tensor 0: input, tensor 1: label (bcnn_net.c:67-77)
         self.add_tensor(TensorSpec(name="input"))
         self.add_tensor(TensorSpec(name="label"))
@@ -401,6 +410,52 @@ class Net:
         )
         self.add_node(node)
 
+    def add_deconvolutional_layer(
+        self,
+        n: int,
+        size: int,
+        stride: int,
+        pad: int,
+        init: FillerType,
+        activation: Activation,
+        src_id: str,
+        dst_id: str,
+    ):
+        """bcnn_add_deconvolutional_layer (bcnn_deconv_layer.c:40-140).
+
+        Weights (c_src, n, k, k) in memory, the blob's order and
+        `conv_transpose2d`'s; filler range k*k*c_src; dst spatial
+        s*(h-1) + k - 2p (bcnn_deconv_layer.c:97-101).
+        """
+        node = Node(type=LayerType.TRANSPOSE_CONV2D)
+        self._resolve_src(node, src_id, "Deconvolution layer")
+        s = self._src(node)
+        self._add_param(
+            node,
+            f"{src_id}_w",
+            (1, 1, 1, s.c * n * size * size),
+            (s.c, n, size, size),
+            Filler(type=init, range=size * size * s.c),
+            trainable=True,
+            weight_decay=True,
+            adam_capable=True,
+            grad_div_batch=True,  # ref dW GEMM alpha = 1/batch_size
+        )
+        self._add_param(
+            node, f"{src_id}_b", (1, 1, 1, n), (n,), None, trainable=True
+        )
+        oh = stride * (s.h - 1) + size - 2 * pad
+        ow = stride * (s.w - 1) + size - 2 * pad
+        self._add_dst(node, dst_id, s.n, n, oh, ow)
+        node.param = dict(
+            num=n,
+            size=size,
+            stride=stride,
+            pad=pad,
+            activation=Activation(activation),
+        )
+        self.add_node(node)
+
     def add_fullc_layer(
         self,
         output_size: int,
@@ -445,6 +500,39 @@ class Net:
         )
         self.add_node(node)
 
+    def add_activation_layer(self, activation: Activation, src_id: str):
+        """bcnn_add_activation_layer (bcnn_activation_layer.c:36-98).
+
+        In place: the node's dst index is its src index, so later reads
+        of the name see the activated value. PReLU adds per-channel
+        slopes `<src>_w_prelu`, stepped by the SGD rule whatever the
+        optimizer, lr divided by 1."""
+        node = Node(type=LayerType.ACTIVATION)
+        if not self.nodes:
+            raise BuildError("Activation layer can't be the first layer")
+        idx = self.get_tensor_index_by_name(src_id)
+        if idx < 0:
+            raise BuildError(
+                f"Activation layer: invalid input node name {src_id!r}"
+            )
+        node.src.append(idx)
+        node.dst.append(idx)
+        s = self.tensors[idx]
+        if activation == Activation.PRELU:
+            self._add_param(
+                node,
+                f"{src_id}_w_prelu",
+                (1, 1, 1, s.c),
+                (s.c,),
+                None,
+                trainable=True,
+                weight_decay=True,
+                adam_capable=False,
+                batch_div_one=True,
+            )
+        node.param = dict(activation=Activation(activation))
+        self.add_node(node)
+
     def add_batchnorm_layer(self, src_id: str, dst_id: str):
         """bcnn_add_batchnorm_layer (bcnn_batchnorm_layer.c:36-140).
 
@@ -467,6 +555,28 @@ class Net:
         self._add_param(node, f"{src_id}_b", *vec, None)
         self._add_dst(node, dst_id, s.n, s.c, s.h, s.w)
         node.param = dict()
+        self.add_node(node)
+
+    def add_lrn_layer(
+        self,
+        local_size: int,
+        alpha: float,
+        beta: float,
+        k: float,
+        src_id: str,
+        dst_id: str,
+    ):
+        """bcnn_add_lrn_layer: cross-channel local response
+        normalization (bcnn.h:850-868). The reference's builder never
+        stores its k argument (bcnn_lrn_layer.c:49-52), so k is 0 here,
+        as in `bcnn_tpu`."""
+        node = Node(type=LayerType.LRN)
+        self._resolve_src(node, src_id, "LRN layer")
+        s = self._src(node)
+        self._add_dst(node, dst_id, s.n, s.c, s.h, s.w)
+        node.param = dict(
+            local_size=local_size, alpha=alpha, beta=beta, k=0.0
+        )
         self.add_node(node)
 
     def add_maxpool_layer(
@@ -509,6 +619,25 @@ class Net:
         node.param = dict()
         self.add_node(node)
 
+    def add_dropout_layer(self, rate: float, src_id: str):
+        """bcnn_add_dropout_layer: inverted dropout, train-only, in place
+        (dst index == src index, bcnn_dropout_layer.c:31-60)."""
+        node = Node(type=LayerType.DROPOUT)
+        if not self.nodes:
+            raise BuildError("Dropout layer can't be the first layer")
+        idx = self.get_tensor_index_by_name(src_id)
+        if idx < 0:
+            raise BuildError(
+                f"Dropout layer: invalid input node name {src_id!r}"
+            )
+        node.src.append(idx)
+        node.dst.append(idx)
+        node.param = dict(
+            rate=float(rate),
+            scale=1.0 / (1.0 - rate) if rate < 1.0 else 1.0,
+        )
+        self.add_node(node)
+
     def add_concat_layer(self, src_ids: Sequence[str], dst_id: str):
         """bcnn_add_concat_layer: channel-axis concat of N sources
         (bcnn_concat_layer.c:36-110)."""
@@ -529,6 +658,30 @@ class Net:
                 raise BuildError("Concat layer: inconsistent spatial sizes")
         self._add_dst(node, dst_id, s0.n, out_c, s0.h, s0.w)
         node.param = dict()
+        self.add_node(node)
+
+    def add_eltwise_layer(
+        self, activation: Activation, src_id1: str, src_id2: str, dst_id: str
+    ):
+        """bcnn_add_eltwise_layer: add with stride broadcast across
+        spatial sizes (Darknet's [shortcut]); the strides and the common
+        (c, h, w) are fixed at build (bcnn_eltwise_layer.c:58-95)."""
+        node = Node(type=LayerType.ELTWISE)
+        i1 = self.get_tensor_index_by_name(src_id1)
+        i2 = self.get_tensor_index_by_name(src_id2)
+        if i1 < 0 or i2 < 0:
+            raise BuildError("Eltwise layer: invalid input name")
+        node.src += [i1, i2]
+        t1, t2 = self.tensors[i1], self.tensors[i2]
+        stride = (
+            max(1, t1.w // t2.w if t2.w else 1),
+            max(1, t2.w // t1.w if t1.w else 1),
+        )
+        min_dim = (min(t1.c, t2.c), min(t1.h, t2.h), min(t1.w, t2.w))
+        self._add_dst(node, dst_id, t1.n, t1.c, t1.h, t1.w)
+        node.param = dict(
+            activation=Activation(activation), stride=stride, min_dim=min_dim
+        )
         self.add_node(node)
 
     def add_upsample_layer(self, size: int, src_id: str, dst_id: str):
@@ -582,6 +735,34 @@ class Net:
             total=total,
             mask=list(mask) if mask is not None else list(range(total)),
             anchors=anchors,
+        )
+        self.add_node(node)
+
+    def add_cost_layer(
+        self,
+        loss: Loss,
+        loss_metric: Metric,
+        scale: float,
+        src_id: str,
+        label_id: str = "label",
+        dst_id: str = "cost",
+    ):
+        """bcnn_add_cost_layer (bcnn_cost_layer.c:36-91): reshapes the
+        label tensor (index 1) to src's shape; src wiring [x, label]."""
+        node = Node(type=LayerType.COST)
+        if not self.nodes:
+            raise BuildError("Cost layer can't be the first layer")
+        idx = self.get_tensor_index_by_name(src_id)
+        if idx < 0:
+            raise BuildError(f"Cost layer: invalid input name {src_id!r}")
+        node.src.append(idx)
+        s = self.tensors[idx]
+        lbl = self.tensors[1]
+        lbl.n, lbl.c, lbl.h, lbl.w = s.n, s.c, s.h, s.w
+        node.src.append(1)
+        self._add_dst(node, dst_id, s.n, s.c, s.h, s.w)
+        node.param = dict(
+            loss=Loss(loss), loss_metric=Metric(loss_metric), scale=scale
         )
         self.add_node(node)
 

@@ -1,4 +1,4 @@
 """Programmatic model builders. Each returns a built Net."""
 
 from .imagenet import mobilenet_v1
-from .yolov3 import yolov3_tiny
+from .yolov3 import yolov3, yolov3_tiny

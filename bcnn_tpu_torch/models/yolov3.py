@@ -1,11 +1,15 @@
-"""YOLOv3-tiny, transcribed from examples/yolo/yolov3-tiny.cfg as
-`bcnn_tpu.models.yolov3.yolov3_tiny` builds it.
+"""YOLOv3-tiny, transcribed from examples/yolo/yolov3-tiny.cfg, and full
+YOLOv3, parsed from examples/yolo/yolov3.cfg, as
+`bcnn_tpu.models.yolov3` builds them.
 
 Darknet section indices in the comments match the cfg, so tensor names
-are the lid<N> names the config loader would produce.
+are the lid<N> names the config loader would produce, and a Darknet
+.weights file loads into either net.
 """
 
 from __future__ import annotations
+
+import os
 
 from ..graph import Net
 from ..types import Activation, FillerType, Mode, Padding
@@ -60,4 +64,67 @@ def yolov3_tiny(
     net.add_yolo_layer(
         3, classes, 4, 6, [0, 1, 2], anchors, "lid23", "lid24"
     )                                                  # 24 (26x26 head)
+    return net
+
+
+def yolov3(
+    batch_size: int = 1,
+    width: int = 608,
+    height: int = 608,
+    classes: int = 80,
+    mode: Mode = Mode.PREDICT,
+    cfg_path: str = None,
+) -> Net:
+    """Full YOLOv3 (Darknet-53 backbone, 75 convs, 23 shortcuts, three
+    heads at strides 32, 16 and 8), built by parsing examples/yolo/
+    yolov3.cfg, so its tensors carry the loader's lid<N> names. `classes`
+    rewrites the [yolo] sections and the filter counts of the convs
+    before them (Darknet's recipe edit); `cfg_path` points at another
+    copy of the cfg."""
+    from ..config import (
+        LayerParam,
+        add_layer,
+        layer_param_set,
+        net_set_param,
+        parse_ini,
+    )
+
+    cfg = cfg_path or os.path.join(
+        os.path.dirname(__file__), "..", "..", "examples", "yolo",
+        "yolov3.cfg",
+    )
+    if not os.path.exists(cfg):
+        raise FileNotFoundError(
+            f"yolov3 recipe not found at {cfg}; pass cfg_path= pointing at "
+            "a yolov3.cfg (the repository keeps one in examples/yolo/)"
+        )
+    sections = parse_ini(cfg)
+    net = Net(mode)
+    for k, v in sections[0].keys:
+        net_set_param(net, k, v)
+    net.set_input_shape(width, height, 3, batch_size)
+
+    if classes != 80:
+        n_out = 3 * (classes + 5)
+        for i, sec in enumerate(sections):
+            if sec.name == "[yolo]":
+                sec.keys = [
+                    (k, str(classes) if k == "classes" else v)
+                    for k, v in sec.keys
+                ]
+                prev = sections[i - 1]
+                prev.keys = [
+                    (k, str(n_out) if k == "filters" else v)
+                    for k, v in prev.keys
+                ]
+
+    for i in range(1, len(sections)):
+        lp = LayerParam()
+        for k, v in sections[i].keys:
+            layer_param_set(lp, i, k, v, fmt=1)
+        if lp.src_id is None:
+            lp.src_id = [f"lid{i - 1}"]
+        if lp.dst_id is None:
+            lp.dst_id = f"lid{i}"
+        add_layer(net, sections[i].name, lp)
     return net

@@ -1,12 +1,13 @@
-"""Channel concat and nearest-neighbour upsample, as
-`bcnn_tpu.ops.misc` computes them (bcnn_concat_layer.c,
-bcnn_upsample_layer.c:86-110), on NCHW tensors. Both give an int8
-tensor (the int8 flow, held channels-last) channels-last without a copy
-of their own."""
+"""Channel concat, the eltwise add with its stride broadcast and the
+nearest-neighbour upsample, as `bcnn_tpu.ops.misc` computes them
+(bcnn_concat_layer.c, bcnn_eltwise_layer.c:111-135,
+bcnn_upsample_layer.c:86-110), on NCHW tensors. Each keeps an int8 (or
+int32) tensor of the int8 flow, held channels-last, channels-last
+without a copy of its own."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -14,6 +15,35 @@ import torch
 def concat_channels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Concat on the channel axis, dim 1 of NCHW."""
     return torch.cat(list(xs), dim=1)
+
+
+def eltwise_add(
+    x0: torch.Tensor,
+    x1: torch.Tensor,
+    stride: Tuple[int, int],
+    min_dim: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Add with stride broadcast (bcnn_eltwise_layer.c:111-135 and
+    bcnn_axpy_strided, bcnn_mat.c:159-178):
+
+      dst = copy(x0)
+      dst[b, c, j*s0, i*s0] += x1[b, c, j*s1, i*s1]
+        for c < min_c, j < min_h, i < min_w
+
+    over the whole batch, the semantics `bcnn_tpu` chose: the
+    reference's equal-stride fast path adds batch item 0 only
+    (bcnn_eltwise_layer.c:119-121), an indexing bug. Equal shapes are a
+    plain add. The result takes x0's memory format (`clone` and an
+    elementwise add keep it)."""
+    min_c, min_h, min_w = min_dim
+    s0, s1 = stride
+    if s0 == 1 and s1 == 1 and x0.shape == x1.shape:
+        return x0 + x1
+    out = x0.clone()
+    out[:, :min_c, : min_h * s0 : s0, : min_w * s0 : s0] += x1[
+        :, :min_c, : min_h * s1 : s1, : min_w * s1 : s1
+    ]
+    return out
 
 
 def upsample_nn(x: torch.Tensor, size: int) -> torch.Tensor:

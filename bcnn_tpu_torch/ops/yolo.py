@@ -1,5 +1,6 @@
-"""YOLOv3 detection head: activation, training deltas, box decode and
-the batched on-device decode + NMS of `bcnn_tpu.ops.yolo`.
+"""YOLOv3 detection head: activation, training deltas, box decode, the
+host-side decode + NMS of `bcnn_yolo_get_detections` (numpy) and the
+batched on-device decode + NMS of `bcnn_tpu.ops.yolo`.
 
 Heads are NCHW, (N, A*(5+K), H, W), with channel c = a*(5+K) + e
 (entry_index, bcnn_yolo.c:207-215). Candidates are flattened in
@@ -273,6 +274,96 @@ def format_yolo_stats(stats: Dict) -> str:
             float(stats["cost"]),
         )
     )
+
+
+# ------------------------------------------------------------------------ #
+# host-side post-processing (bcnn_yolo_get_detections), numpy
+# ------------------------------------------------------------------------ #
+
+
+def correct_region_boxes(x, y, w_box, h_box, w, h, netw, neth, relative=1):
+    """Letterbox undo (bcnn_yolo.c:470-496), with the reference's integer
+    new_w / new_h."""
+    if netw / w < neth / h:
+        new_w = netw
+        new_h = (h * netw) // w
+    else:
+        new_h = neth
+        new_w = (w * neth) // h
+    x = (x - (netw - new_w) / 2.0 / netw) / (new_w / netw)
+    y = (y - (neth - new_h) / 2.0 / neth) / (new_h / neth)
+    w_box = w_box * (netw / new_w)
+    h_box = h_box * (neth / new_h)
+    if not relative:
+        x, w_box = x * w, w_box * w
+        y, h_box = y * h, h_box * h
+    return x, y, w_box, h_box
+
+
+def decode_layer(
+    y: np.ndarray, param: Dict, net_w: int, net_h: int, thresh: float
+) -> List[dict]:
+    """One YOLO layer's activated output for one image, y (H, W,
+    A*(5+K)) (the NCHW head transposed), to the detections whose
+    objectness exceeds thresh: the fill loop of bcnn_yolo_get_detections
+    (bcnn_yolo.c:604-639), in (location, anchor) order."""
+    h, w, _ = y.shape
+    num, classes = param["num"], param["classes"]
+    yr = y.reshape(h, w, num, 5 + classes)
+    dets = []
+    for i in range(h * w):
+        row, col = divmod(i, w)
+        for a in range(num):
+            obj = float(yr[row, col, a, 4])
+            if obj <= thresh:
+                continue
+            m = param["mask"][a]
+            bx = (col + float(yr[row, col, a, 0])) / w
+            by = (row + float(yr[row, col, a, 1])) / h
+            # expf overflows to inf without a warning, as in C
+            with np.errstate(over="ignore"):
+                bw = (float(np.exp(yr[row, col, a, 2]))
+                      * param["anchors"][2 * m] / net_w)
+                bh = (float(np.exp(yr[row, col, a, 3]))
+                      * param["anchors"][2 * m + 1] / net_h)
+            probs = obj * np.asarray(yr[row, col, a, 5:])
+            probs = np.where(probs > thresh, probs, 0.0)
+            dets.append(dict(x=bx, y=by, w=bw, h=bh, objectness=obj,
+                             num_classes=classes, prob=probs))
+    return dets
+
+
+def nms_obj(dets: List[dict], nms_thresh: float = NMS_THRESH) -> List[dict]:
+    """Objectness-sorted greedy NMS (do_nms_obj, bcnn_yolo.c:511-545):
+    a suppressed box keeps its slot, with objectness 0 and zero probs."""
+    dets = sorted(dets, key=lambda d: -d["objectness"])
+    for i in range(len(dets)):
+        if dets[i]["objectness"] == 0:
+            continue
+        a = (dets[i]["x"], dets[i]["y"], dets[i]["w"], dets[i]["h"])
+        for j in range(i + 1, len(dets)):
+            if dets[j]["objectness"] == 0:
+                continue
+            b = (dets[j]["x"], dets[j]["y"], dets[j]["w"], dets[j]["h"])
+            if float(_box_iou_np(a, b)) > nms_thresh:
+                dets[j]["objectness"] = 0
+                dets[j]["prob"] = np.zeros_like(dets[j]["prob"])
+    return dets
+
+
+def _box_iou_np(a, b):
+    """IoU of two (x, y, w, h) centre-format boxes as Python floats."""
+    iw = min(a[0] + a[2] / 2, b[0] + b[2] / 2) - max(
+        a[0] - a[2] / 2, b[0] - b[2] / 2
+    )
+    ih = min(a[1] + a[3] / 2, b[1] + b[3] / 2) - max(
+        a[1] - a[3] / 2, b[1] - b[3] / 2
+    )
+    if iw < 0 or ih < 0:
+        return 0.0
+    inter = iw * ih
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return inter / union if union > 0 else 0.0
 
 
 def _top_k(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -54,9 +54,11 @@ int8 conv on CUDA). Needs CUDA; imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,7 +70,7 @@ from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
                                     make_train_step)
 from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
-from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
+from bcnn_tpu_torch.models import mobilenet_v1, yolov3, yolov3_tiny
 from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
@@ -78,6 +80,7 @@ from bcnn_tpu_torch.ops.quant import ptq_synthetic
 from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
                                           row_shift, row_shift_ref)
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
+from bcnn_tpu_torch.serialization import save_weights_darknet
 from bcnn_tpu_torch.types import Activation, Mode
 
 SEED = 0
@@ -159,6 +162,11 @@ K4_RAGGED = [
 # largest (13 layers more, K3's fp32 bias before one bf16 round).
 BF16_HEAD_TOL, BF16_FC_TOL = 2.0**-5, 2.0**-4
 SERVE_STEADY = 20
+# full YOLOv3's weights: He-scaled, each residual branch's BN scales times
+# 0.1, so that 23 residual adds keep the heads O(1)
+# (tests/test_torch_yolov3.py); the host-exact detections of one image
+# decode about HOST_DETS candidates
+RESIDUAL_SCALE, HOST_DETS = 0.1, 200
 # bench.py's training program (bench_train): batch 64 at 416 px, its
 # input and box; bf16 + act16, then fp32, one warm-up step and 10 timed
 T16_BATCH, T16_STEPS = 64, 10
@@ -584,27 +592,35 @@ def check_k3():
     return rows
 
 
-def k4_path_cases():
-    """The 13 convs of YOLOv3-tiny 416 at batch 8, from the net: (name,
-    (n, c, h, w, o, k, stride, pad), BN, activation, int8 out) in the form
-    the int8 path runs them: BN + LRELU + int8 out on the 11 trunk convs,
-    a linear fp32 output on the two heads."""
-    net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
-    out = []
+def k4_path_cases(net, name, bn_mode):
+    """The convs of `net` (416 px, batch 8) in the form its int8 path runs
+    them, one case a distinct shape: (name, (n, c, h, w, o, k, stride,
+    pad), BN, the activation, int8 out, the launches of that shape a
+    request). The trunk convs run BN + LRELU + int8 out, the heads a
+    linear fp32 output. bn_mode: "unfolded" (mean and 1/sqrt(var)
+    applied: YOLOv3-tiny's path, random weights and no file) or "folded"
+    (the scale only, as after a weight file's load in PREDICT: full
+    YOLOv3's path)."""
+    cases = {}
     for node in net.nodes:
         if node.type.name != "CONV2D":
             continue
         s, d, p = net.tensors[node.src[0]], net.tensors[node.dst[0]], node.param
         bn = bool(p["batch_norm"])
-        out.append((d.name, (s.n, s.c, s.h, s.w, d.c, p["size"], p["stride"],
-                             p["pad"]), bn, Activation(p["activation"]), bn))
-    return out
+        shape = (s.n, s.c, s.h, s.w, d.c, p["size"], p["stride"], p["pad"])
+        if shape in cases:
+            cases[shape][-1] += 1
+        else:
+            cases[shape] = [f"{name}:{d.name}", shape, bn_mode if bn else None,
+                            Activation(p["activation"]), bn, 1]
+    return [tuple(c) for c in cases.values()]
 
 
 def k4_args(shape, bn, act, int8_out, gen):
     """Random int8 x (channels-last, as the int8 flow holds it) and w
     ((O, k, k, C) in memory) on the card and the epilogue's vectors, d
-    scaled so that y spreads over the int8 codes of s_out = 2/127."""
+    scaled so that y spreads over the int8 codes of s_out = 2/127; bn
+    "unfolded", "folded" or None."""
     n, c, h, w, o, k, stride, pad = shape
     x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
                       dtype=torch.int8).contiguous(
@@ -617,30 +633,56 @@ def k4_args(shape, bn, act, int8_out, gen):
     d = u(0.5, 1.5) * (3.0 / (127.0**2 * (c * k * k) ** 0.5))
     kw = dict(act=act, s_out=2.0 / 127 if int8_out else None)
     if bn:
-        kw.update(scale=u(0.8, 1.2), mean=u(-0.1, 0.1),
-                  inv=1 / torch.sqrt(u(0.5, 1.5) + 1e-6))
+        kw.update(scale=u(0.8, 1.2))
+    if bn == "unfolded":
+        kw.update(mean=u(-0.1, 0.1), inv=1 / torch.sqrt(u(0.5, 1.5) + 1e-6))
     return (x.cuda(), wt.cuda(), d, u(-0.1, 0.1), stride, pad), kw
+
+
+def k4_request(rows, label):
+    """Sums of one request's K4 rows (each shape times its launches);
+    prints them."""
+    tot = {key: sum(r["n"] * (r[key][0] if key == "bound" else r[key])
+                    for r in rows)
+           for key in ("ms", "cold_ms", "plain_ms", "library_ms",
+                       "library_cold_ms", "bound")}
+    launches = sum(r["n"] for r in rows)
+    print(f"K4 per {label} int8 request ({launches} launches, batch "
+          f"{BATCH}): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} ms, "
+          f"bound {tot['bound']:.4f} ms ({tot['bound'] / tot['cold_ms']:.0%} "
+          f"of it cold); plain {tot['plain_ms']:.2f} ms; library (bf16 "
+          f"cuDNN) {tot['library_ms']:.4f} ms warm, "
+          f"{tot['library_cold_ms']:.4f} ms cold")
+    return tot
 
 
 def check_k4():
     """K4 against conv_int8_fused_ref on the card, bit for bit: the 13
-    YOLOv3-tiny 416 convs at batch 8 in their path's form and in the
-    other (int8 or fp32 out, BN or none, LRELU or NONE), then ragged
-    shapes in both forms, each shape's plan printed. Each path shape
-    timed warm in turns (plain, kernel, library, library, kernel, plain),
-    the library being the cuDNN bf16 conv of the same values (F.conv2d
-    on NCHW bf16 tensors: PyTorch has no int8 conv on CUDA), then cold.
-    Returns (path rows, all rows)."""
+    YOLOv3-tiny 416 convs and the 23 distinct shapes of full YOLOv3's 75
+    (batch 8) in their path's form and in the other (int8 or fp32 out,
+    BN or none, LRELU or NONE), then ragged shapes in both forms, each
+    shape's plan printed. Each path shape timed warm in turns (plain,
+    kernel, library, library, kernel, plain), the library being the
+    cuDNN bf16 conv of the same values (F.conv2d on NCHW bf16 tensors:
+    PyTorch has no int8 conv on CUDA), then cold. Returns (YOLOv3-tiny
+    rows, full YOLOv3 rows, all rows); a path row's "n" is its launches
+    a request."""
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
-    path, rows = [], []
-    cases = [(name, shape, bn, act, i8, True)
-             for name, shape, bn, act, i8 in k4_path_cases()]
-    cases += [(f"ragged{i}", shape, i % 2 == 0, Activation.LRELU, i % 2 == 0,
-               False) for i, shape in enumerate(K4_RAGGED)]
-    for name, shape, bn, act, int8_out, timed in cases:
-        other = (not bn, Activation.NONE if act == Activation.LRELU
-                 else Activation.LRELU, not int8_out)
+    paths = {"yolov3_tiny": [], "yolov3": []}
+    rows = []
+    cases = [c + (True,) for c in
+             k4_path_cases(yolov3_tiny(BATCH, SIZE, SIZE, CLASSES),
+                           "yolov3_tiny", "unfolded")
+             + k4_path_cases(yolov3(BATCH, SIZE, SIZE, CLASSES), "yolov3",
+                             "folded")]
+    cases += [(f"ragged{i}", shape, "unfolded" if i % 2 == 0 else None,
+               Activation.LRELU, i % 2 == 0, 0, False)
+              for i, shape in enumerate(K4_RAGGED)]
+    for name, shape, bn, act, int8_out, n_req, timed in cases:
+        other = (None if bn else "unfolded", Activation.NONE
+                 if act == Activation.LRELU else Activation.LRELU,
+                 not int8_out)
         err = 0.0
         for form in ((bn, act, int8_out), other):
             args, kw = k4_args(shape, *form, gen)
@@ -658,6 +700,7 @@ def check_k4():
                 raise RuntimeError(f"K4 {name} {shape} {form} is not bit-equal"
                                    f" to its plain version: {e}")
             err = max(err, e)
+            del got, want
         rows.append(dict(name=name, max_abs_err=err))
         plan = plan_conv_int8(*shape, sms=kernels.sm_count(
             torch.device("cuda")))
@@ -683,13 +726,17 @@ def check_k4():
         nbytes = x.numel() + wt.numel() + out.numel() * out.element_size()
         ops = 2 * m_rows * o * c * k * k
         r = rows[-1]
-        r.update(shape=shape, ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
-                 library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
+        r.update(shape=shape, n=n_req, ms=(t[1] + t[4]) / 2,
+                 plain_ms=(t[0] + t[5]) / 2, library_ms=(t[2] + t[3]) / 2,
+                 cold_ms=cold_ms(kern, flush),
                  library_cold_ms=cold_ms(lib, flush),
                  bound=bound(nbytes, ops, INT8_OP_S), mb=nbytes / 1e6,
                  gop=ops / 1e9)
-        path.append(r)
-        print(f"K4 {name} {shape} BN {bn} {act.name} "
+        paths[name.split(":")[0]].append(r)
+        del x, wt, xb, wb, out, args
+        bn_s = {None: "no BN", "folded": "BN folded",
+                "unfolded": "BN"}[bn]
+        print(f"K4 {name} {shape} x{n_req} {bn_s} {act.name} "
               f"{'int8' if int8_out else 'fp32'} out: bit-equal in both forms;"
               f" {r['mb']:.2f} MB, {r['gop']:.2f} G int8 ops, bound "
               f"{1e3 * r['bound'][0]:.2f} us ({r['bound'][1]}); warm: kernel "
@@ -700,16 +747,9 @@ def check_k4():
               f"{1e3 * r['library_cold_ms']:.1f} us; "
               f"{r['gop'] / r['ms']:.1f} TOPS warm; {plan_s}")
     del flush
-    tot = {key: sum(r[key][0] if key == "bound" else r[key] for r in path)
-           for key in ("ms", "cold_ms", "plain_ms", "library_ms",
-                       "library_cold_ms", "bound")}
-    print(f"K4 per YOLOv3-tiny 416 int8 request (13 launches, batch 8): warm "
-          f"{tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} ms, bound "
-          f"{tot['bound']:.4f} ms ({tot['bound'] / tot['cold_ms']:.0%} of it "
-          f"cold); plain {tot['plain_ms']:.2f} ms; library (bf16 cuDNN) "
-          f"{tot['library_ms']:.4f} ms warm, {tot['library_cold_ms']:.4f} ms "
-          "cold")
-    return path, rows
+    k4_request(paths["yolov3_tiny"], "YOLOv3-tiny 416")
+    k4_request(paths["yolov3"], "full YOLOv3 416")
+    return paths["yolov3_tiny"], paths["yolov3"], rows
 
 
 def busy_report(label, lat, steady, dev, iters, gpu):
@@ -967,6 +1007,219 @@ def mobilenet_phase(gpu, bf16=False):
     for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {us / 3 / 1e3:8.3f} ms  {k[:90]}")
     return k3_launches
+
+
+def host_detections_agree(a, b):
+    """Two yolo_get_detections lists (card, CPU): the same length, the
+    same number suppressed; the kept boxes agree as sets within the fp32
+    head tolerance (candidates whose objectness ties within it may take
+    each other's places in the sorted list)."""
+    if len(a) != len(b) or not a:
+        raise RuntimeError(f"yolo_get_detections: {len(a)} boxes on the "
+                           f"card, {len(b)} on the CPU")
+
+    def kept(ds):
+        return np.array([[d["x"], d["y"], d["w"], d["h"], d["objectness"]]
+                         + list(d["prob"]) for d in ds if d["objectness"] > 0])
+
+    ka, kb = kept(a), kept(b)
+    if ka.shape != kb.shape or not len(ka):
+        raise RuntimeError(f"yolo_get_detections: {len(ka)} kept on the "
+                           f"card, {len(kb)} on the CPU")
+    tol = HEAD_ATOL + HEAD_RTOL * np.abs(kb)[None]
+    close = (np.abs(ka[:, None] - kb[None]) <= tol).all(-1)
+    match = close.argmax(1)
+    if not close.any(1).all() or len(set(match.tolist())) != len(match):
+        raise RuntimeError("yolo_get_detections: card and CPU keep other "
+                           "boxes")
+    return len(ka)
+
+
+def host_thresh(cpu, x1, yolo_names):
+    """A threshold between two objectness values of image x1 on the CPU,
+    about HOST_DETS from the top with a gap of at least 1e-4 to the next,
+    so that no candidate straddles it between the two devices and the
+    host's O(n^2) NMS loop stays short."""
+    outs, _ = cpu.predict_on_batch(x1, outputs=yolo_names)
+    obj = torch.cat([o.reshape(1, 3, 5 + CLASSES, -1)[0, :, 4].flatten()
+                     for o in outs]).double().sort(descending=True).values
+    for k in range(HOST_DETS, len(obj) - 1):
+        if obj[k] - obj[k + 1] >= 1e-4:
+            return float((obj[k] + obj[k + 1]) / 2)
+    raise RuntimeError("no objectness gap for the host detections")
+
+
+def yolov3_phase(gpu):
+    """Full YOLOv3 from examples/yolo/yolov3.cfg (Darknet-53, 75 convs,
+    23 shortcuts, three heads) at 416 px, batch 8, 80 classes: a Darknet
+    .weights file written by save_weights_darknet from seeded weights
+    into a temporary directory, loaded by Session.load_weights (BN
+    folded), served in fp32, bf16 and int8 (ptq_synthetic, int8
+    activations through the shortcuts, K4 on all 75 convs), each on both
+    detection branches: a warm-up and SERVE_STEADY requests with the
+    launch counts set to 0 before each, K1 three times a
+    decode-everything request. Against the port's CPU run on two images:
+    fp32 heads at the fp32 head tolerance, bf16 within BF16_HEAD_TOL of
+    the largest value, int8 every int8 and bf16 tensor equal under one
+    quant dict; yolo_get_detections of one image equal. Returns (K1, K4)
+    launches on the path."""
+    t_phase = time.perf_counter()
+    net = yolov3(BATCH, SIZE, SIZE, CLASSES)
+    heads = [net.tensors[n.src[0]].name for n in net.nodes
+             if n.type.name == "YOLOV3"]
+    yolo_out = [net.tensors[n.dst[0]].name for n in net.nodes
+                if n.type.name == "YOLOV3"]
+    n_conv = sum(n.type.name == "CONV2D" for n in net.nodes)
+    adds = [n.dst[0] for n in net.nodes if n.type.name == "ELTWISE"]
+    params, state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, SEED,
+                                      residual_scale=RESIDUAL_SCALE))
+    sess = Session(net, SEED, device="cuda").compile_net()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "yolov3.weights")
+        t0 = time.perf_counter()
+        save_weights_darknet(net, params, state, path)
+        t1 = time.perf_counter()
+        sess.load_weights(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mb = os.path.getsize(path) / 1e6
+    del params, state
+    if not net.bn_folded:
+        raise RuntimeError("load_weights in PREDICT did not fold BN")
+    print(f"full YOLOv3: {n_conv} convs, {len(adds)} shortcuts, heads "
+          f"{heads}; {sum(v.numel() for v in sess.params.values()) / 1e6:.1f}"
+          f" M params; .weights {mb:.1f} MB written in {t1 - t0:.1f} s, "
+          f"loaded to the card (BN folded) in {t2 - t1:.1f} s")
+    cpu = Session(net, SEED, device="cpu")
+
+    def to_cpu():
+        cpu.params = {k: v.cpu() for k, v in sess.params.items()}
+        cpu.state = {k: v.cpu() for k, v in sess.state.items()}
+
+    to_cpu()
+    x = np.random.RandomState(SEED + 8).rand(BATCH, 3, SIZE, SIZE).astype(
+        np.float32)
+    x2 = x[:2]
+    k1_total = k4_total = 0
+    for prec in ("fp32", "bf16", "int8"):
+        if prec != "fp32":
+            net.compute_dtype = net.act_dtype = torch.bfloat16
+        if prec == "int8":
+            t0 = time.perf_counter()
+            quant_gpu = ptq_synthetic(net, sess)
+            torch.cuda.synchronize()
+            quant_cpu = dict(quant_gpu, weights={
+                k: {kk: vv.cpu() for kk, vv in e.items()}
+                for k, e in quant_gpu["weights"].items()})
+            to_cpu()  # ptq_synthetic sets the running variances to 1
+            print(f"ptq_synthetic on the card: "
+                  f"{time.perf_counter() - t0:.1f} s, "
+                  f"{len(quant_gpu['act_scales'])} act scales, "
+                  f"{len(quant_gpu['weights'])} int8 weights")
+        last = {}
+        for label, topk_first in (("decode-everything (K1)", False),
+                                  ("top-k-first", True)):
+            for kern in (decode_fused, depthwise_fused, row_shift,
+                         conv_int8_fused):
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            req = lambda v: sess.detect_on_batch(  # noqa: E731
+                v, topk_first=topk_first)
+            outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+            k1, k4 = decode_fused.launches, conv_int8_fused.launches
+            want_k1 = 0 if topk_first else 3 * len(lat)
+            want_k4 = n_conv * len(lat) if prec == "int8" else 0
+            if (k1, k4) != (want_k1, want_k4) or depthwise_fused.launches \
+                    or row_shift.launches:
+                raise RuntimeError(f"full YOLOv3 {prec} {label}: launches K1 "
+                                   f"{k1}, K2 {row_shift.launches}, K3 "
+                                   f"{depthwise_fused.launches}, K4 {k4}")
+            k1_total += k1
+            k4_total += k4
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for o in outs:
+                check_detections(o, BATCH)
+            last[topk_first] = outs[-1]
+            dev = device_us(lambda: req(x), iters=5)
+            k4_dev = sum(v for k, v in dev.items() if "conv_int8" in k) / 5e3
+            busy_report(f"full YOLOv3 detect_on_batch {prec} {label}, batch "
+                        f"{BATCH}, {SIZE} px, {SERVE_STEADY} requests after "
+                        f"the warm-up; peak memory {peak:.2f} GiB"
+                        + (f"; K4 {k4_dev:.3f} ms of device time a request"
+                           if prec == "int8" else ""), lat, lat[1:], dev, 5,
+                        gpu)
+        if prec == "fp32":
+            same_detections(last[True], last[False])
+
+        if prec == "int8":
+            with torch.inference_mode():
+                got = execute(net, sess.params, sess.state,
+                              {"input": torch.from_numpy(x2).cuda()},
+                              Mode.PREDICT)
+                net.quant = quant_cpu
+                want = execute(net, cpu.params, cpu.state,
+                               {"input": torch.from_numpy(x2)}, Mode.PREDICT)
+                net.quant = quant_gpu
+            n_int8 = 0
+            for i, v in want.values.items():
+                name = net.tensors[i].name
+                if v.dtype == torch.int8:
+                    n_int8 += 1
+                    if not got.values[i].is_contiguous(
+                            memory_format=torch.channels_last):
+                        raise RuntimeError(f"full YOLOv3 int8: {name} is not "
+                                           "channels-last on the card")
+                if v.dtype in (torch.int8, torch.bfloat16) and \
+                        not torch.equal(got.values[i].cpu(), v):
+                    raise RuntimeError(f"full YOLOv3 int8: {name} ({v.dtype})"
+                                       " differs between card and CPU")
+            int8_adds = sum(want.values[i].dtype == torch.int8 for i in adds)
+            for h in heads:
+                i = net.get_tensor_index_by_name(h)
+                if want.values[i].dtype != torch.bfloat16:
+                    raise RuntimeError(f"full YOLOv3 int8: head {h} is "
+                                       f"{want.values[i].dtype}")
+            print(f"full YOLOv3 int8 card vs CPU, two images, one quant dict:"
+                  f" all {n_int8} int8 tensors (channels-last; {int8_adds} of"
+                  f" the {len(adds)} shortcut sums among them) and the three "
+                  "bf16 heads bit-equal")
+            del got, want
+            continue
+        g_heads, _ = sess.predict_on_batch(x2, outputs=heads)
+        c_heads, _ = cpu.predict_on_batch(x2, outputs=heads)
+        for name, g, c in zip(heads, g_heads, c_heads):
+            g, c = g.cpu().float(), c.float()
+            if not torch.isfinite(g).all() or float(c.std()) < 0.1:
+                raise RuntimeError(f"full YOLOv3 {prec}: head {name} is "
+                                   "non-finite or degenerate")
+            share = float((g - c).abs().max()) / float(c.abs().max())
+            if prec == "fp32":
+                torch.testing.assert_close(g, c, rtol=HEAD_RTOL,
+                                           atol=HEAD_ATOL)
+            elif not share <= BF16_HEAD_TOL:
+                raise RuntimeError(f"full YOLOv3 bf16 head {name}: card vs "
+                                   f"CPU differ by {share:.3g} of the "
+                                   "largest value")
+            print(f"full YOLOv3 {prec} head {name} {tuple(g.shape)}: card vs"
+                  f" CPU max_abs_err {float((g - c).abs().max()):.3g} "
+                  f"({share:.3g} of the largest value {float(c.abs().max()):.3g})")
+        if prec == "fp32":
+            thresh = host_thresh(cpu, x[:1], yolo_out)
+            t0 = time.perf_counter()
+            dets_g = sess.yolo_get_detections(x[:1], SIZE, SIZE, SIZE, SIZE,
+                                              thresh)
+            t1 = time.perf_counter()
+            dets_c = cpu.yolo_get_detections(x[:1], SIZE, SIZE, SIZE, SIZE,
+                                             thresh)
+            n_kept = host_detections_agree(dets_g, dets_c)
+            print(f"full YOLOv3 yolo_get_detections, one image, thresh "
+                  f"{thresh:.6f}: {len(dets_g)} boxes, {n_kept} kept after "
+                  f"NMS, card and CPU agree; {1e3 * (t1 - t0):.1f} ms on the "
+                  "card's path")
+    net.compute_dtype = net.act_dtype = net.quant = None
+    print(f"full YOLOv3 phase: {time.perf_counter() - t_phase:.1f} s")
+    return k1_total, k4_total
 
 
 def det_labels(rng, n):
@@ -1507,6 +1760,7 @@ def main() -> int:
     k1 = check_k1([
         (BATCH, CLASSES, 13, 13, [3, 4, 5]),
         (BATCH, CLASSES, 26, 26, [0, 1, 2]),
+        (BATCH, CLASSES, 52, 52, [0, 1, 2]),  # full YOLOv3's stride 8
         (3, 7, 7, 11, [1, 3, 5]),  # ragged: odd grid, partial last block
     ])
 
@@ -1518,7 +1772,7 @@ def main() -> int:
     k3 = check_k3()
 
     # -- phase 3d: K4 against its plain version on the card ---------------
-    k4_path, k4 = check_k4()
+    _, k4_path, k4 = check_k4()
 
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
@@ -1597,6 +1851,11 @@ def main() -> int:
     k3_launches = mobilenet_phase(gpu)
     mobilenet_phase(gpu, bf16=True)
 
+    # -- phase 6d: serve full YOLOv3 from its cfg and a .weights file -----
+    k1_v3, k4_v3 = yolov3_phase(gpu)
+    k1_launches += k1_v3
+    k4_launches += k4_v3
+
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
     k2_launches = train_phase(gpu)
     cross_device_step()
@@ -1604,25 +1863,29 @@ def main() -> int:
     # -- phase 8: bench.py's training program at bf16, the step forms ------
     k2_launches += bf16_training_phase(gpu)
 
-    served = k1[:2]  # the two head shapes the served path gives K1
+    served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step
     mobilenet_dw = k3[:len(K3_MOBILENET)]  # the nine MobileNet layers
 
     def entry(name, source, replaces, launches, rows, checked, library):
         """A kernel's JSON record: times and bound summed over `rows`,
-        the shapes of its path; max_abs_err over all `checked`."""
+        the shapes of one request of its path (K1 and K4: full YOLOv3's;
+        a row with "n" counts n times); max_abs_err over all `checked`;
+        launches over every path that runs it."""
+        def total(key, f=lambda v: v):
+            return sum(r.get("n", 1) * f(r[key]) for r in rows)
+
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in checked),
-            "ms": sum(r["ms"] for r in rows),
-            "cold_ms": sum(r["cold_ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound"][0] for r in rows),
+            "ms": total("ms"),
+            "cold_ms": total("cold_ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound", lambda b: b[0]),
             "bound_by": ("bytes" if all(r["bound"][1] == "bytes"
                                         for r in rows) else "operations"),
-            "library_ms": (sum(r["library_ms"] for r in rows) if library
-                           else None),
+            "library_ms": total("library_ms") if library else None,
         }
 
     print(json.dumps({"kernels": [

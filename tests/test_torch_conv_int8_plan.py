@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from bcnn_tpu_torch.models import yolov3_tiny
+from bcnn_tpu_torch.models import yolov3, yolov3_tiny
 from bcnn_tpu_torch.ops.conv_int8 import (
     CONFIGS, SMEM_BLOCK, SPLIT_K, STAGE_K, STAGES, TILE_K, ConvPlan,
     channels_last_weight, conv_int8_fused, conv_int8_fused_ref,
@@ -433,6 +433,12 @@ CASES = [  # n, c, h, w, o, k, stride, pad, bn, act, int8 out
     (2, 48, 5, 5, 40, 3, 2, 1, "folded", "RELU", True),  # K % 32 = 16
     (1, 32, 7, 9, 96, 3, 1, 1, None, "NONE", False),  # fp32 NCHW staging
     (1, 3, 12, 11, 16, 3, 1, 1, "unfolded", "LRELU", True),  # lid1's loader
+    # Darknet-53's kinds (full YOLOv3, BN folded at load)
+    (1, 32, 9, 9, 64, 3, 2, 1, "folded", "LRELU", True),  # s2, K = 288
+    (2, 32, 6, 7, 64, 3, 1, 1, "folded", "LRELU", True),  # K = 288: 4.5 stages
+    (1, 64, 7, 8, 128, 3, 2, 1, "folded", "LRELU", True),  # s2, C = 64
+    (1, 128, 5, 6, 64, 1, 1, 0, "folded", "LRELU", True),  # 1x1 squeeze
+    (1, 256, 5, 5, 255, 1, 1, 0, None, "NONE", False),  # the 52x52 head's
 ]
 
 
@@ -488,16 +494,7 @@ def test_yolo_has_thirteen_convs():
     assert len(YOLO_SHAPES) == 13
 
 
-@pytest.mark.parametrize("shape", YOLO_SHAPES,
-                         ids=[f"c{s[1]}_h{s[2]}_o{s[4]}_k{s[5]}"
-                              for s in YOLO_SHAPES])
-def test_plan_fills_the_card_at_yolo_shapes(shape):
-    """At each of the 13 shapes: at least one block an SM of the H100's
-    132, except where K is short of SPLIT_K and the plan keeps the whole
-    K in one block (lid14, lid16 and lid19: there every split of K timed
-    slower on the card than the idle SMs cost, PERF.md); every K stage in
-    exactly one run, no run empty, and the block's shared memory within
-    the 227 KB a block may take."""
+def assert_plan_covers(shape):
     n, c, h, w, o, k, stride, pad = shape
     plan = plan_conv_int8(*shape, sms=132)
     bm, bn, wm, wn = CONFIGS[plan.cfg]
@@ -514,6 +511,65 @@ def test_plan_fills_the_card_at_yolo_shapes(shape):
     assert plan.tiles_n <= 65535 and plan.splits <= 65535
     if plan.splits > 1:  # split only where the tiles leave SMs idle
         assert plan.tiles_m * plan.tiles_n < 2 * 132
+    return plan
+
+
+@pytest.mark.parametrize("shape", YOLO_SHAPES,
+                         ids=[f"c{s[1]}_h{s[2]}_o{s[4]}_k{s[5]}"
+                              for s in YOLO_SHAPES])
+def test_plan_fills_the_card_at_yolo_shapes(shape):
+    """At each of the 13 shapes: at least one block an SM of the H100's
+    132, except where K is short of SPLIT_K and the plan keeps the whole
+    K in one block (lid14, lid16 and lid19: there every split of K timed
+    slower on the card than the idle SMs cost, PERF.md); every K stage in
+    exactly one run, no run empty, and the block's shared memory within
+    the 227 KB a block may take."""
+    assert_plan_covers(shape)
+
+
+def darknet53_shapes():
+    """{shape: count} of full YOLOv3's 75 convs at 416 px, batch 8."""
+    net = yolov3(8, 416, 416, 80)
+    out = {}
+    for node in net.nodes:
+        if node.type.name == "CONV2D":
+            s, d, p = net.tensors[node.src[0]], net.tensors[node.dst[0]], \
+                node.param
+            key = (s.n, s.c, s.h, s.w, d.c, p["size"], p["stride"], p["pad"])
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+DARKNET53 = darknet53_shapes()
+
+
+def test_darknet53_has_75_convs_in_23_shapes():
+    assert (sum(DARKNET53.values()), len(DARKNET53)) == (75, 23)
+    assert sum(s[6] == 2 for s in DARKNET53) == 5  # the downsamples
+    assert max(s[1] * s[5] ** 2 for s in DARKNET53) == 4608
+
+
+@pytest.mark.parametrize("shape", list(DARKNET53),
+                         ids=[f"c{s[1]}_h{s[2]}_o{s[4]}_k{s[5]}_s{s[6]}"
+                              for s in DARKNET53])
+def test_plan_covers_the_darknet53_shapes(shape):
+    """The same rules hold at the 23 shapes of full YOLOv3's 75 convs:
+    none is split (each K is short of SPLIT_K or makes 352 blocks or
+    more), and the stride-2 convs, C = 32 ... 512, use 16-byte copies."""
+    plan = assert_plan_covers(shape)
+    assert plan.splits == 1
+    if shape[6] == 2:
+        assert shape[1] % 16 == 0
+
+
+def test_k4_emulation_splits_k_at_9216():
+    """A 3x3 conv of 1024 channels (K = 9216, 144 stages) on a small
+    plane: the plan for a 4-SM card splits K, each run's partials land
+    in the workspace, the last block of a tile sums them."""
+    case = (1, 1024, 3, 3, 40, 3, 1, 1, "folded", "LRELU", True)
+    plan = plan_conv_int8(*case[:8], sms=4)
+    assert plan.steps == 144 and plan.splits > 1 and plan.workspace_ints
+    check(make_case(case), plan, seed=3)
 
 
 def test_plan_splits_the_13x13_layers():

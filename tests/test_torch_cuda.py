@@ -40,7 +40,8 @@ def cuda():
      (8, 3, 26, 26, [0, 1, 2]),        # 16 locations a block, partial last
      (5, 90, 9, 7, list(range(16))),   # 16 anchors: 4 locations fit 48 KB
      (1, 1000, 3, 5, list(range(16))),  # classes staged 379 at a time
-     (300, 2, 4, 4, [0, 1, 2])],        # 16 locations, one block an image
+     (300, 2, 4, 4, [0, 1, 2]),         # 16 locations, one block an image
+     (8, 80, 52, 52, [0, 1, 2])],       # full YOLOv3's stride-8 head
 )
 def test_k1_matches_plain_version(cuda, n, classes, h, w, mask):
     anchors = ANCHORS + [float(v) for v in range(20, 40)]  # 16 anchors
@@ -438,7 +439,17 @@ from bcnn_tpu_torch.ops.quant import ptq_synthetic  # noqa: E402
      (8, 32, 52, 52, 128, 3, 1, 1, 2, Activation.LRELU, True),  # 128 x 64
      (2, 48, 9, 9, 40, 3, 2, 1, 1, Activation.RELU, True),  # K % 32 = 16
      (3, 16, 30, 17, 32, 3, 1, 1, 2, Activation.LRELU, True),  # two taps
-     (1, 32, 20, 20, 16, 3, 1, 1, 0, Activation.NONE, False)],  # 128 x 16
+     (1, 32, 20, 20, 16, 3, 1, 1, 0, Activation.NONE, False),  # 128 x 16
+     # Darknet-53 (full YOLOv3 416, batch 8, BN folded): its five
+     # stride-2 convs, K = 288, a 52x52 head, and a split of K = 9216
+     (8, 32, 416, 416, 64, 3, 2, 1, 1, Activation.LRELU, True),
+     (8, 64, 208, 208, 128, 3, 2, 1, 1, Activation.LRELU, True),
+     (8, 128, 104, 104, 256, 3, 2, 1, 1, Activation.LRELU, True),
+     (8, 256, 52, 52, 512, 3, 2, 1, 1, Activation.LRELU, True),
+     (8, 512, 26, 26, 1024, 3, 2, 1, 1, Activation.LRELU, True),
+     (8, 32, 208, 208, 64, 3, 1, 1, 1, Activation.LRELU, True),  # K = 288
+     (8, 256, 52, 52, 255, 1, 1, 0, 0, Activation.NONE, False),  # a head
+     (1, 1024, 13, 13, 512, 3, 1, 1, 1, Activation.LRELU, True)],  # split
 )
 def test_k4_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad, bn,
                                   act, int8_out):
@@ -613,4 +624,104 @@ def test_int8_detect_on_the_card_equals_the_cpu(cuda):
             if v.dtype == torch.int8:  # the int8 flow is channels-last
                 assert got.values[i].is_contiguous(
                     memory_format=torch.channels_last), net.tensors[i].name
+    assert n_int8 >= 10
+
+
+def test_detect_on_full_yolov3_launches_k1_per_head(cuda):
+    """Full YOLOv3 (96 px, 4 classes): three K1 launches a
+    decode-everything request, equal to the plain decode."""
+    from bcnn_tpu_torch.models import yolov3
+
+    net = yolov3(2, 96, 96, 4)
+    sess = Session(net, 0, device=cuda)
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0, residual_scale=0.1),
+        device=cuda)
+    sess.compile_net()
+    x = np.random.RandomState(0).rand(2, 3, 96, 96).astype(np.float32)
+    before = decode_fused.launches
+    full = sess.detect_on_batch(x, 0.5, 30, topk_first=False)
+    assert decode_fused.launches == before + 3
+    plain = sess.detect_on_batch(x, 0.5, 30, topk_first=False,
+                                 use_pallas=False)
+    for a, b in zip(full, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_full_yolov3_int8_on_the_card_equals_the_cpu(cuda):
+    """Full YOLOv3 (96 px, batch 2, bf16 + int8), one quant dict made on
+    the CPU: 75 K4 launches a forward, every int8 and bf16 tensor equal
+    to the CPU's, the shortcut adds int8 and channels-last."""
+    from bcnn_tpu_torch.compile import execute
+    from bcnn_tpu_torch.models import yolov3
+
+    net = yolov3(2, 96, 96, 4)
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    cpu = Session(net, 0, device="cpu")
+    cpu.params, cpu.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0, residual_scale=0.1))
+    cpu.compile_net()
+    quant_cpu = ptq_synthetic(net, cpu)
+    quant_gpu = dict(quant_cpu, weights={
+        k: {kk: vv.to(cuda) for kk, vv in e.items()}
+        for k, e in quant_cpu["weights"].items()})
+    x = torch.rand(2, 3, 96, 96, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = execute(net, cpu.params, cpu.state, {"input": x},
+                       Mode.PREDICT)
+        net.quant = quant_gpu
+        before = conv_int8_fused.launches
+        got = execute(net, {k: v.to(cuda) for k, v in cpu.params.items()},
+                      {k: v.to(cuda) for k, v in cpu.state.items()},
+                      {"input": x.to(cuda)}, Mode.PREDICT)
+        torch.cuda.synchronize()
+        assert conv_int8_fused.launches == before + 75
+    net.quant = quant_cpu
+    for i, v in want.values.items():
+        if v.dtype in (torch.int8, torch.bfloat16) and v.dim() == 4:
+            assert torch.equal(got.values[i].cpu(), v), net.tensors[i].name
+    adds = [n.dst[0] for n in net.nodes if n.type.name == "ELTWISE"]
+    assert len(adds) == 23
+    for i in adds:
+        assert got.values[i].dtype == torch.int8, net.tensors[i].name
+        assert got.values[i].is_contiguous(
+            memory_format=torch.channels_last), net.tensors[i].name
+
+
+def test_int8_shortcut_makes_no_layout_copy_on_the_card(cuda, tmp_path):
+    """The shortcut net's int8 program on the card: no 4-d tensor copied
+    into its own dtype outside K4 (the int32 add and the requantize keep
+    channels-last), every int8 tensor equal to the CPU's."""
+    from bcnn_tpu_torch.compile import execute
+    from test_torch_int8_layout import LayoutCopies, shortcut_net
+
+    net = shortcut_net(tmp_path / "shortcut.cfg")
+    cpu = Session(net, 0, device="cpu")
+    cpu.params, cpu.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 3, residual_scale=0.5))
+    cpu.compile_net()
+    quant_cpu = ptq_synthetic(net, cpu)
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want = execute(net, cpu.params, cpu.state, {"input": x},
+                       Mode.PREDICT)
+        net.quant = dict(quant_cpu, weights={
+            k: {kk: vv.to(cuda) for kk, vv in e.items()}
+            for k, e in quant_cpu["weights"].items()})
+        params = {k: v.to(cuda) for k, v in cpu.params.items()}
+        state = {k: v.to(cuda) for k, v in cpu.state.items()}
+        mode = LayoutCopies()
+        with mode:
+            got = execute(net, params, state, {"input": x.to(cuda)},
+                          Mode.PREDICT)
+        torch.cuda.synchronize()
+    net.quant = quant_cpu
+    assert mode.copies == []
+    n_int8 = 0
+    for i, v in want.values.items():
+        if v.dtype == torch.int8:
+            n_int8 += 1
+            assert torch.equal(got.values[i].cpu(), v), net.tensors[i].name
+            assert got.values[i].is_contiguous(
+                memory_format=torch.channels_last), net.tensors[i].name
     assert n_int8 >= 10

@@ -1,5 +1,6 @@
 """The int8 program's channels-last flow on the CPU: every int8 activation
-of YOLOv3-tiny's int8 program is held channels-last (logical NCHW, NHWC in
+of YOLOv3-tiny's int8 program, and of a Darknet cfg with two shortcuts
+(the int8 eltwise add), is held channels-last (logical NCHW, NHWC in
 memory), the layout K4 reads and writes, down to H = W = 1; the quant
 weights are held (O, k, k, C) in memory from the start and the repack
 round-trips; K4's plain path on channels-last
@@ -12,7 +13,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from bcnn_tpu_torch import Session, bridge, ops
+from bcnn_tpu_torch import Net, Session, bridge, config, ops
 from bcnn_tpu_torch.compile import execute
 from bcnn_tpu_torch.models import yolov3_tiny
 from bcnn_tpu_torch.ops import conv_int8 as k4
@@ -77,9 +78,7 @@ def run(net, sess, x, bf16):
         net.compute_dtype = net.act_dtype = None
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
-def test_every_int8_flow_tensor_is_channels_last(int8_net, bf16):
-    net, sess, x = int8_net
+def assert_int8_flow_channels_last(net, sess, x, bf16):
     ex = run(net, sess, x, bf16)
     int8 = {i: v for i, v in ex.values.items() if v.dtype == torch.int8}
     assert set(int8) == set(ex.int8_flow) and len(int8) >= 10
@@ -90,15 +89,15 @@ def test_every_int8_flow_tensor_is_channels_last(int8_net, bf16):
     for node in net.nodes:
         if node.type.name == "YOLOV3":
             assert ex.values[node.src[0]].is_contiguous()
+    return ex
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
-def test_no_layout_copy_on_the_int8_path(int8_net, bf16, monkeypatch):
-    """A request copies no 4-d tensor into its own dtype outside K4, and
-    every K4 call gets the channels-last x and w the card takes: the
-    input is quantized straight into channels-last, every pass-through
-    keeps it, and the quant weights are held so from the start."""
-    net, sess, x = int8_net
+def test_every_int8_flow_tensor_is_channels_last(int8_net, bf16):
+    assert_int8_flow_channels_last(*int8_net, bf16)
+
+
+def assert_no_layout_copy(net, sess, x, bf16, monkeypatch):
     mode = LayoutCopies()
     fused = k4.conv_int8_fused
 
@@ -116,6 +115,211 @@ def test_no_layout_copy_on_the_int8_path(int8_net, bf16, monkeypatch):
     with mode:
         run(net, sess, x, bf16)
     assert mode.copies == []
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_no_layout_copy_on_the_int8_path(int8_net, bf16, monkeypatch):
+    """A request copies no 4-d tensor into its own dtype outside K4, and
+    every K4 call gets the channels-last x and w the card takes: the
+    input is quantized straight into channels-last, every pass-through
+    keeps it, and the quant weights are held so from the start."""
+    assert_no_layout_copy(*int8_net, bf16, monkeypatch)
+
+
+# a Darknet cfg with two shortcuts ([shortcut], the eltwise add), two
+# stride-2 convs, a route, an upsample and two heads (2 classes)
+SHORTCUT_CFG = """[net]
+width=64
+height=64
+channels=3
+batch=2
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[shortcut]
+from=-3
+activation=linear
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[shortcut]
+from=-3
+activation=linear
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=21
+activation=linear
+
+[yolo]
+mask = 3,4,5
+anchors = 10,14,  23,27,  37,58,  81,82,  135,169,  344,319
+classes=2
+num=6
+
+[route]
+layers = -3
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[route]
+layers = -1, 4
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=21
+activation=linear
+
+[yolo]
+mask = 0,1,2
+anchors = 10,14,  23,27,  37,58,  81,82,  135,169,  344,319
+classes=2
+num=6
+"""
+
+
+def darknet_parse(pkg_config, net, path):
+    """parse_ini + add_layer in the Darknet dialect (fmt 1), the loop of
+    `load_net` for a .weights model, with `pkg_config` the config module
+    of either package."""
+    sections = pkg_config.parse_ini(path)
+    for k, v in sections[0].keys:
+        pkg_config.net_set_param(net, k, v)
+    for i in range(1, len(sections)):
+        lp = pkg_config.LayerParam()
+        for k, v in sections[i].keys:
+            pkg_config.layer_param_set(lp, i, k, v, 1)
+        if lp.src_id is None:
+            lp.src_id = [f"lid{i - 1}"]
+        if lp.dst_id is None:
+            lp.dst_id = f"lid{i}"
+        pkg_config.add_layer(net, sections[i].name, lp)
+    return net
+
+
+def shortcut_net(path, mode=Mode.PREDICT):
+    """SHORTCUT_CFG written to `path` and built by the port."""
+    path.write_text(SHORTCUT_CFG)
+    return darknet_parse(config, Net(mode), str(path))
+
+
+@pytest.fixture(scope="module")
+def shortcut_int8(tmp_path_factory):
+    """SHORTCUT_CFG at 64 px, batch 2, He-scaled weights, after
+    ptq_synthetic on the CPU."""
+    net = shortcut_net(tmp_path_factory.mktemp("cfg") / "shortcut.cfg")
+    sess = Session(net, 0, device="cpu")
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 3, residual_scale=0.5))
+    sess.compile_net()
+    ptq_synthetic(net, sess)
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 3, 64, 64).astype(
+        np.float32))
+    return net, sess, x
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_shortcut_int8_flow_is_channels_last(shortcut_int8, bf16):
+    """Both shortcuts add two channels-last int8 tensors and write one,
+    which feeds a conv and the next shortcut or the route."""
+    net = shortcut_int8[0]
+    ex = assert_int8_flow_channels_last(*shortcut_int8, bf16)
+    adds = [n for n in net.nodes if n.type.name == "ELTWISE"]
+    assert len(adds) == 2
+    for node in adds:
+        for i in node.src + node.dst:
+            assert ex.values[i].dtype == torch.int8, net.tensors[i].name
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_no_layout_copy_on_the_shortcut_int8_path(shortcut_int8, bf16,
+                                                  monkeypatch):
+    assert_no_layout_copy(*shortcut_int8, bf16, monkeypatch)
+
+
+def test_strided_int8_add_keeps_channels_last():
+    """The stride-broadcast path (unequal shapes) adds into a copy of x0
+    and keeps its layout."""
+    a, b = int8_cl((2, 8, 4, 4), 1), int8_cl((2, 4, 8, 8), 2)
+    y = ops.eltwise_add(a.to(torch.int32), b.to(torch.int32), (1, 2),
+                        (4, 4, 4))
+    assert y.is_contiguous(memory_format=CL) and y.dtype == torch.int32
+    want = a.to(torch.int32).contiguous()
+    want[:, :4] += b.to(torch.int32)[:, :, ::2, ::2]
+    assert torch.equal(y, want)
 
 
 def test_weight_repack_round_trips_and_is_made_once():

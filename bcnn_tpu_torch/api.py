@@ -1,7 +1,8 @@
-"""Stateful net handle, the ported subset of `bcnn_tpu.api.Session`:
-compile, predict, detect and train on a batch, the split-phase
-forward / backward / update, weight files, and the host-exact YOLO
-detections.
+"""Stateful net handle, the port of `bcnn_tpu.api.Session`: compile,
+the data loader (`set_data_loader`), predict, detect and train on a batch
+(given, or the loader's next), the K-step scans over loader batches and
+over a record file held on the device, the split-phase forward /
+backward / update, weight files, and the host-exact YOLO detections.
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -42,11 +43,14 @@ class Session:
         self.params: Dict[str, torch.Tensor] = {}
         self.state: Dict[str, torch.Tensor] = {}
         self.opt_state = None
-        # a detection stream for metrics_det.map_eval: any object whose
-        # next_batch() returns (x, labels); the data loaders are not
-        # ported yet
+        # the data loader (set_data_loader), or any object whose
+        # next_batch() returns host (x, labels)
         self.loader = None
         self._train_step = None
+        self._train_scan = None
+        # train_scan_resident_on_batches: (scan, dataset on the device,
+        # index stream), built at its first call
+        self._resident = None
         # the per-step generators derive from this one, as bcnn_tpu's
         # step keys derive from PRNGKey(seed ^ 0x5EED)
         self._rng = torch.Generator().manual_seed(seed ^ 0x5EED)
@@ -77,11 +81,60 @@ class Session:
 
             self.opt_state = init_opt_state(self.net, self.params)
         self._train_step = None
+        self._train_scan = None
+        self._resident = None
+        return self
+
+    # -- data loader + mode plumbing -------------------------------------- #
+
+    def set_data_loader(self, loader_type, train_path, train_path_extra=None,
+                        test_path=None, test_path_extra=None):
+        """bcnn_set_data_loader (bcnn.h:466, bcnn_data.c:377-390): one of
+        the five loaders of `data.loaders`, in the net's mode. With
+        net.device_augment set the loader runs in raw mode (no host
+        augmentation or normalization)."""
+        from .data import make_loader
+
+        self.loader = make_loader(self.net, loader_type, train_path,
+                                  train_path_extra, test_path,
+                                  test_path_extra)
+        self.loader.set_mode(self.net.mode)
         return self
 
     def set_mode(self, mode: Mode):
-        """bcnn_set_mode (bcnn_net.c:490-504)."""
+        """bcnn_set_mode (bcnn_net.c:490-504): switches the mode and, with
+        a loader set, its stream (switching out of TRAIN rewinds the
+        eval stream)."""
         self.net.set_mode(mode)
+        if self.loader is not None:
+            self.loader.set_mode(Mode(mode))
+
+    def _next_batch(self):
+        """The loader's next host batch (x, labels); a raw-mode batch
+        (net.device_augment) goes as uint8, its values being whole pixel
+        levels, and the device normalizes it."""
+        if self.loader is None:
+            raise RuntimeError(
+                "no data loader: call Session.set_data_loader, or pass "
+                "the batch")
+        x, y = self.loader.next_batch()
+        if getattr(self.loader, "raw_mode", False) and x.dtype != np.uint8:
+            x = x.astype(np.uint8)
+        return x, y
+
+    def get_batch_size(self) -> int:
+        return self.net.batch_size
+
+    def fill_tensor_with_image(self, img_u8, batch_index: int, x_buffer,
+                               norm_coeff=1 / 127.5, swap_to_bgr=0,
+                               mean_r=127.5, mean_g=127.5, mean_b=127.5):
+        """bcnn_fill_tensor_with_image (bcnn_data.c:42-68): normalize one
+        HWC uint8 image into row `batch_index` of a host NCHW batch."""
+        from .data.augment import convert_img_to_float
+
+        x_buffer[batch_index] = convert_img_to_float(
+            img_u8, norm_coeff, swap_to_bgr, mean_r, mean_g, mean_b)
+        return x_buffer
 
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -96,13 +149,12 @@ class Session:
         """bcnn_train_on_batch (bcnn_net.c:452-463): one forward, backward
         and update (compile.make_train_step, with net.device_augment when
         set); returns the reported loss as a 0-d tensor on the device.
+        With no batch the data loader supplies it, as in the reference.
         x is uploaded in its own dtype, so a uint8 batch stays uint8 until
-        the device casts it."""
+        the device casts it; a tensor already on the device is taken as
+        it is (a pipeline's batch)."""
         if x is None:
-            raise NotImplementedError(
-                "train_on_batch(): the data loaders are not ported to "
-                "bcnn_tpu_torch yet; pass the batch and its labels"
-            )
+            x, label = self._next_batch()
         if self._train_step is None:
             self._train_step = make_train_step(self.net)
         x = torch.as_tensor(x, device=self.device)
@@ -117,24 +169,90 @@ class Session:
                 {k: float(v) for k, v in st.items()} for st in out[4]]
         return loss
 
-    def train_scan_on_batches(self, k: int):
-        """bcnn_tpu's k loader batches in one call: the loaders are not
-        ported yet. `compile.make_train_scan` runs k staged batches."""
-        raise NotImplementedError(
-            "train_scan_on_batches(): the data loaders are not ported to "
-            "bcnn_tpu_torch yet; call compile.make_train_scan on staged "
-            "batches"
-        )
+    def _refuse_scan_forms(self, what: str):
+        """The scans run the bare step (`bcnn_tpu/api.py:189-205`)."""
+        for name, on in (
+            ("remat", bool(getattr(self.net, "remat", False))),
+            ("accum_steps",
+             int(getattr(self.net, "accum_steps", 1) or 1) > 1),
+        ):
+            if on:
+                raise ValueError(
+                    f"{what} does not support {name} (the scan runs the "
+                    "bare step); use train_on_batch for such nets")
 
-    def train_scan_resident_on_batches(self, k: int, shuffle: bool = False):
-        """bcnn_tpu's scan over a record set uploaded once: the record
-        loader is not ported yet. `compile.make_train_scan_resident`
-        runs on a dataset and an index already on the device."""
-        raise NotImplementedError(
-            "train_scan_resident_on_batches(): the data loaders are not "
-            "ported to bcnn_tpu_torch yet; call "
-            "compile.make_train_scan_resident on a device dataset"
-        )
+    def _take_scan(self, out) -> float:
+        self.params, self.state, self.opt_state, losses = out[:4]
+        if len(out) == 5:  # net.yolo_stats: per-step stats, leading axis k
+            self.last_yolo_stats = [
+                {kk: v.cpu().numpy() for kk, v in st.items()}
+                for st in out[4]]
+        return float(losses.sum())
+
+    def train_scan_on_batches(self, k: int) -> float:
+        """k loader batches staged on the device and trained in one call
+        (compile.make_train_scan, `bcnn_tpu/api.py:171-235`); returns the
+        SUM of the k steps' reported losses, so a caller accumulates it
+        as it would k train_on_batch calls. With net.device_augment the
+        raw batches are staged as uint8."""
+        self._refuse_scan_forms("train_scan_on_batches")
+        xs, ys = zip(*(self._next_batch() for _ in range(k)))
+        staged = {"input": torch.as_tensor(np.stack(xs), device=self.device),
+                  "label": self._input(np.stack(ys))}
+        if self._train_scan is None:
+            from .compile import make_train_scan
+
+            self._train_scan = make_train_scan(self.net)
+        (gen,) = child_generators(self._rng, 1)
+        return self._take_scan(self._train_scan(
+            self.params, self.state, self.opt_state, staged, gen))
+
+    def train_scan_resident_on_batches(self, k: int,
+                                       shuffle: bool = False) -> float:
+        """train_scan_on_batches over a record file held on the device
+        (`bcnn_tpu/api.py:237-318`): at the first call the loader, a
+        RawRecordLoader, is read whole (read_all) and uploaded once; each
+        call then trains k steps whose batches are gathered on the device
+        by a (k, B) index (compile.make_train_scan_resident), so a call
+        moves only the index. Needs net.device_augment (records hold raw
+        uint8; {} normalizes only). shuffle=False walks the records in
+        the loader's sequential mod-n order; shuffle=True draws a
+        per-epoch permutation (EpochIndexStream), fixed at the first
+        call. Returns the sum of the k losses."""
+        from .data.records import EpochIndexStream, RawRecordLoader
+
+        if getattr(self.net, "device_augment", None) is None:
+            raise ValueError(
+                "train_scan_resident_on_batches requires net.device_augment "
+                "(records are raw uint8; {} gives device-side normalization "
+                "only)")
+        if not isinstance(self.loader, RawRecordLoader):
+            raise ValueError(
+                "train_scan_resident_on_batches needs a RawRecordLoader "
+                "(records_from_loader writes one); got "
+                f"{type(self.loader).__name__}")
+        self._refuse_scan_forms("train_scan_resident_on_batches")
+        if self._resident is None:
+            from .compile import make_train_scan_resident
+
+            xa, ya = self.loader.read_all()
+            ds = {"input": torch.as_tensor(xa, device=self.device),
+                  "label": self._input(ya)}
+            stream = EpochIndexStream(self.loader.n, self.net.batch_size,
+                                      seed=self.seed, shuffle=shuffle)
+            self._resident = (make_train_scan_resident(self.net), ds,
+                              stream)
+        scan, ds, stream = self._resident
+        if stream.shuffle != shuffle:
+            raise ValueError(
+                "shuffle is fixed at the first "
+                f"train_scan_resident_on_batches call ({stream.shuffle}); "
+                "compile_net() resets the resident state")
+        idx = torch.as_tensor(stream.next(k), dtype=torch.int64,
+                              device=self.device)
+        (gen,) = child_generators(self._rng, 1)
+        return self._take_scan(scan(
+            self.params, self.state, self.opt_state, ds, idx, gen))
 
     # -- split-phase API (bcnn_forward / bcnn_backward / bcnn_update) ----- #
 
@@ -144,10 +262,7 @@ class Session:
         and the new running stats are written. No augmentation runs
         here. Returns the loss."""
         if x is None:
-            raise NotImplementedError(
-                "forward(): the data loaders are not ported to "
-                "bcnn_tpu_torch yet; pass the batch"
-            )
+            x, label = self._next_batch()
         batch = {"input": self._input(x)}
         if label is not None:
             batch["label"] = self._input(label)
@@ -201,12 +316,10 @@ class Session:
         current mode (VALID when it is TRAIN); returns (outputs, loss). The
         default output is the last tensor produced; the loss of a net
         without cost layers is 0. The parameters come in the order of
-        `bcnn_tpu.api.Session.predict_on_batch`."""
+        `bcnn_tpu.api.Session.predict_on_batch`. With no batch the data
+        loader supplies it."""
         if x is None:
-            raise NotImplementedError(
-                "predict_on_batch(): the data loaders are not ported to "
-                "bcnn_tpu_torch yet; pass the batch"
-            )
+            x, label = self._next_batch()
         mode = self.net.mode if self.net.mode != Mode.TRAIN else Mode.VALID
         if outputs is None:
             outputs = [self._default_output_name()]

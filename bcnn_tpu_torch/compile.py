@@ -1,6 +1,7 @@
 """Graph executor: runs the declarative Net on torch tensors, the ported
-subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny and
-MobileNet-v1 layers) in fp32, at bf16 (net.compute_dtype, net.act_dtype)
+subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny,
+MobileNet-v1 and the MNIST recipe's layers, the euclidean cost layer and
+the standalone activation among them) in fp32, at bf16 (net.compute_dtype, net.act_dtype)
 and, in PREDICT, at int8 (net.quant: PTQ with int8 activations between
 layers, the convs on K4), the detection program, and training in fp32
 or bf16 (net.compute_dtype, net.train_act_dtype) in every form of the
@@ -25,7 +26,7 @@ import torch
 
 from . import ops
 from .graph import Net, Node, TensorKind
-from .types import Activation, LayerType, Mode
+from .types import Activation, LayerType, Loss, Mode
 
 
 def init_params(
@@ -387,14 +388,19 @@ class _Executor:
         back; the output is cast to act_dtype after K3's fp32 bias and
         activation, where bcnn_tpu adds the bias in bf16 after a bf16
         round (`bcnn_tpu/compile.py:470-496`), a difference of at most
-        a bf16 rounding."""
+        a bf16 rounding. K3 has no backward: TRAIN runs the plain grouped
+        conv (`ops.depthwise.depthwise_fused_ref`) on any device, as
+        bcnn_tpu trains through `ops.depthwise_conv2d` and never through
+        its Pallas kernel."""
         self._refuse_quantized(node)
         self._refuse_bf16_training(node)
         p = node.param
         x, w = self.values[node.src[0]], self.p(node.src[1])
         if self.compute_dtype is not None:
             x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
-        y = ops.depthwise_fused(
+        fn = (ops.depthwise.depthwise_fused_ref if self.mode == Mode.TRAIN
+              else ops.depthwise_fused)
+        y = fn(
             x.to(torch.float32).contiguous(), w.to(torch.float32),
             self.p(node.src[2]), p["stride"], p["pad"], p["activation"],
         )
@@ -508,6 +514,39 @@ class _Executor:
         self.values[node.dst[0]] = self._cast_act(
             self._maybe_emit_int8(node, y)
         )
+
+    def _activation(self, node: Node):
+        """The standalone activation layer (`bcnn_tpu/compile.py:553-
+        562`), in place: dst is src. PRELU raises in apply_activation."""
+        self.values[node.dst[0]] = ops.apply_activation(
+            self.values[node.src[0]], node.param["activation"]
+        )
+
+    def _cost(self, node: Node):
+        """The cost layer (`bcnn_tpu/compile.py:708-740`): the euclidean
+        surrogate into the training loss and, outside PREDICT, the
+        reported metric; nothing without a label (forward only). The
+        lifted-structure loss is not ported yet."""
+        from .ops.losses import compute_metric, euclidean_surrogate
+
+        p = node.param
+        label = self.values.get(1)
+        if label is None:
+            return
+        if p["loss"] != Loss.EUCLIDEAN:
+            raise NotImplementedError(
+                f"bcnn_tpu_torch: the {Loss(p['loss']).name} loss "
+                "(ops/lifted_struct) is not ported yet"
+            )
+        x = self.values[node.src[0]]
+        x = x.reshape(x.shape[0], -1)
+        label = label.reshape(label.shape[0], -1)
+        sur = euclidean_surrogate(x, label, p["scale"])
+        self.surrogate = sur if self.surrogate is None else (
+            self.surrogate + sur
+        )
+        if self.mode != Mode.PREDICT:
+            self.metrics.append(compute_metric(x, label, p["loss_metric"]))
 
     def _upsample(self, node: Node):
         self.values[node.dst[0]] = ops.upsample_nn(

@@ -1,7 +1,8 @@
 """On-device batched augmentation, ported from
 `bcnn_tpu.data.device_augment`: flip, shift, scale and rotation, then
-contrast and brightness and the [-1, 1] normalisation, on the batch's
-device, with box labels carried through the same map.
+contrast and brightness, Perlin distortion and spotlights, and the
+[-1, 1] normalisation, on the batch's device, with box labels carried
+through the same map.
 
 Parameter distributions are the JAX package's (`sample_params`): shift
 ~ U(-range/2, range/2), scale ~ U(min, max), rotation ~
@@ -15,11 +16,14 @@ both packages the same params.
 Images are (N, H, W, C) here, the JAX package's per-image (H, W, C) with
 the batch written out in place of `vmap`. The warp is chosen from the
 config (`_geo_mode`): "none" (flip only), "separable" (scale/shift/flip
-as two interpolation matmuls) or "shear" (rotation within 90 degrees:
+as two interpolation matmuls), "shear" (rotation within 90 degrees:
 the separable warp, then Paeth's three-shear rotation, each shear a
-per-row two-tap shift, the CUDA kernel K2 on the card). Not ported yet:
-geo "full" (the bilinear gather for rotation ranges above 90 degrees),
-Perlin distortion and spotlights.
+per-row two-tap shift, the CUDA kernel K2 on the card) or "full" (the
+one-pass bilinear gather, for rotation ranges above 90 degrees). Perlin
+distortion (bip_image_perlin_distortion, with C's int32 wraparound in
+its noise hash) and spotlights (bip_add_random_spotlights, clamped
+after each spot) follow in the host Augmenter's order. These are plain
+torch: the JAX package writes them in plain jnp, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +38,120 @@ from ..types import DETECTION_MAX_BOXES
 
 FILL = 128.0
 f32 = torch.float32
+
+
+def _gather4(img, y0, x0):
+    """img (N, H, W, C); y0, x0 (N, h, w) int64 cells -> the four taps
+    img[y0, x0], img[y0, x0+1], img[y0+1, x0], img[y0+1, x0+1] of each
+    image, each (N, h, w, C)."""
+    n, hi, wi, c = img.shape
+    flat = img.reshape(n, hi * wi, c)
+
+    def tap(yy, xx):
+        idx = (yy * wi + xx).reshape(n, -1, 1).expand(-1, -1, c)
+        return torch.gather(flat, 1, idx).reshape(*yy.shape, c)
+
+    return (tap(y0, x0), tap(y0, x0 + 1), tap(y0 + 1, x0),
+            tap(y0 + 1, x0 + 1))
+
+
+def _bilinear_gather(img, xs, ys, fill):
+    """img (N, H, W, C); xs, ys (N, H, W) source coordinates -> (N, H, W,
+    C). The interpolation cell is clamped to [0, n-2] and the remainder
+    folded into the fraction, so exact boundary coordinates (the
+    identity) stay valid; samples outside the source read `fill`."""
+    _, h, w, _ = img.shape
+    x0 = torch.clamp(torch.floor(xs), 0, w - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(ys), 0, h - 2).to(torch.int64)
+    fx = (xs - x0)[..., None]
+    fy = (ys - y0)[..., None]
+    valid = ((xs >= 0) & (xs <= w - 1) & (ys >= 0) & (ys <= h - 1))[
+        ..., None]
+    p00, p01, p10, p11 = _gather4(img, y0, x0)
+    out = (p00 * (1 - fx) * (1 - fy) + p01 * fx * (1 - fy)
+           + p10 * (1 - fx) * fy + p11 * fx * fy)
+    return torch.where(valid, out, fill)
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 value C's wrapping arithmetic leaves."""
+    return ((v + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def _noise2d_i32(ix, iy, seed):
+    """bip's _bip_noise2d integer hash (bip.c:154-160) with int32
+    wraparound, computed in int64 and wrapped after each step."""
+    ix, iy = ix.to(torch.int64), iy.to(torch.int64)
+    i = _wrap32(ix * 1619 + iy * 31337 + seed.to(torch.int64) * 13397)
+    n = _wrap32(i << 13) ^ i
+    t = _wrap32(_wrap32(n * n) * 15731 + 789221)
+    m = (n * t + 1376312589) & 0x7FFFFFFF
+    return 1.0 - m.to(f32) / 1073741824.0
+
+
+def _smooth2d(x, y, seed):
+    ix, iy = torch.floor(x), torch.floor(y)
+    fx, fy = x - ix, y - iy
+    v1 = _noise2d_i32(ix, iy, seed)
+    v2 = _noise2d_i32(ix + 1, iy, seed)
+    v3 = _noise2d_i32(ix, iy + 1, seed)
+    v4 = _noise2d_i32(ix + 1, iy + 1, seed)
+
+    def interp(a, b, t):
+        tt = (1.0 - torch.cos(t * math.pi)) * 0.5
+        return a * (1.0 - tt) + b * tt
+
+    return interp(interp(v1, v2, fx), interp(v3, v4, fx), fy)
+
+
+def _perlin(img, distortion, kx, ky, seed):
+    """bip_image_perlin_distortion (bip.c:205-266) on a batch: img (N, H,
+    W, C) float, the rest (N,): one octave, the same displacement on x
+    and y, bilinear with zero outside, the C truncation of the sample
+    cell; clamped to [0, 255] where the host rounds through uint8."""
+    _, h, w, _ = img.shape
+    opts = dict(dtype=f32, device=img.device)
+    y_norm = (torch.arange(h, **opts) / h)[None, :, None]
+    x_norm = (torch.arange(w, **opts) / w)[None, None, :]
+    noise = _smooth2d(x_norm + _col(kx, 3), y_norm + _col(ky, 3),
+                      _col(seed, 3))
+    dist = _col(distortion, 3)
+    px = (x_norm + noise * dist) * w
+    py = (y_norm + noise * dist) * h
+    x_map = px.to(torch.int32)  # C's cast truncates toward zero
+    y_map = py.to(torch.int32)
+    fx = (px - torch.floor(px))[..., None]
+    fy = (py - torch.floor(py))[..., None]
+    valid = ((x_map >= 0) & (x_map < w - 1) & (y_map >= 0)
+             & (y_map < h - 1))[..., None]
+    xm = torch.clamp(x_map, 0, w - 2).to(torch.int64)
+    ym = torch.clamp(y_map, 0, h - 2).to(torch.int64)
+    p00, p01, p10, p11 = _gather4(img, ym, xm)
+    out = (p00 * (1 - fx) * (1 - fy) + p01 * fx * (1 - fy)
+           + p10 * (1 - fx) * fy + p11 * fx * fy)
+    out = torch.clamp(out, 0.0, 255.0)
+    return torch.where(valid, out, 0.0)
+
+
+def _spotlights(img, mu_x, mu_y, sx, sy, active):
+    """bip_add_random_spotlights (bip.c:282-317) on a batch: img (N, H, W,
+    C), the rest (N, S). Additive 255 * gaussian a spot, clamped after
+    EACH spot (the host's order); slot i counts where active."""
+    _, h, w, _ = img.shape
+    opts = dict(dtype=f32, device=img.device)
+    ys = torch.arange(h, **opts)[None, :, None]
+    xs = torch.arange(w, **opts)[None, None, :]
+    out = img
+    for i in range(mu_x.shape[1]):
+        val = torch.exp(-0.5 * (
+            (xs - _col(mu_x[:, i], 3)) ** 2
+            / (_col(sx[:, i], 3) * _col(sx[:, i], 3))
+            + (ys - _col(mu_y[:, i], 3)) ** 2
+            / (_col(sy[:, i], 3) * _col(sy[:, i], 3))))
+        out = torch.clamp(
+            out + 255.0 * val[..., None] * _col(active[:, i], 4), 0.0,
+            255.0)
+    return out
 
 
 def _interp_matrix(coords: torch.Tensor, n: int):
@@ -134,9 +252,10 @@ def _flip(img, params):
 def _augment(img, params, fill=FILL, geo="none", rot_deg=0.0, sep=False,
              s_max=1.0, txm=0.0, tym=0.0):
     """img (N, H, W, C) float; params dict of (N,) tensors on img's
-    device. The batched `_augment_one` of the JAX package for geo "none",
-    "separable" and "shear", then contrast about the per-image channel
-    mean and brightness, clipped to [0, 255]."""
+    device. The batched `_augment_one` of the JAX package: the warp of
+    `geo`, contrast about the per-image channel mean and brightness,
+    clipped to [0, 255], then Perlin distortion and spotlights where
+    params hold their keys."""
     _, h, w, _ = img.shape
     if geo == "none":
         out = _flip(img, params)
@@ -170,22 +289,40 @@ def _augment(img, params, fill=FILL, geo="none", rot_deg=0.0, sep=False,
         sy = (sin_t * xs + cos_t * ys) * inv_s + cy + _col(params["ty"], 3)
         valid = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
         out = torch.where(valid[..., None], out, fill)
-    else:
-        raise NotImplementedError(
-            f"device_augment: geo {geo!r} (rotation_range > 90) is not "
-            "ported to bcnn_tpu_torch yet"
-        )
+    else:  # "full": the inverse affine map, one bilinear gather
+        opts = dict(dtype=f32, device=img.device)
+        cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+        ys = (torch.arange(h, **opts) - cy)[:, None]
+        xs = (torch.arange(w, **opts) - cx)[None, :]
+        cos_t = _col(torch.cos(params["theta"]), 3)
+        sin_t = _col(torch.sin(params["theta"]), 3)
+        inv_s = _col(1.0 / params["scale"], 3)
+        sx = (cos_t * xs - sin_t * ys) * inv_s + cx + _col(params["tx"], 3)
+        sy = (sin_t * xs + cos_t * ys) * inv_s + cy + _col(params["ty"], 3)
+        sx = torch.where(_col(params["flip"], 3) > 0, (w - 1) - sx, sx)
+        out = _bilinear_gather(img, sx, sy, fill)
     mean = torch.mean(out, dim=(1, 2), keepdim=True)
     out = (out - mean) * _col(params["contrast"], 4) + mean + _col(
         params["brightness"], 4
     )
-    return torch.clamp(out, 0.0, 255.0)
+    out = torch.clamp(out, 0.0, 255.0)
+    # Perlin distortion, then spotlights, in the host Augmenter's order
+    # (bcnn_apply_data_augmentation, bcnn_data.c:214-332)
+    if "distortion" in params:
+        distorted = _perlin(out, params["distortion"], params["dist_kx"],
+                            params["dist_ky"], params["dist_seed"])
+        out = torch.where(_col(params["distortion"], 4) > 0, distorted, out)
+    if "spot_mu_x" in params:
+        out = _spotlights(out, params["spot_mu_x"], params["spot_mu_y"],
+                          params["spot_sx"], params["spot_sy"],
+                          params["spot_active"])
+    return out
 
 
 def _geo_mode(cfg: Dict) -> str:
     """Warp class for `_augment`'s `geo`: "none" (flip only),
     "separable" (scale/shift but no rotation), "shear" (rotation range
-    <= 90 deg), "full" (larger rotation ranges; not ported)."""
+    <= 90 deg), "full" (larger rotation ranges: the bilinear gather)."""
     rot = float(cfg.get("rotation_range", 0.0))
     if rot:
         return "shear" if rot <= 90.0 else "full"
@@ -214,22 +351,18 @@ def _geo_kwargs(cfg: Dict) -> Dict:
 
 
 def sample_params(
-    generator: torch.Generator, n: int, cfg: Dict
+    generator: torch.Generator, n: int, cfg: Dict, hw=None
 ) -> Dict[str, torch.Tensor]:
-    """Per-image augmentation params, (n,) float32 CPU tensors with the
-    keys and distributions of `bcnn_tpu`'s sampler, drawn from
-    `generator` (a CPU generator; None draws from torch's default)."""
-    if float(cfg.get("max_distortion", 0.0)) > 0.0 or int(
-        cfg.get("max_random_spots", 0)
-    ) > 0:
-        raise NotImplementedError(
-            "device_augment: Perlin distortion and spotlights are not "
-            "ported to bcnn_tpu_torch yet"
-        )
+    """Per-image augmentation params, CPU tensors with the keys and
+    distributions of `bcnn_tpu`'s sampler, drawn from `generator` (a CPU
+    generator; None draws from torch's default): (n,) float32, and with
+    max_distortion the Perlin keys (dist_seed int32), with
+    max_random_spots the (n, max_spots) spot keys, whose centres need
+    the image's (h, w) as `hw`."""
 
-    def u(lo, hi):
-        return torch.empty(n, dtype=f32).uniform_(lo, hi,
-                                                  generator=generator)
+    def u(lo, hi, shape=(n,)):
+        return torch.empty(shape, dtype=f32).uniform_(lo, hi,
+                                                      generator=generator)
 
     theta = torch.deg2rad(u(-0.5, 0.5) * float(cfg.get("rotation_range", 0.0)))
     lo_s, hi_s = cfg.get("min_scale", 0.0), cfg.get("max_scale", 0.0)
@@ -244,8 +377,34 @@ def sample_params(
         (u(0.0, 1.0) > 0.5).to(f32) if cfg.get("random_fliph")
         else torch.zeros(n)
     )
-    return dict(theta=theta, scale=scale, tx=tx, ty=ty, contrast=contrast,
-                brightness=brightness, flip=flip)
+    out = dict(theta=theta, scale=scale, tx=tx, ty=ty, contrast=contrast,
+               brightness=brightness, flip=flip)
+    max_dist = float(cfg.get("max_distortion", 0.0))
+    if max_dist > 0.0:
+        out["distortion"] = u(0.0, max_dist)
+        out["dist_kx"] = u(-0.5, 0.5)
+        out["dist_ky"] = u(-0.5, 0.5)
+        out["dist_seed"] = torch.randint(0, 2**31 - 1, (n,),
+                                         generator=generator,
+                                         dtype=torch.int32)
+    max_spots = int(cfg.get("max_random_spots", 0))
+    if max_spots > 0:
+        if hw is None:
+            raise ValueError("sample_params: spotlights need the image's "
+                             "(h, w)")
+        hh, ww = hw
+        # host: n_spots = int(rand*max + 0.5), slot i active iff i <
+        # n_spots; mu = int(rand*(dim-1) + 0.5); sigma = rand*(3-0.3) +
+        # 0.3 + 0.5
+        n_spots = torch.floor(u(0.0, 1.0) * max_spots + 0.5)
+        out["spot_active"] = (torch.arange(max_spots, dtype=f32)[None, :]
+                              < n_spots[:, None]).to(f32)
+        shape = (n, max_spots)
+        out["spot_mu_x"] = torch.floor(u(0.0, 1.0, shape) * (ww - 1) + 0.5)
+        out["spot_mu_y"] = torch.floor(u(0.0, 1.0, shape) * (hh - 1) + 0.5)
+        out["spot_sx"] = u(0.0, 1.0, shape) * (3.0 - 0.3) + 0.3 + 0.5
+        out["spot_sy"] = u(0.0, 1.0, shape) * (3.0 - 0.3) + 0.3 + 0.5
+    return out
 
 
 def _on(params: Dict, device) -> Dict[str, torch.Tensor]:
@@ -264,7 +423,7 @@ def augment_batch(batch_u8, generator, cfg, norm_coeff=1 / 127.5,
     """batch (N, H, W, C) uint8/float on the device -> augmented,
     normalized (N, H, W, C) float32 in [-1, 1]."""
     x = batch_u8.to(f32)
-    params = sample_params(generator, x.shape[0], cfg)
+    params = sample_params(generator, x.shape[0], cfg, x.shape[1:3])
     return apply_augment(x, params, cfg, norm_coeff, mean)
 
 
@@ -352,7 +511,7 @@ def augment_batch_with_boxes(batch_u8, labels, generator, cfg,
     pipeline, box labels through the SAME per-image affine map."""
     _check_boxes_cfg(cfg)
     x = batch_u8.to(f32)
-    params = sample_params(generator, x.shape[0], cfg)
+    params = sample_params(generator, x.shape[0], cfg, x.shape[1:3])
     return apply_augment_with_boxes(x, labels, params, cfg, norm_coeff,
                                     mean)
 

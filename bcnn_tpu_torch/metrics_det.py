@@ -177,10 +177,10 @@ def map_eval(
     iou_thresholds: Sequence[float] = COCO_IOU_THRESHOLDS,
     batches: Optional[int] = None,
 ) -> Dict:
-    """Run the eval stream of sess.loader (any object whose next_batch()
-    returns (x, labels) on the host) through Session.detect_on_batch
-    and score mAP. The port has no data loaders yet: the caller sets
-    sess.loader."""
+    """Run the eval stream of sess.loader (the loader of
+    Session.set_data_loader, a DetectionListLoader for a detection list,
+    or any object whose next_batch() returns host (x, labels)) through
+    Session.detect_on_batch and score mAP."""
     net = sess.net
     n_img = num_images
     if batches is None:

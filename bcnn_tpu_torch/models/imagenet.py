@@ -1,11 +1,12 @@
 """MobileNet-v1 at 224x224, as `bcnn_tpu.models.imagenet.mobilenet_v1`
 builds it: one of the reference's examples/inference_benchmark targets.
-ResNet-18 needs the eltwise layer, which is not ported yet."""
+ResNet-18's training needs the eltwise layer's backward, which is not
+ported yet."""
 
 from __future__ import annotations
 
 from ..graph import Net
-from ..types import Activation, FillerType, Mode
+from ..types import Activation, FillerType, Loss, Metric, Mode
 
 X = FillerType.XAVIER
 R = Activation.RELU
@@ -20,15 +21,12 @@ def mobilenet_v1(
 ) -> Net:
     """Standard MobileNet-v1: conv s2 + 13 depthwise-separable blocks
     (DEPTHWISE_CONV2D + 1x1 CONV2D with BN), global avgpool, FC,
-    softmax. PREDICT only: the other modes end in a cost layer, which is
-    not ported yet."""
-    if mode != Mode.PREDICT:
-        raise NotImplementedError(
-            "mobilenet_v1: only PREDICT is ported; the cost layer of "
-            "TRAIN and VALID is not"
-        )
+    softmax; outside PREDICT, SGD (lr 0.01, momentum 0.9) and a euclidean
+    cost layer with the ERROR_RATE metric."""
     net = Net(mode)
     net.set_input_shape(224, 224, 3, batch_size)
+    if mode != Mode.PREDICT:
+        net.set_sgd_optimizer(0.01, 0.9)
 
     def c(ch):
         return max(8, int(ch * width_mult))
@@ -50,4 +48,8 @@ def mobilenet_v1(
     net.add_avgpool_layer(prev, "avgpool")
     net.add_fullc_layer(classes, X, N, 0, "avgpool", "fc")
     net.add_softmax_layer("fc", "softmax")
+    if mode != Mode.PREDICT:
+        net.add_cost_layer(
+            Loss.EUCLIDEAN, Metric.ERROR_RATE, 1.0, "softmax", "label", "cost"
+        )
     return net

@@ -336,12 +336,14 @@ def test_sample_params_keys_ranges_and_generator():
 
 
 def test_unported_augmentations_raise():
+    """Geo "full" (rotation_range > 90) and Perlin distortion are ported
+    since (tests/test_torch_device_augment.py holds them to bcnn_tpu);
+    Perlin distortion on boxes stays refused, as in bcnn_tpu."""
     x = torch.zeros(1, 16, 16, 3)
     lab = torch.zeros(1, 250)
-    with pytest.raises(NotImplementedError):
-        tda.augment_batch(x, torch.Generator(), dict(rotation_range=120.0))
-    with pytest.raises(NotImplementedError):
-        tda.augment_batch(x, torch.Generator(), dict(max_distortion=0.2))
+    for cfg in (dict(rotation_range=120.0), dict(max_distortion=0.2)):
+        out = tda.augment_batch(x, torch.Generator(), cfg)
+        assert out.shape == (1, 16, 16, 3) and torch.isfinite(out).all()
     with pytest.raises(ValueError):  # as bcnn_tpu: never on boxes
         tda.augment_batch_with_boxes(x, lab, torch.Generator(),
                                      dict(max_distortion=0.2))

@@ -272,21 +272,47 @@ UNRUN = {
 }
 
 
+# ported since: built from a cfg, they run and give bcnn_tpu's values
+# (tests/test_torch_losses.py holds them in every mode)
+RUN_NOW = {"activation", "cost"}
+
+
 @pytest.mark.parametrize("layer", list(UNRUN))
 def test_layers_the_executor_does_not_run_still_raise(tmp_path, layer):
     """Built from a cfg, equal to bcnn_tpu's graph, refused by the
-    executor in every mode, naming the layer."""
+    executor in every mode, naming the layer; the activation and cost
+    layers, ported since, run and give bcnn_tpu's outputs and loss."""
     text = ("[net]\nwidth=8\nheight=8\nchannels=1\nbatch=2\n"
             "learning_rate=0.01\n[convolutional]\nfilters=4\nsize=3\n"
             "pad=1\nsrc=input\ndst=c1\n" + UNRUN[layer])
     path = _write(tmp_path, f"{layer}.conf", text)
     for mode in (Mode.PREDICT, Mode.TRAIN):
         port = tconfig.load_net(Net(mode), path)
-        assert_same_graph(jconfig.load_net(bt.Net(bt.Mode(int(mode))), path),
-                          port)
+        ref = jconfig.load_net(bt.Net(bt.Mode(int(mode))), path)
+        assert_same_graph(ref, port)
         node = port.nodes[-1]
         sess = Session(port, 0, device="cpu").compile_net()
         x = np.zeros((2, 1, 8, 8), np.float32)
+        if layer in RUN_NOW:
+            js = bt.Session(ref, 0).compile_net()
+            sess.params, sess.state = bridge.params_from_numpy(
+                port, {k: np.asarray(v) for k, v in js.params.items()},
+                {k: np.asarray(v) for k, v in js.state.items()})
+            sess.compile_net()
+            x = np.random.RandomState(1).randn(2, 1, 8, 8).astype(
+                np.float32)
+            lab = np.random.RandomState(2).rand(
+                *((2,) + port.tensors[1].shape[1:])).astype(np.float32)
+            if mode == Mode.TRAIN:
+                np.testing.assert_allclose(
+                    float(sess.train_on_batch(x, lab)),
+                    float(js.train_on_batch(x, lab)), rtol=1e-5)
+            else:
+                (got,), _ = sess.predict_on_batch(x, outputs=["c1"])
+                (want,), _ = js.predict_on_batch(x, outputs=["c1"])
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           rtol=1e-5, atol=1e-6)
+            continue
         with pytest.raises(NotImplementedError, match=node.type.name):
             if mode == Mode.TRAIN:
                 lab = np.zeros((2,) + port.tensors[1].shape[1:], np.float32)

@@ -725,3 +725,135 @@ def test_int8_shortcut_makes_no_layout_copy_on_the_card(cuda, tmp_path):
             assert got.values[i].is_contiguous(
                 memory_format=torch.channels_last), net.tensors[i].name
     assert n_int8 >= 10
+
+
+# ---------------------------------------------------------- the data feed #
+
+
+def _clf_list(tmp_path, n=7, size=16):
+    from bcnn_tpu_torch import bip
+
+    rng = np.random.RandomState(0)
+    lines = []
+    for i in range(n):
+        p = str(tmp_path / f"im{i}.png")
+        bip.write_image(p, (rng.rand(size, size, 3) * 255).astype(np.uint8))
+        lines.append(f"{p} {i % 4}")
+    lst = tmp_path / "clf.txt"
+    lst.write_text("\n".join(lines) + "\n")
+    return str(lst)
+
+
+def _clf_net(raw=False, batch=2):
+    from bcnn_tpu_torch.graph import Net
+
+    net = Net(Mode.TRAIN)
+    net.set_input_shape(16, 16, 3, batch)
+    t1 = net.tensors[1]
+    t1.n, t1.c, t1.h, t1.w = batch, 4, 1, 1
+    if raw:
+        net.device_augment = {}
+    return net
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("workers", [0, 3])
+def test_pipeline_device_batches_equal_host_arrays(cuda, tmp_path, raw,
+                                                   workers):
+    """The pipelines' batches on the card (pinned copies on the worker's
+    stream, handed over with an event) equal the sequential loader's host
+    arrays, while the consumer's stream is kept busy."""
+    from bcnn_tpu_torch.data import loaders
+    from bcnn_tpu_torch.data.pipeline import (BatchPipeline,
+                                              ShardedBatchPipeline)
+
+    lst = _clf_list(tmp_path)
+    ref = loaders.ClassificationListLoader(_clf_net(raw), lst)
+    want = [ref.next_batch() for _ in range(8)]
+    if workers:
+        pipe = ShardedBatchPipeline(
+            lambda: loaders.ClassificationListLoader(_clf_net(raw), lst),
+            workers=workers, device=cuda)
+    else:
+        pipe = BatchPipeline(loaders.ClassificationListLoader(
+            _clf_net(raw), lst), depth=2, device=cuda)
+    got = []
+    try:
+        for x, y in pipe:
+            torch.cuda._sleep(1_000_000)  # the consumer's stream is busy
+            got.append((x.clone(), y.clone()))
+            if len(got) == len(want):
+                break
+    finally:
+        pipe.stop()
+    torch.cuda.synchronize()
+    for (x, y), (rx, ry) in zip(got, want):
+        assert x.device.type == "cuda"
+        assert x.dtype == (torch.uint8 if raw else torch.float32)
+        np.testing.assert_array_equal(x.cpu().numpy(),
+                                      rx.astype(x.cpu().numpy().dtype))
+        np.testing.assert_array_equal(y.cpu().numpy(), ry)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(rotation_range=150.0, min_scale=0.9, max_scale=1.1,
+         random_fliph=1, min_contrast=0.8, max_contrast=1.2),
+    dict(max_distortion=0.3), dict(max_random_spots=4),
+    dict(rotation_range=20.0, max_distortion=0.2, max_random_spots=2)],
+    ids=["full", "perlin", "spotlights", "shear_perlin_spots"])
+def test_device_augment_full_perlin_spots_card_vs_cpu(cuda, cfg):
+    """One params dict on both devices; atol 1e-3 on [0, 255] values, the
+    tolerance tests/test_torch_device_augment.py holds bcnn_tpu to, and
+    4e-3 with Perlin distortion: its sample coordinates come from cos on
+    each device (CUDA's cosf within 2 ulp, the host's within 1), and an
+    ulp of a coordinate near 56 px (3.8e-6 px) times an image slope of up
+    to 255 levels a px is 1e-3 (1.9e-3 measured on an H100)."""
+    from bcnn_tpu_torch.data import device_augment as da
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 256, (4, 48, 56, 3), generator=gen).float()
+    params = da.sample_params(gen, 4, cfg, (48, 56))
+    kw = da._geo_kwargs(cfg)
+    cpu = da._augment(x, params, **kw)
+    got = da._augment(x.to(cuda), da._on(params, cuda), **kw).cpu()
+    atol = 4e-3 if "max_distortion" in cfg else 1e-3
+    torch.testing.assert_close(got, cpu, rtol=0, atol=atol)
+
+
+def test_resident_scan_gathers_the_staged_batches_on_the_card(cuda,
+                                                              tmp_path):
+    """Session.train_scan_resident_on_batches (the record file uploaded
+    once, batches gathered on the card) against train_scan_on_batches on
+    the same records, from the same start: the same batches and draws,
+    within the trajectory tolerances (losses rtol 1e-4, updates 1e-3 of
+    their largest entry)."""
+    from bcnn_tpu_torch.data import records
+
+    rng = np.random.RandomState(4)
+    xs = rng.randint(0, 256, (6, 3, 64, 64)).astype(np.uint8)
+    ys = np.zeros((6, 250), np.float32)
+    ys[:, :5] = [0.5, 0.5, 0.3, 0.4, 1.0]
+    path = str(tmp_path / "r.bcrd")
+    records.write_records(path, zip(xs, ys), 3, 64, 64, 250)
+    out = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs, bit for bit
+    for resident in (True, False):
+        net = yolov3_tiny(2, 64, 64, 2, mode=Mode.TRAIN)
+        net.device_augment = dict(rotation_range=10.0, random_fliph=1)
+        sess = Session(net, 0, device=cuda).compile_net()
+        p0 = {k: v.clone() for k, v in sess.params.items()}
+        sess.loader = records.RawRecordLoader(net, path)
+        before = row_shift.launches
+        fn = (sess.train_scan_resident_on_batches if resident
+              else sess.train_scan_on_batches)
+        losses = [fn(2) for _ in range(2)]
+        assert row_shift.launches - before == 3 * 4
+        out.append((losses, p0, sess.params))
+    torch.backends.cudnn.deterministic = det
+    (la, p0, pa), (lb, _, pb) = out
+    np.testing.assert_allclose(la, lb, rtol=1e-4)
+    for k in p0:
+        du_a, du_b = pa[k] - p0[k], pb[k] - p0[k]
+        scale = float(du_b.abs().max())
+        assert float((du_a - du_b).abs().max()) <= 1e-3 * scale, k

@@ -105,9 +105,21 @@ def test_mobilenet_graph_matches_bcnn_tpu(batch, classes, width):
 
 
 def test_mobilenet_is_predict_only():
+    """Outside PREDICT the net ends in bcnn_tpu's cost layer (euclidean,
+    ERROR_RATE) and trains with its SGD; the cost and its TRAIN and
+    VALID modes are held to bcnn_tpu in tests/test_torch_losses.py."""
     for mode in (Mode.TRAIN, Mode.VALID):
-        with pytest.raises(NotImplementedError, match="cost layer"):
-            mobilenet_v1(1, 10, mode)
+        port = mobilenet_v1(1, 10, mode)
+        ref = jax_mobilenet(1, 10, JaxMode(int(mode)))
+        assert len(port.nodes) == len(ref.nodes)
+        cost, rcost = port.nodes[-1], ref.nodes[-1]
+        assert cost.type == LayerType.COST
+        assert (cost.src, cost.dst) == (rcost.src, rcost.dst)
+        assert cost.param == rcost.param
+        assert (port.learner.base_learning_rate, port.learner.momentum) == (
+            ref.learner.base_learning_rate, ref.learner.momentum) == (
+            0.01, 0.9)
+    assert mobilenet_v1(1, 10).nodes[-1].type == LayerType.SOFTMAX
 
 
 def test_he_numpy_weights():

@@ -451,7 +451,9 @@ def _small_train_net(layer):
 def test_unported_training_attributes_raise(case):
     """What the port still refuses in training: net.qat; compute_dtype
     in TRAIN on FC and depthwise (the conv alone has its bf16 backward),
-    naming the layer; Session's scans over the data loaders."""
+    naming the layer; in Session's scans over the data loader, the step
+    forms they do not run (remat), and the resident scan without
+    device_augment (its records are raw uint8)."""
     if case == "qat":
         net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
         net.qat = True
@@ -475,9 +477,12 @@ def test_unported_training_attributes_raise(case):
             execute(net, sess.params, sess.state,
                     {"input": torch.zeros(2, 2, 6, 6)}, Mode.VALID)
     else:
-        sess = Session(yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN), 0,
-                       device="cpu").compile_net()
-        with pytest.raises(NotImplementedError, match="loaders"):
+        net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
+        net.remat = True
+        sess = Session(net, 0, device="cpu").compile_net()
+        match = ("remat" if case == "train_scan_on_batches"
+                 else "device_augment")
+        with pytest.raises(ValueError, match=match):
             getattr(sess, case)(2)
 
 

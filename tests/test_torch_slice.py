@@ -110,8 +110,8 @@ def test_predict_on_batch_signature_matches_bcnn_tpu():
         p.default for p in ref.values()
     ]
     sess = Session(yolov3_tiny(1, 64, 64, 4), 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match="loader"):
-        sess.predict_on_batch()
+    with pytest.raises(RuntimeError, match="loader"):
+        sess.predict_on_batch()  # no data loader set
 
 
 def test_positional_label_matches_bcnn_tpu():

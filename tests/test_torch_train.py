@@ -549,8 +549,8 @@ def test_session_train_api(tiny):
     assert sess.opt_state["seen"] == 0
     assert set(sess.opt_state["velocity"]) == {
         t.key for t in net.param_specs() if t.trainable}
-    with pytest.raises(NotImplementedError, match="loader"):
-        sess.train_on_batch()
+    with pytest.raises(RuntimeError, match="loader"):
+        sess.train_on_batch()  # no data loader set
 
     rng = np.random.RandomState(2)
     x = (rng.rand(BATCH, 3, SIZE, SIZE) * 255).astype(np.uint8)

@@ -125,6 +125,11 @@ class Session:
     def get_batch_size(self) -> int:
         return self.net.batch_size
 
+    def get_num_threads(self) -> int:
+        """bcnn_get_num_threads: the net's host thread cap
+        (Net.set_num_threads)."""
+        return self.net.num_threads
+
     def fill_tensor_with_image(self, img_u8, batch_index: int, x_buffer,
                                norm_coeff=1 / 127.5, swap_to_bgr=0,
                                mean_r=127.5, mean_g=127.5, mean_b=127.5):
@@ -260,7 +265,8 @@ class Session:
         """bcnn_forward (`bcnn_tpu/api.py:349-381`): the forward in the
         net's mode; in TRAIN its autograd record is kept for backward()
         and the new running stats are written. No augmentation runs
-        here. Returns the loss."""
+        here; a net with dropout draws its masks from a seed taken from
+        the session's generator. Returns the loss."""
         if x is None:
             x, label = self._next_batch()
         batch = {"input": self._input(x)}
@@ -272,7 +278,11 @@ class Session:
             specs = {t.key: t for t in self.net.param_specs()}
             leaves = {k: v.detach().requires_grad_(specs[k].trainable)
                       for k, v in self.params.items()}
-            ex = execute(self.net, leaves, self.state, batch, mode)
+            seed = None
+            if any(n.type == LayerType.DROPOUT for n in self.net.nodes):
+                (gen,) = child_generators(self._rng, 1)
+                seed = int(torch.randint(2**62, (), generator=gen))
+            ex = execute(self.net, leaves, self.state, batch, mode, seed)
             self.state = ex.state
             self._cur = (ex.surrogate, leaves)
         else:

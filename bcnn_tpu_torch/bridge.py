@@ -5,7 +5,8 @@ a parity check makes them once, with `bcnn_tpu`, and passes them over as
 numpy arrays keyed by `TensorSpec.key` (`np.asarray` of `Session.params`,
 `Session.state` and the leaves of `Session.opt_state`). Conv and
 depthwise weights (and their optimizer buffers) are HWIO there and OIHW
-here; FC weights are (in, out) in both.
+here, deconv weights (k, k, O, C) there and (C, O, k, k) here (one
+transpose maps both); FC weights are (in, out) in both.
 """
 
 from __future__ import annotations
@@ -16,16 +17,18 @@ import numpy as np
 import torch
 
 from .graph import Net
-from .types import LayerType
+from .types import Activation, LayerType
 
 
 def _conv_weight_keys(net: Net) -> set:
-    """Weights that are HWIO in bcnn_tpu: conv (k,k,I,O) and depthwise
-    (k,k,1,C); the same transpose makes both OIHW."""
+    """Weights that are HWIO-like in bcnn_tpu: conv (k,k,I,O), depthwise
+    (k,k,1,C) and deconv (k,k,O,C); the same transpose makes them the
+    port's OIHW, (C,1,k,k) and (C,O,k,k)."""
     return {
         net.tensors[n.src[1]].key
         for n in net.nodes
-        if n.type in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D)
+        if n.type in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D,
+                      LayerType.TRANSPOSE_CONV2D)
     }
 
 
@@ -98,11 +101,12 @@ def he_numpy_weights(
     drawn in tensor order from `np.random.RandomState(seed)`, for parity
     runs that hand the same weights to both packages. Each conv,
     depthwise and FC weight is normal with std sqrt(2 / fan_in) (fan_in:
-    the HWIO dims other than O, or the FC's `in`), so a deep ReLU net
-    keeps its activations at O(1); the nets' own XAVIER fillers let
-    MobileNet-v1's fade to nothing over its 27 ReLU layers. Biases and BN
-    shifts are U(-0.1, 0.1), BN scales U(0.8, 1.2), run_mean
-    U(-0.1, 0.1), run_var U(0.5, 1.5). Tensors are told apart by their
+    the HWIO dims other than O, or the FC's `in`; a deconv's likewise),
+    so a deep ReLU net keeps its activations at O(1); the nets' own
+    XAVIER fillers let MobileNet-v1's fade to nothing over its 27 ReLU
+    layers. Biases and BN shifts (a conv's, or a standalone BN layer's)
+    are U(-0.1, 0.1), BN scales U(0.8, 1.2), run_mean U(-0.1, 0.1),
+    run_var U(0.5, 1.5), PReLU slopes U(0.05, 0.3). Tensors are told apart by their
     node's type and src slot, never by name. residual_scale multiplies
     the BN scales of each conv whose output is an eltwise's first input
     (a residual branch, Darknet's [shortcut] from the layer before):
@@ -114,6 +118,7 @@ def he_numpy_weights(
         if node.type in (
             LayerType.CONV2D,
             LayerType.DEPTHWISE_CONV2D,
+            LayerType.TRANSPOSE_CONV2D,
             LayerType.FULL_CONNECTED,
         ):
             role[node.src[1]] = "w"
@@ -121,6 +126,17 @@ def he_numpy_weights(
             if node.type == LayerType.CONV2D and node.param["batch_norm"]:
                 for slot, r in ((3, "mean"), (4, "var"), (5, "scales")):
                     role[node.src[slot]] = r
+            if (node.type == LayerType.CONV2D
+                    and node.param["activation"] == Activation.PRELU):
+                role[node.src[6 if node.param["batch_norm"] else 3]] = (
+                    "slopes")
+        elif node.type == LayerType.BATCHNORM:
+            for slot, r in ((1, "mean"), (2, "var"), (3, "scales"),
+                            (4, "b")):
+                role[node.src[slot]] = r
+        elif (node.type == LayerType.ACTIVATION
+              and node.param["activation"] == Activation.PRELU):
+            role[node.src[1]] = "slopes"
     branch = {n.src[0] for n in net.nodes if n.type == LayerType.ELTWISE}
     damped = {
         n.src[5] for n in net.nodes
@@ -129,7 +145,7 @@ def he_numpy_weights(
     }
     conv_w = _conv_weight_keys(net)
     bounds = {"b": (-0.1, 0.1), "mean": (-0.1, 0.1), "var": (0.5, 1.5),
-              "scales": (0.8, 1.2)}
+              "scales": (0.8, 1.2), "slopes": (0.05, 0.3)}
     rng = np.random.RandomState(seed)
     params, state = {}, {}
     for i, t in enumerate(net.tensors):

@@ -1,12 +1,13 @@
-"""Graph executor: runs the declarative Net on torch tensors, the ported
-subset of `bcnn_tpu.compile`: PREDICT/VALID forwards (YOLOv3-tiny,
-MobileNet-v1 and the MNIST recipe's layers, the euclidean cost layer and
-the standalone activation among them) in fp32, at bf16 (net.compute_dtype, net.act_dtype)
-and, in PREDICT, at int8 (net.quant: PTQ with int8 activations between
-layers, the convs on K4), the detection program, and training in fp32
-or bf16 (net.compute_dtype, net.train_act_dtype) in every form of the
-step: plain, remat, accum_steps, a K-step scan over staged or
-device-resident batches, with net.bn_frozen_stats and net.yolo_stats.
+"""Graph executor: runs the declarative Net on torch tensors, the port of
+`bcnn_tpu.compile`: every layer but RESHAPE (which the reference does
+not implement either), forward in every mode in fp32, at bf16
+(net.compute_dtype, net.act_dtype) and, in PREDICT, at int8 (net.quant:
+PTQ with int8 activations between layers, the convs on K4; a quantized
+deconv, depthwise or FC raises), the detection program, and training in
+fp32 or bf16 (net.compute_dtype, net.train_act_dtype) in every form of
+the step: plain, remat, accum_steps, a K-step scan over staged or
+device-resident batches, with net.bn_frozen_stats, net.yolo_stats,
+net.ref_grad_routing and net.ref_deconv_quirk. net.qat raises.
 
 PyTorch runs eagerly, so the executor is a loop over the nodes that
 calls one op per node; nothing is traced, and autograd records the TRAIN
@@ -153,6 +154,8 @@ class _Executor:
         params: Dict[str, torch.Tensor],
         state: Dict[str, torch.Tensor],
         mode: Mode,
+        seed: Optional[int] = None,
+        dropout_masks: Optional[Dict[int, torch.Tensor]] = None,
     ):
         self.net = net
         self.params = params
@@ -162,6 +165,11 @@ class _Executor:
         self.values: Dict[int, torch.Tensor] = {}
         self.surrogate: Optional[torch.Tensor] = None
         self.metrics = []  # per cost node reported value
+        # TRAIN dropout: node position -> keep mask, given (a parity run
+        # hands one device's masks to another) or drawn here from `seed`
+        self.seed = seed
+        self.dropout_masks = dict(dropout_masks or {})
+        self.pos = 0  # the position of the node being run
         refuse_unported(net, mode)
         # bcnn_tpu/compile.py:174-204: compute_dtype in every mode,
         # act_dtype in PREDICT only, train_act_dtype (the stored boundary
@@ -221,6 +229,7 @@ class _Executor:
                 if tap is not None:
                     swapped[s] = self.values[s]
                     self.values[s] = tap
+            self.pos = i
             fn(node)
             for s, old in swapped.items():
                 if s not in node.dst:  # in-place nodes keep their write
@@ -263,7 +272,10 @@ class _Executor:
                 )
         else:
             y = y + self.p(bias_idx).to(y.dtype).reshape(1, -1, 1, 1)
-        return ops.apply_activation(y, p["activation"])
+        slopes = None
+        if p["activation"] == Activation.PRELU:  # not trainable here
+            slopes = self.p(node.src[extra["slopes"]]).to(y.dtype)
+        return ops.apply_activation(y, p["activation"], slopes)
 
     # -- int8 PTQ and reduced-precision storage (bcnn_tpu/compile.py:388-436)
 
@@ -321,14 +333,6 @@ class _Executor:
             return y.to(ad)
         return y
 
-    def _refuse_bf16_training(self, node: Node):
-        """compute_dtype in TRAIN is ported for CONV2D only."""
-        if self.mode == Mode.TRAIN and self.compute_dtype is not None:
-            raise NotImplementedError(
-                f"bcnn_tpu_torch: compute_dtype in TRAIN on "
-                f"{node.type.name} is not ported yet"
-            )
-
     def _conv2d_int8(self, node: Node, x, wq, sx: float):
         """The quantized conv (`bcnn_tpu/compile.py:438-468`): K4 sums the
         int8 product and runs the dequant, BN or bias, the activation and,
@@ -375,43 +379,67 @@ class _Executor:
                 x, self.p(node.src[1]), p["stride"], p["pad"],
                 p["num_groups"], self.compute_dtype, self.act_dtype,
             )
-            extra = {"mean": 3, "var": 4, "scales": 5}
+            extra = {"mean": 3, "var": 4, "scales": 5,
+                     "slopes": 6 if p.get("batch_norm") else 3}
             y = self._maybe_emit_int8(
                 node, self._apply_conv_epilogue(node, y, node.src[2], extra)
             )
         self.values[node.dst[0]] = self._cast_act(y)
 
     def _depthwise_conv2d(self, node: Node):
-        """The grouped conv, + bias, then the activation, as one K3 launch
-        on the card (the layer parses batch_norm but wires no BN). K3
-        takes fp32: with compute_dtype, x and w are rounded to it and
-        back; the output is cast to act_dtype after K3's fp32 bias and
+        """The grouped conv, + bias, then the activation (the layer parses
+        batch_norm but wires no BN). Outside TRAIN, one K3 launch on the
+        card. K3 takes fp32: with compute_dtype, x and w are rounded to it
+        and back; the output is cast to act_dtype after K3's fp32 bias and
         activation, where bcnn_tpu adds the bias in bf16 after a bf16
         round (`bcnn_tpu/compile.py:470-496`), a difference of at most
-        a bf16 rounding. K3 has no backward: TRAIN runs the plain grouped
-        conv (`ops.depthwise.depthwise_fused_ref`) on any device, as
-        bcnn_tpu trains through `ops.depthwise_conv2d` and never through
-        its Pallas kernel."""
+        a bf16 rounding. K3 has no backward: TRAIN runs the grouped conv
+        (`ops.conv2d`, with compute_dtype its bf16 form and backward) on
+        any device, as bcnn_tpu trains through `ops.depthwise_conv2d`
+        and never through its Pallas kernel."""
         self._refuse_quantized(node)
-        self._refuse_bf16_training(node)
         p = node.param
-        x, w = self.values[node.src[0]], self.p(node.src[1])
+        x, w, b = (self.values[node.src[0]], self.p(node.src[1]),
+                   self.p(node.src[2]))
+        if self.mode == Mode.TRAIN:
+            y = ops.conv2d(x, w, p["stride"], p["pad"], x.shape[1],
+                           self.compute_dtype)
+            y = ops.apply_activation(
+                y + b.to(y.dtype).reshape(1, -1, 1, 1), p["activation"])
+            self.values[node.dst[0]] = self._cast_act(y)
+            return
         if self.compute_dtype is not None:
             x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
-        fn = (ops.depthwise.depthwise_fused_ref if self.mode == Mode.TRAIN
-              else ops.depthwise_fused)
-        y = fn(
-            x.to(torch.float32).contiguous(), w.to(torch.float32),
-            self.p(node.src[2]), p["stride"], p["pad"], p["activation"],
+        y = ops.depthwise_fused(
+            x.to(torch.float32).contiguous(), w.to(torch.float32), b,
+            p["stride"], p["pad"], p["activation"],
         )
         self.values[node.dst[0]] = self._cast_act(
             self._maybe_emit_int8(node, y)
         )
 
+    def _transpose_conv2d(self, node: Node):
+        """The deconv (`bcnn_tpu/compile.py:498-527`): the transpose conv,
+        or under net.ref_deconv_quirk with pad > 0 the reference's
+        misread col2im bit for bit (`ops.conv.conv2d_transpose_ref_quirk`),
+        + bias, the activation, the boundary cast. A quantized deconv is
+        not ported."""
+        self._refuse_quantized(node)
+        p = node.param
+        x, w = self.values[node.src[0]], self.p(node.src[1])
+        if p["pad"] > 0 and getattr(self.net, "ref_deconv_quirk", False):
+            y = ops.conv.conv2d_transpose_ref_quirk(x, w, p["stride"],
+                                                    p["pad"])
+        else:
+            y = ops.conv.conv2d_transpose(x, w, p["stride"], p["pad"],
+                                          self.compute_dtype)
+        y = y + self.p(node.src[2]).reshape(1, -1, 1, 1)
+        self.values[node.dst[0]] = self._cast_act(
+            ops.apply_activation(y, p["activation"]))
+
     def _full_connected(self, node: Node):
         """`bcnn_tpu/compile.py:529-551`: fp32 out, no boundary cast."""
         self._refuse_quantized(node)
-        self._refuse_bf16_training(node)
         y = ops.full_connected(
             self.values[node.src[0]],
             self.p(node.src[1]),
@@ -447,6 +475,35 @@ class _Executor:
                 affine_fp32=True,
             )
         self.values[node.dst[0]] = self._cast_act(y)
+
+    def _lrn(self, node: Node):
+        """`bcnn_tpu/compile.py:588-593`."""
+        p = node.param
+        self.values[node.dst[0]] = ops.lrn(
+            self.values[node.src[0]], p["local_size"], p["alpha"],
+            p["beta"], p["k"])
+
+    def _dropout(self, node: Node):
+        """`bcnn_tpu/compile.py:612-617`, in place: TRAIN only. The keep
+        mask is the one given for this node, else drawn on x's device
+        from a generator seeded with seed + the node's position, as
+        bcnn_tpu folds the node index into the step's key (the step's seed
+        is a random 62-bit draw); with no seed, from torch's default
+        generator. Either way it is kept in `dropout_masks`."""
+        p = node.param
+        x = self.values[node.src[0]]
+        if self.mode != Mode.TRAIN or p["rate"] <= 0.0:
+            self.values[node.dst[0]] = x
+            return
+        keep = self.dropout_masks.get(self.pos)
+        if keep is None:
+            gen = None
+            if self.seed is not None:
+                gen = torch.Generator(device=x.device).manual_seed(
+                    self.seed + self.pos)
+            keep = ops.dropout_mask(x.shape, p["rate"], x.device, gen)
+            self.dropout_masks[self.pos] = keep
+        self.values[node.dst[0]] = ops.dropout(x, p["scale"], keep)
 
     def _maxpool(self, node: Node):
         p = node.param
@@ -492,11 +549,9 @@ class _Executor:
         scale (plan_int8_flow's joiner fixpoint): their sum is exact in
         int32, then one dequant multiply; both are channels-last, and
         every step keeps that layout. A mixed pair is dequantized first.
-        TRAIN through the layer is not ported (Darknet-53 training)."""
-        if self.mode == Mode.TRAIN:
-            raise NotImplementedError(
-                "bcnn_tpu_torch: ELTWISE in TRAIN mode is not ported yet"
-            )
+        In TRAIN autograd differentiates the add (`ops.eltwise_add`), and
+        under ref_grad_routing a source that also feeds a conv loses the
+        add's gradient, as in `run`."""
         p = node.param
         a = self.values[node.src[0]]
         b = self.values[node.src[1]]
@@ -517,35 +572,51 @@ class _Executor:
 
     def _activation(self, node: Node):
         """The standalone activation layer (`bcnn_tpu/compile.py:553-
-        562`), in place: dst is src. PRELU raises in apply_activation."""
+        562`), in place: dst is src. PRELU's slopes are src[1], trained
+        through the reference's output-based backward."""
+        p = node.param
+        slopes = (self.p(node.src[1]) if p["activation"] == Activation.PRELU
+                  else None)
         self.values[node.dst[0]] = ops.apply_activation(
-            self.values[node.src[0]], node.param["activation"]
+            self.values[node.src[0]], p["activation"], slopes
+        )
+
+    def _reshape(self, node: Node):
+        raise NotImplementedError(
+            "RESHAPE has no implementation in the reference either "
+            "(enum only, bcnn.h:157)"
         )
 
     def _cost(self, node: Node):
-        """The cost layer (`bcnn_tpu/compile.py:708-740`): the euclidean
-        surrogate into the training loss and, outside PREDICT, the
-        reported metric; nothing without a label (forward only). The
-        lifted-structure loss is not ported yet."""
+        """The cost layer (`bcnn_tpu/compile.py:708-740`): the euclidean or
+        the lifted-structure surrogate into the training loss and,
+        outside PREDICT, the reported metric; nothing without a label
+        (forward only). For the lifted loss the reference reports 0 under
+        SSE, MSE and CRPS (it reads a never-written buffer); bcnn_tpu
+        reports the loss itself there, and so does the port."""
         from .ops.losses import compute_metric, euclidean_surrogate
+        from .ops.lifted_struct import lifted_struct_surrogate
+        from .types import Metric
 
         p = node.param
         label = self.values.get(1)
         if label is None:
             return
-        if p["loss"] != Loss.EUCLIDEAN:
-            raise NotImplementedError(
-                f"bcnn_tpu_torch: the {Loss(p['loss']).name} loss "
-                "(ops/lifted_struct) is not ported yet"
-            )
         x = self.values[node.src[0]]
         x = x.reshape(x.shape[0], -1)
         label = label.reshape(label.shape[0], -1)
-        sur = euclidean_surrogate(x, label, p["scale"])
+        lifted = p["loss"] == Loss.LIFTED_STRUCT
+        sur = (lifted_struct_surrogate if lifted else euclidean_surrogate)(
+            x, label, p["scale"])
         self.surrogate = sur if self.surrogate is None else (
             self.surrogate + sur
         )
-        if self.mode != Mode.PREDICT:
+        if self.mode == Mode.PREDICT:
+            return
+        if lifted and p["loss_metric"] in (Metric.SSE, Metric.MSE,
+                                           Metric.CRPS):
+            self.metrics.append(sur / max(p["scale"], 1e-12))
+        else:
             self.metrics.append(compute_metric(x, label, p["loss_metric"]))
 
     def _upsample(self, node: Node):
@@ -560,9 +631,11 @@ class _Executor:
         p["net_w"] = self.net.tensors[0].w
         p["net_h"] = self.net.tensors[0].h
         # the head in fp32 whatever the activation dtype (bcnn_tpu/
-        # compile.py:685)
+        # compile.py:685); a float64 net stays in float64
+        x = self.values[node.src[0]]
         y, aux = yolo_ops.yolo_forward(
-            self.values[node.src[0]].to(torch.float32), self.values.get(1),
+            x if x.dtype in ops.activations.WIDE else x.to(torch.float32),
+            self.values.get(1),
             p, self.mode, with_stats=self.want_stats,
         )
         self.values[node.dst[0]] = y
@@ -582,9 +655,13 @@ def execute(
     state: Dict[str, torch.Tensor],
     inputs: Dict[str, torch.Tensor],
     mode: Mode,
+    seed: Optional[int] = None,
+    dropout_masks: Optional[Dict[int, torch.Tensor]] = None,
 ) -> _Executor:
-    """inputs: name -> NCHW tensor ('input' required, 'label' optional)."""
-    ex = _Executor(net, params, state, mode)
+    """inputs: name -> NCHW tensor ('input' required, 'label' optional).
+    seed and dropout_masks: TRAIN dropout's draws (`_Executor._dropout`);
+    the executor's `dropout_masks` holds every mask the pass used."""
+    ex = _Executor(net, params, state, mode, seed, dropout_masks)
     for name, arr in inputs.items():
         if name == "input":
             idx = 0
@@ -699,8 +776,13 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
     augmentation runs before it, once: its draws come from an explicit
     generator, whose state a recompute would not restore. The running
     stats, loss and stats are those of the first forward; the
-    recompute's are dropped."""
+    recompute's are dropped.
+
+    A net with dropout draws one seed for the pass from the generator,
+    after the augmentation's draws: the masks come from it
+    (`_Executor._dropout`), so a recompute draws the same ones."""
     is_detection = any(n.type == LayerType.YOLOV3 for n in net.nodes)
+    has_dropout = any(n.type == LayerType.DROPOUT for n in net.nodes)
     if device_augment is not None and is_detection:
         if float(device_augment.get("max_distortion", 0.0)) > 0.0:
             raise ValueError(
@@ -724,18 +806,21 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
             return dict(batch, input=batch["input"].to(torch.float32))
         return batch
 
-    def forward(params, state, batch):
-        ex = execute(net, params, state, batch, Mode.TRAIN)
+    def forward(params, state, batch, seed):
+        ex = execute(net, params, state, batch, Mode.TRAIN, seed)
         return ex.surrogate, (ex.state, get_loss(ex), ex.yolo_stats)
 
     def loss_fn(params, state, batch, generator):
         batch = prepare(batch, generator)
+        seed = None
+        if has_dropout and generator is not None:
+            seed = int(torch.randint(2**62, (), generator=generator))
         if remat:
             from torch.utils.checkpoint import checkpoint
 
-            return checkpoint(forward, params, state, batch,
+            return checkpoint(forward, params, state, batch, seed,
                               use_reentrant=False)
-        return forward(params, state, batch)
+        return forward(params, state, batch, seed)
 
     return loss_fn
 

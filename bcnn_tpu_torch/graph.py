@@ -1,8 +1,8 @@
 """Declarative graph IR: the tensor table, the learner config, the
 augmentation config and every `add_*_layer` method that `config.add_layer`
-dispatches to, ported from `bcnn_tpu.graph`. The executor runs the
-layers of the ported slices; the graph alone holds LRN, deconv, cost,
-standalone activation and dropout nodes, which the executor refuses.
+dispatches to, ported from `bcnn_tpu.graph`, and `resize`. The
+executor runs every layer but RESHAPE, which the reference does not
+implement either.
 
 The port carries its own copy because every module of `bcnn_tpu` imports
 JAX when it is loaded, and the port never does. Names, pytree keys, node
@@ -116,8 +116,7 @@ class BuildError(ValueError):
 
 
 class Net:
-    """The graph builder: the public surface of `bcnn_tpu.graph.Net`
-    but `resize` and `set_num_threads`."""
+    """The graph builder: the public surface of `bcnn_tpu.graph.Net`."""
 
     def __init__(self, mode: Mode = Mode.PREDICT):
         self.mode = Mode(mode)
@@ -130,6 +129,8 @@ class Net:
         # True once BN constants were folded into scales/biases
         # (bcnn_net.c:1281-1292 semantics)
         self.bn_folded = False
+        # bcnn_set_num_threads: the host kernels' (bip's) thread cap
+        self.num_threads = 1
         # precision knobs, as bcnn_tpu/compile.py:174-215 reads them (None:
         # fp32 throughout, the parity path):
         # - compute_dtype (torch.bfloat16): bf16 conv/FC inputs, fp32
@@ -263,6 +264,16 @@ class Net:
     def set_weight_regularizer(self, weight_decay: float):
         self.learner = self.learner or Learner()
         self.learner.decay = weight_decay
+
+    def set_num_threads(self, n: int):
+        """bcnn_set_num_threads (bcnn_net.c:185-232): caps the pool of the
+        native host kernels (bip's augmentation and the batched loader)
+        for the calling thread, as `bcnn_tpu.graph.Net.set_num_threads`
+        does; PyTorch's own threads are the caller's to set."""
+        from . import bip
+
+        self.num_threads = max(1, int(n))
+        bip.set_num_threads(self.num_threads)
 
     # ------------------------------------------------------------------ #
     # layer builders — shape math cited from the reference
@@ -765,6 +776,74 @@ class Net:
             loss=Loss(loss), loss_metric=Metric(loss_metric), scale=scale
         )
         self.add_node(node)
+
+    def resize(self, w: int, h: int, c: Optional[int] = None,
+               batch_size: Optional[int] = None):
+        """bcnn_resize_net (bcnn_net.c:287-335), as
+        `bcnn_tpu.graph.Net.resize`: a new input size (and channel count,
+        batch size) for a fully convolutional graph, by re-running the
+        builders' shape formulas over the nodes; an FC whose input size
+        changes raises BuildError. Parameters keep their shapes, so a
+        compiled session's weights stand; the executor reads the new
+        shapes at the next call."""
+        t0 = self.tensors[0]
+        t0.w, t0.h = w, h
+        if c is not None:
+            t0.c = c
+        if batch_size is not None:
+            self.batch_size = batch_size
+            t0.n = batch_size
+        for node in self.nodes:
+            s = self.tensors[node.src[0]]
+            d = self.tensors[node.dst[0]] if node.dst else None
+            p = node.param
+            ty = node.type
+            if ty in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D):
+                d.n = s.n
+                d.h = (s.h + 2 * p["pad"] - p["size"]) // p["stride"] + 1
+                d.w = (s.w + 2 * p["pad"] - p["size"]) // p["stride"] + 1
+            elif ty == LayerType.TRANSPOSE_CONV2D:
+                d.n = s.n
+                d.h = p["stride"] * (s.h - 1) + p["size"] - 2 * p["pad"]
+                d.w = p["stride"] * (s.w - 1) + p["size"] - 2 * p["pad"]
+            elif ty == LayerType.MAXPOOL:
+                d.n = s.n
+                d.h = _pool_out(s.h, p["size"], p["stride"], p["padding"])
+                d.w = _pool_out(s.w, p["size"], p["stride"], p["padding"])
+            elif ty == LayerType.AVGPOOL:
+                d.n, d.h, d.w = s.n, 1, 1
+            elif ty == LayerType.FULL_CONNECTED:
+                tw = self.tensors[node.src[1]]
+                if tw.size3d() != s.size3d():
+                    raise BuildError(
+                        "resize: fully-connected input size changed "
+                        "(resize supports fully-convolutional graphs)"
+                    )
+                d.n = s.n
+            elif ty == LayerType.UPSAMPLE:
+                d.n, d.h, d.w = s.n, s.h * p["size"], s.w * p["size"]
+            elif ty == LayerType.CONCAT:
+                d.n, d.h, d.w = s.n, s.h, s.w
+                d.c = sum(self.tensors[i].c for i in node.src)
+            elif ty == LayerType.ELTWISE:
+                t1, t2 = self.tensors[node.src[0]], self.tensors[node.src[1]]
+                d.n, d.c, d.h, d.w = t1.n, t1.c, t1.h, t1.w
+                p["stride"] = (
+                    max(1, t1.w // t2.w if t2.w else 1),
+                    max(1, t2.w // t1.w if t1.w else 1),
+                )
+                p["min_dim"] = (
+                    min(t1.c, t2.c), min(t1.h, t2.h), min(t1.w, t2.w)
+                )
+            elif ty == LayerType.YOLOV3:
+                d.n, d.c, d.h, d.w = s.n, s.c, s.h, s.w
+            elif ty == LayerType.COST:
+                lbl = self.tensors[1]
+                lbl.n, lbl.c, lbl.h, lbl.w = s.n, s.c, s.h, s.w
+                d.n, d.c, d.h, d.w = s.n, s.c, s.h, s.w
+            elif node.dst and node.dst[0] != node.src[0]:
+                d.n, d.c, d.h, d.w = s.n, s.c, s.h, s.w
+        return self
 
     # ------------------------------------------------------------------ #
     # introspection helpers

@@ -1,8 +1,9 @@
 """Ops of the ported slices on NCHW torch tensors.
 
-Plain PyTorch wherever the JAX package leaves the op to XLA (conv, BN,
-pooling, FC, softmax, concat, the eltwise add, upsample, the detection
-tail and training deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
+Plain PyTorch wherever the JAX package leaves the op to XLA (conv,
+deconv, BN, pooling, FC, softmax, concat, the eltwise add, upsample,
+dropout, LRN, the activations, the losses, the detection tail and
+training deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
 (`yolo_decode.decode_fused`, K1; `row_shift.row_shift` and
 `row_shift.col_shift`, K2;
 `depthwise.depthwise_fused`, K3), and for the int8 conv that PyTorch
@@ -11,10 +12,11 @@ post-training quantization.
 """
 
 from .activations import apply_activation
-from .conv import conv2d, depthwise_conv2d
+from .conv import conv2d, conv2d_transpose, depthwise_conv2d
 from .depthwise import depthwise_fused
 from .linear import full_connected
-from .misc import concat_channels, eltwise_add, upsample_nn
+from .misc import (concat_channels, dropout, dropout_mask, eltwise_add, lrn,
+                   upsample_nn)
 from .norm import batch_norm, batch_norm_train
 from .pool import global_avgpool, maxpool
 from .softmax import softmax_passthrough_grad

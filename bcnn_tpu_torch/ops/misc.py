@@ -1,15 +1,39 @@
-"""Channel concat, the eltwise add with its stride broadcast and the
-nearest-neighbour upsample, as `bcnn_tpu.ops.misc` computes them
-(bcnn_concat_layer.c, bcnn_eltwise_layer.c:111-135,
-bcnn_upsample_layer.c:86-110), on NCHW tensors. Each keeps an int8 (or
-int32) tensor of the int8 flow, held channels-last, channels-last
-without a copy of its own."""
+"""Dropout, channel concat, the eltwise add with its stride broadcast,
+the nearest-neighbour upsample and LRN, as `bcnn_tpu.ops.misc` computes
+them (bcnn_dropout_layer.c:82-110, bcnn_concat_layer.c,
+bcnn_eltwise_layer.c:111-135, bcnn_upsample_layer.c:86-110,
+bcnn_lrn_layer.c:106-155), on NCHW tensors. Concat, the add and the
+upsample keep an int8 (or int32) tensor of the int8 flow, held
+channels-last, channels-last without a copy of its own. Autograd
+differentiates each as the JAX package's autodiff does: the add gives
+x0 the whole gradient and x1 its strided subset."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from .activations import weak
+
+
+def dropout_mask(shape, rate: float, device,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """The keep mask of inverted dropout: uniform draws in [0, 1) on
+    `device` from `generator` (one on that device; None: torch's default)
+    kept where >= rate, as `bcnn_tpu.ops.misc.dropout` keeps them. The
+    JAX package draws with threefry and PyTorch with philox, so the two
+    masks differ: a parity check hands one package's mask to the
+    other."""
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def dropout(x: torch.Tensor, scale: float, keep: torch.Tensor
+            ) -> torch.Tensor:
+    """Inverted dropout with a given keep mask: x * scale where kept, 0
+    elsewhere (scale = 1 / (1 - rate), in x's dtype)."""
+    return torch.where(keep, x * weak(scale, x), 0.0)
 
 
 def concat_channels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -60,3 +84,42 @@ def upsample_nn(x: torch.Tensor, size: int) -> torch.Tensor:
         return y.contiguous().view(n, h * size, w * size, c).permute(
             0, 3, 1, 2)
     return x.repeat_interleave(size, dim=2).repeat_interleave(size, dim=3)
+
+
+def lrn(x: torch.Tensor, local_size: int, alpha: float, beta: float,
+        k: float) -> torch.Tensor:
+    """Cross-channel local response normalization with the reference's
+    quirky window (bcnn_lrn_layer.c:106-155), in `bcnn_tpu.ops.misc.lrn`'s
+    exact order of adds and subtracts: with a = alpha / local_size,
+    hh = local_size // 2, hl = (local_size - 1) // 2,
+      norm[0] = k + a * (((0 + sq[0]) + sq[1]) + ... + sq[hh - 1])
+      norm[c] = norm[c-1] (- a*sq[c - hl - 1] once c >= m)
+                          (+ a*sq[c + hh] while c < C - hh)
+    with m = max(1, min(1 + hl, C - hh)), the subtract before the add;
+    y = x * norm^(-beta). A remove index below 0 (C smaller than the
+    window) resolves as JAX's static indexing does: C is added once, then
+    it is clamped to [0, C-1]. The JAX package runs the recurrence as a
+    `lax.scan`, a TPU compile workaround; here it is a plain loop over the
+    channels. A closed cumsum form would re-associate the sums, and with
+    k = 0 (the reference's builder drops k) the -beta power amplifies
+    that. Autograd differentiates the loop."""
+    cdim = x.shape[1]
+    a = weak(alpha / local_size, x)
+    hh, hl = local_size // 2, (local_size - 1) // 2
+    sq = torch.square(x)
+    head = torch.zeros_like(sq[:, 0])
+    for c in range(min(hh, cdim)):
+        head = head + sq[:, c]
+    norm = [weak(k, x) + a * head]
+    m = max(1, min(1 + hl, cdim - hh))
+    for c in range(1, cdim):
+        cur = norm[-1]
+        if c >= m:
+            r = c - hl - 1
+            if r < 0:
+                r = min(max(r + cdim, 0), cdim - 1)
+            cur = cur - a * sq[:, r]
+        if c < cdim - hh:
+            cur = cur + a * sq[:, min(c + hh, cdim - 1)]
+        norm.append(cur)
+    return x * torch.pow(torch.stack(norm, dim=1), -beta)

@@ -63,7 +63,9 @@ def _decode_grid(y, anchors_wh, mask, net_w, net_h):
     """y: (N,H,W,A,5+K) activated -> boxes (x,y,w,h), each (N,H,W,A)
     (get_yolo_box, bcnn_yolo.c:137-145)."""
     _, h, w, _, _ = y.shape
-    opts = dict(dtype=torch.float32, device=y.device)
+    # fp32, or float64 for a float64 y (tools/f3_float64.py)
+    opts = dict(dtype=torch.promote_types(y.dtype, torch.float32),
+                device=y.device)
     col = torch.arange(w, **opts).reshape(1, 1, w, 1)
     row = torch.arange(h, **opts).reshape(1, h, 1, 1)
     aw = torch.tensor([anchors_wh[2 * m] for m in mask], **opts)
@@ -129,7 +131,8 @@ def yolo_train_deltas(
     delta_obj = torch.where(best_iou > NOOBJ_IOU_THRESH, 0.0, yr[..., 4])
 
     # ---- per-truth assignment, one pass ------------------------------ #
-    opts = dict(dtype=torch.float32, device=dev)
+    opts = dict(dtype=torch.promote_types(y.dtype, torch.float32),
+                device=dev)
     anchors_arr = torch.tensor(anchors, **opts).reshape(total, 2)
     mask_arr = torch.tensor(mask, dtype=torch.int64, device=dev)
     txx, tyy, tww, thh = (label[..., i] for i in range(4))  # (N,T)

@@ -1,0 +1,175 @@
+"""A training step's discrete choices, recorded on one run and imposed
+on another, and the SGD update that a run's gradients make.
+
+Two runs of one TRAIN step (on another device, in another precision)
+part where a choice flips: a RELU or LRELU unit whose input lies within
+rounding of 0 takes the other slope, and a max-pool window whose largest
+inputs tie within rounding sends its gradient to another input. The
+gradient then moves by the whole slope, or the whole input, there, and a
+BN layer's backward spreads that over the unit's channel and every layer
+below it: the two updates part by percents with neither run at fault.
+
+`record(choices)` keeps every kink's side (x > 0) and every window's pick
+of the forward run inside its `with` block; `impose(choices)` makes the
+forward inside its block take them, so that the two runs differ by
+rounding only. Both patch the executor's two ops (`ops.apply_activation`
+and `ops.maxpool`) for the block and keep the choices in the order the
+forward makes them, which is the net's node order: `kinked_nodes` and
+`pooling_nodes` name the node of each entry.
+
+`sgd_update` runs one step's forward and backward on a device in a
+dtype (float64 for a reference), under `record` or `impose` if given,
+and returns the update that one SGD step makes from those gradients:
+fp32, on the CPU, from a fresh optimizer state (`learner.apply_updates`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import ops
+from .compile import execute
+from .graph import Net
+from .learner import apply_updates, init_opt_state
+from .types import Activation, LayerType, Mode
+
+# the activations with a kink at 0, and their slope below it
+KINKED = {Activation.RELU: 0.0, Activation.LRELU: 0.1}
+
+
+@dataclass
+class Choices:
+    """kinks: one bool tensor (x > 0) per RELU/LRELU call; picks: one
+    int64 tensor (N, C, out_h, out_w) per max-pool call, the index of the
+    input each window takes within its size x size window (row-major);
+    all on the CPU, in call order."""
+    kinks: List[torch.Tensor] = field(default_factory=list)
+    picks: List[torch.Tensor] = field(default_factory=list)
+
+
+def kinked_nodes(net: Net) -> List[int]:
+    """The node of each entry of `Choices.kinks`."""
+    return [i for i, n in enumerate(net.nodes)
+            if n.param.get("activation") in KINKED]
+
+
+def pooling_nodes(net: Net) -> List[int]:
+    """The node of each entry of `Choices.picks`."""
+    return [i for i, n in enumerate(net.nodes)
+            if n.type == LayerType.MAXPOOL]
+
+
+def windows(x: torch.Tensor, size: int, stride: int, out_h: int,
+            out_w: int) -> torch.Tensor:
+    """x: NCHW -> (N, C, out_h, out_w, size * size), each max-pool
+    window's inputs, padded with -inf on the high side as `ops.maxpool`
+    pads."""
+    pad_h = max(0, (out_h - 1) * stride + size - x.shape[2])
+    pad_w = max(0, (out_w - 1) * stride + size - x.shape[3])
+    x = F.pad(x, (0, pad_w, 0, pad_h), value=float("-inf"))
+    return x.unfold(2, size, stride).unfold(3, size, stride).flatten(-2)
+
+
+@contextlib.contextmanager
+def _patched(activation, maxpool):
+    saved = ops.apply_activation, ops.maxpool
+    ops.apply_activation, ops.maxpool = activation, maxpool
+    try:
+        yield
+    finally:
+        ops.apply_activation, ops.maxpool = saved
+
+
+def record(choices: Choices):
+    """A context in which the executor's forward appends its choices to
+    `choices` and computes as it always does."""
+    act0, pool0 = ops.apply_activation, ops.maxpool
+
+    def activation(x, act, slopes=None):
+        if act in KINKED:
+            choices.kinks.append((x > 0).detach().cpu())
+        return act0(x, act, slopes)
+
+    def maxpool(x, size, stride, out_h, out_w):
+        choices.picks.append(windows(x.detach(), size, stride, out_h,
+                                     out_w).argmax(-1).cpu())
+        return pool0(x, size, stride, out_h, out_w)
+
+    return _patched(activation, maxpool)
+
+
+@contextlib.contextmanager
+def impose(choices: Choices):
+    """A context in which the executor's forward takes `choices` in
+    order: a kinked unit is x or slope * x as its recorded side says (its
+    gradient 1 or slope), a max-pool window outputs (and sends its
+    gradient to) its recorded pick. Raises ValueError if the forward's
+    calls do not match the record in number or shape."""
+    act0 = ops.apply_activation
+    kinks, picks = iter(choices.kinks), iter(choices.picks)
+
+    def take(it, what, shape):
+        got = next(it, None)
+        if got is None or tuple(got.shape) != tuple(shape):
+            raise ValueError(f"the forward's {what} call of shape "
+                             f"{tuple(shape)} has no recorded choice")
+        return got
+
+    def activation(x, act, slopes=None):
+        if act not in KINKED:
+            return act0(x, act, slopes)
+        side = take(kinks, act.name, x.shape).to(x.device)
+        return torch.where(side, x, KINKED[act] * x)
+
+    def maxpool(x, size, stride, out_h, out_w):
+        win = windows(x, size, stride, out_h, out_w)
+        pick = take(picks, "MAXPOOL", win.shape[:-1]).to(x.device)
+        return win.gather(-1, pick.unsqueeze(-1)).squeeze(-1)
+
+    with _patched(activation, maxpool):
+        yield
+    if next(kinks, None) is not None or next(picks, None) is not None:
+        raise ValueError("the forward made fewer choices than were "
+                         "recorded")
+
+
+def sgd_update(net: Net, params: Dict[str, torch.Tensor],
+               state: Dict[str, torch.Tensor], batch: Dict[str, object],
+               dtype: torch.dtype = torch.float32, device="cpu",
+               choices=None, retain: Iterable[int] = (),
+               seed: Optional[int] = None,
+               dropout_masks: Optional[Dict[int, torch.Tensor]] = None):
+    """One TRAIN forward and backward of `net` on `device`, its params,
+    state and input cast to `dtype` (the label kept as it is), inside
+    the context `choices` (`record(...)` or `impose(...)`) if given; then
+    one SGD step from those gradients in fp32 on the CPU, from a fresh
+    optimizer state. batch: {"input", "label"}, tensors or arrays.
+    retain: tensor indices whose gradient to keep (their `.grad` in the
+    executor's values); seed and dropout_masks go to `execute`.
+
+    Returns (update: trainable key -> fp32 CPU tensor, the executor)."""
+    specs = {t.key: t for t in net.param_specs()}
+    leaves = {k: v.detach().to(device, dtype, copy=True).requires_grad_(
+        specs[k].trainable) for k, v in params.items()}
+    st = {k: v.to(device, dtype) for k, v in state.items()}
+    inputs = {"input": torch.as_tensor(batch["input"]).to(device, dtype),
+              "label": torch.as_tensor(batch["label"]).to(device)}
+    with choices if choices is not None else contextlib.nullcontext():
+        ex = execute(net, leaves, st, inputs, Mode.TRAIN, seed=seed,
+                     dropout_masks=dropout_masks)
+    for i in retain:
+        if ex.values[i].requires_grad:
+            ex.values[i].retain_grad()
+    ex.surrogate.backward()
+    p = {k: v.detach().to("cpu", torch.float32, copy=True)
+         for k, v in params.items()}
+    p0 = {k: v.clone() for k, v in p.items()}
+    apply_updates(net, p, {k: v.grad.to("cpu", torch.float32)
+                           for k, v in leaves.items() if specs[k].trainable},
+                  init_opt_state(net, p))
+    return {k: p[k] - p0[k] for k in p if specs[k].trainable}, ex

@@ -6,11 +6,15 @@ Formats (src/bcnn_net.c):
   - save (bcnn_save_weights :595-681): magic "BCNN" + 3 x u32 version,
     then per node in graph order: the conv family and FC write biases
     then weights; a CONV2D with BN appends running mean, variance,
-    scales; a standalone BATCHNORM writes mean, variance, scales,
-    biases.
+    scales, and a CONV2D with PReLU then its slopes (the reference's
+    save omits them though its loader reads them, :1310-1332;
+    `bcnn_tpu` writes them, and so does the port); a standalone PReLU
+    activation writes its slopes; a standalone BATCHNORM writes mean,
+    variance, scales, biases.
   - load (bcnn_load_weights :1485-1558): the format from the extension
     (.weights: Darknet). Darknet puts BN scales before mean / variance
-    and a conv's weights last; its header is 3 x i32 and a `seen`
+    and a conv's weights last, a conv's PReLU slopes after them, and it
+    holds no standalone PReLU slopes (:1543); its header is 3 x i32 and a `seen`
     counter, u64 from version 0.2 on, else u32; transposed-era files
     (major or minor > 1000) hold FC weights (in, out) (:1427-1459).
   - BN fold at load in PREDICT (:1281-1292): b <- b - s*m / sqrt(v +
@@ -20,8 +24,7 @@ Formats (src/bcnn_net.c):
 Blobs are the reference's flat orders. The port's conv, depthwise and
 deconv weights lie in memory in those orders already (OIHW, (c, 1, k,
 k), (c_src, n, k, k)); FC weights are (in, out) in memory and (out, in)
-in a blob. PReLU slopes are not ported: a net with a PReLU raises here.
-params / state are dicts key -> tensor; a load writes float32 tensors on
+in a blob. params / state are dicts key -> tensor; a load writes float32 tensors on
 `device` into them.
 """
 
@@ -47,15 +50,15 @@ _CONV_FAMILY = (
 )
 
 
-def _refuse_prelu(net: Net) -> None:
-    for node in net.nodes:
-        if node.param.get("activation") == Activation.PRELU and node.type in (
-            LayerType.CONV2D, LayerType.ACTIVATION,
-        ):
-            raise NotImplementedError(
-                "bcnn_tpu_torch: PReLU slopes in a weight file are not "
-                "ported yet"
-            )
+def _is_prelu(node: Node, layer: LayerType) -> bool:
+    return (node.type == layer
+            and node.param.get("activation") == Activation.PRELU)
+
+
+def _conv_prelu_src_index(node: Node) -> int:
+    """A conv's PReLU slopes: src[3] without BN, src[6] with
+    (bcnn_net.c:1311-1313)."""
+    return 3 + 3 * int(bool(node.param.get("batch_norm")))
 
 
 def _w_mem_to_blob(node: Node, w: np.ndarray) -> np.ndarray:
@@ -87,7 +90,6 @@ def _getter(net: Net, params: Dict, state: Dict):
 
 def save_weights(net: Net, params: Dict, state: Dict, filename: str):
     """bcnn_save_weights: the `.bcnnmodel` byte stream."""
-    _refuse_prelu(net)
     get = _getter(net, params, state)
     with open(filename, "wb") as fp:
         fp.write(BCNN_MAGIC)
@@ -104,6 +106,11 @@ def save_weights(net: Net, params: Dict, state: Dict, filename: str):
                     get(node.src[3]).ravel().tofile(fp)  # run mean
                     get(node.src[4]).ravel().tofile(fp)  # run var
                     get(node.src[5]).ravel().tofile(fp)  # scales
+                if _is_prelu(node, LayerType.CONV2D):
+                    get(node.src[_conv_prelu_src_index(node)]).ravel(
+                    ).tofile(fp)
+            elif _is_prelu(node, LayerType.ACTIVATION):
+                get(node.src[1]).ravel().tofile(fp)
             elif node.type == LayerType.BATCHNORM:
                 get(node.src[1]).ravel().tofile(fp)  # mean
                 get(node.src[2]).ravel().tofile(fp)  # var
@@ -118,8 +125,8 @@ def save_weights_darknet(
     loader reads (bcnn_net.c:1506-1552), as `bcnn_tpu` writes it: the
     conv family biases, [BN scales, means, variances], weights; a
     standalone BN scales, means, variances (no biases); FC biases,
-    weights (out, in). Header 3 x i32 version (0, 2, 0) + u64 `seen`."""
-    _refuse_prelu(net)
+    weights (out, in); a conv's PReLU slopes after its weights.
+    Header 3 x i32 version (0, 2, 0) + u64 `seen`."""
     get = _getter(net, params, state)
     with open(filename, "wb") as fp:
         fp.write(struct.pack("<3i", *VERSION))
@@ -134,6 +141,9 @@ def save_weights_darknet(
                     get(node.src[3]).ravel().tofile(fp)  # run mean
                     get(node.src[4]).ravel().tofile(fp)  # run var
                 _w_mem_to_blob(node, get(node.src[1])).tofile(fp)
+                if _is_prelu(node, LayerType.CONV2D):
+                    get(node.src[_conv_prelu_src_index(node)]).ravel(
+                    ).tofile(fp)
             elif node.type == LayerType.BATCHNORM:
                 get(node.src[3]).ravel().tofile(fp)  # scales
                 get(node.src[1]).ravel().tofile(fp)  # means
@@ -174,7 +184,6 @@ def load_weights(net: Net, params: Dict, state: Dict, filename: str,
     fmt = model_find_format(filename)
     if fmt == 2:
         raise NotImplementedError("onnx weights not supported (as reference)")
-    _refuse_prelu(net)
     need_transpose = False
     out_p: Dict[str, np.ndarray] = {}
     out_s: Dict[str, np.ndarray] = {}
@@ -194,6 +203,11 @@ def load_weights(net: Net, params: Dict, state: Dict, filename: str,
         for node in net.nodes:
             if node.type in _CONV_FAMILY:
                 _load_conv(net, node, fp, fmt, out_p, out_s, fold)
+            elif _is_prelu(node, LayerType.ACTIVATION) and fmt == 0:
+                t = net.tensors[node.src[1]]
+                out_p[t.key] = _read(
+                    fp, int(np.prod(t.mem_shape)), "prelu slopes"
+                ).reshape(t.mem_shape)
             elif node.type == LayerType.BATCHNORM:
                 tb = net.tensors[node.src[4]]
                 old_b = params[tb.key].detach().to(
@@ -242,6 +256,11 @@ def _load_conv(net, node, fp, fmt, params, state, fold):
         w_blob = _read(fp, w_sz, f"weights {tw.name}")
     params[tb.key] = b
     params[tw.key] = _w_blob_to_mem(net, node, w_blob)
+    if _is_prelu(node, LayerType.CONV2D):
+        tsl = net.tensors[node.src[_conv_prelu_src_index(node)]]
+        params[tsl.key] = _read(
+            fp, int(np.prod(tsl.mem_shape)), "prelu slopes"
+        )
 
 
 def _load_batchnorm(net, node, fp, fmt, params, state, fold, old_b):

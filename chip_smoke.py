@@ -51,7 +51,21 @@ paths (full width and depth, random weights from a seed):
     step on batches built in advance; the sharded pipeline's batches on
     the card byte-equal to the sequential loader's, the resident scan
     against the staged one; examples/mnist_cl/mnist.conf through the CLI
-    for 200 batches and its first two steps card against CPU.
+    for 200 batches and its first two steps card against CPU;
+  - full YOLOv3 training (phase 10): examples/yolo/yolov3.cfg through
+    config.load_net at 416 px, batch 16, from a .weights file of seeded
+    weights, rotation 10 (three K2 launches a step), yolo_stats; one
+    warm-up and 5 steps fp32, then bf16 + act16; an accum_steps=2 step
+    and the resident scan; one batch-2 step on the card and on the CPU,
+    each held to a float64 run that takes its own kink sides and max-pool
+    picks (bcnn_tpu_torch.replay);
+  - ResNet-18 (phase 10b): served at batch 64, 224 px, fp32 and bf16;
+    trained at batch 32 fp32 and bf16 + act16; its batch-2 step held so;
+  - the layers left (phase 10c): a small net with a deconv (fp32, bf16,
+    the reference's padded quirk), LRN, dropout (the card's masks handed
+    to the CPU), PReLU and the lifted-structure loss, one step card vs
+    CPU; MobileNet-v1 bf16 + act16 training at batch 32 (FC and depthwise
+    in bf16); bcnn-cl train on the lifted-structure recipe at batch 128.
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -78,12 +92,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bcnn_tpu_torch import Session, bridge, kernels
+from bcnn_tpu_torch import Session, bridge, kernels, replay
 from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
                                     make_train_step)
 from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
-from bcnn_tpu_torch.models import mobilenet_v1, yolov3, yolov3_tiny
+from bcnn_tpu_torch.models import mobilenet_v1, resnet18, yolov3, yolov3_tiny
 from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
@@ -127,13 +141,16 @@ DELTA_JUMP, DELTA_RTOL = 1e-3, 1e-5
 # against CPU: each parameter's update within BN_UPDATE_TOL of its
 # largest entry where no differing choice reaches it. Measured on an
 # H100 at 700 W (PERF.md): the 13x13 convs' first updates differ by up to
-# 3.4e-3 of their largest entry with no max-pool or YOLO choice counted,
-# ten times phase 7's batch-2 step; the first loss is 12,298 (seeded
-# weights: a no-object delta near 1 in every cell), so the gradient
-# reaching the 13x13 BN layers is nearly uniform and BN's backward, which
-# subtracts its batch mean, keeps a small remainder whose rounding
-# differs on each device (the likely cause, not measured apart). The
-# losses keep STEP_LOSS_RTOL; the MNIST recipe keeps STEP_UPDATE_TOL.
+# 3.4e-3 of their largest entry with no max-pool or YOLO choice counted;
+# the first loss is 12,298 (seeded weights: a no-object delta near 1 in
+# every cell), so the gradient reaching the BN convs is nearly uniform.
+# tools/f3_float64.py ran that first step in float64 on the CPU: the
+# CPU's fp32 update lands up to 3.5e-3 of a tensor's largest entry from
+# it (1.8e-3 on lid13_w, where the card's lands 5e-6) and the card's up
+# to 3.8e-3 (3.0e-3 on lid10_w, the CPU's 6.9e-4): each device's own
+# rounding, of one order, and the card's no worse, so the bound stays
+# (tests/test_torch_train.py pins the CPU's half). The losses keep
+# STEP_LOSS_RTOL; the MNIST recipe keeps STEP_UPDATE_TOL.
 BN_UPDATE_TOL = 1e-2
 ANCHORS = [10, 14, 23, 27, 37, 58, 81, 82, 135, 169, 344, 319]
 # K1 against its plain version: the tolerance tests/test_yolo_pallas.py
@@ -1376,13 +1393,9 @@ def pool_choices(sess, x, lab):
     for node in sess.net.nodes:
         if node.type.name != "MAXPOOL":
             continue
-        v, p = ex.values[node.src[0]], node.param
-        d = sess.net.tensors[node.dst[0]]
-        ph = max(0, (d.h - 1) * p["stride"] + p["size"] - v.shape[2])
-        pw = max(0, (d.w - 1) * p["stride"] + p["size"] - v.shape[3])
-        v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=float("-inf"))
-        out.append(v.unfold(2, p["size"], p["stride"]).unfold(
-            3, p["size"], p["stride"]).flatten(-2).argmax(-1).cpu())
+        p, d = node.param, sess.net.tensors[node.dst[0]]
+        out.append(replay.windows(ex.values[node.src[0]], p["size"],
+                                  p["stride"], d.h, d.w).argmax(-1).cpu())
     return out
 
 
@@ -1778,7 +1791,7 @@ def bf16_training_phase(gpu):
 P9_IMAGES, P9_SIDES, P9_BOXES = 96, (300, 640), (1, 6)
 # the feeds: warm-up, then P9_STEPS steps at batch 32, 416 px, fp32; the
 # scans in calls of P9_SCAN_K steps; the sharded pipeline's workers
-P9_STEPS, P9_SCAN_K, P9_WORKERS = 10, 4, 4
+P9_STEPS, P9_SCAN_K, P9_WORKERS = 4, 4, 4
 # MNIST idx files (train, test) and the recipe's run through the CLI
 P9_MNIST, P9_MNIST_BATCHES = (2048, 512), 200
 # the raw-record feed's device augmentation (rotation within 90 degrees:
@@ -1869,7 +1882,8 @@ def write_mnist_set(tmp, rng):
     return out
 
 
-def tiny_conf(tmp, lst, weights, batch=TRAIN_BATCH, extra="", name="tiny"):
+def tiny_conf(tmp, lst, weights, batch=TRAIN_BATCH, extra="", name="tiny",
+              size=SIZE):
     """examples/yolo/yolov3-tiny.cfg's layers under P9_NET's [net]."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "examples", "yolo", "yolov3-tiny.cfg")) as f:
@@ -1877,7 +1891,7 @@ def tiny_conf(tmp, lst, weights, batch=TRAIN_BATCH, extra="", name="tiny"):
     layers = cfg[cfg.index("[convolutional]"):]
     path = os.path.join(tmp, f"{name}.conf")
     with open(path, "w") as f:
-        f.write(P9_NET.format(batch=batch, size=SIZE, lst=lst,
+        f.write(P9_NET.format(batch=batch, size=size, lst=lst,
                               weights=weights, extra=extra,
                               out=os.path.join(tmp, f"{name}.bcnnmodel"))
                 + layers)
@@ -1936,13 +1950,10 @@ def decisions(sess, batch):
             heads.append((i, ex.values[node.src[0]]))
         if node.type.name != "MAXPOOL":
             continue
-        v, p = ex.values[node.src[0]].detach(), node.param
-        d = sess.net.tensors[node.dst[0]]
-        ph = max(0, (d.h - 1) * p["stride"] + p["size"] - v.shape[2])
-        pw = max(0, (d.w - 1) * p["stride"] + p["size"] - v.shape[3])
-        v = F.pad(v, (0, pw, 0, ph), value=float("-inf"))
-        picks.append((i, v.unfold(2, p["size"], p["stride"]).unfold(
-            3, p["size"], p["stride"]).flatten(-2).argmax(-1).cpu()))
+        p, d = node.param, sess.net.tensors[node.dst[0]]
+        picks.append((i, replay.windows(ex.values[node.src[0]].detach(),
+                                        p["size"], p["stride"], d.h,
+                                        d.w).argmax(-1).cpu()))
     grads = torch.autograd.grad(ex.surrogate, [h for _, h in heads]) \
         if heads else []
     return picks, [(i, g.cpu()) for (i, _), g in zip(heads, grads)]
@@ -2350,6 +2361,587 @@ def files_phase(gpu, prebuilt_ms):
     return k2
 
 
+# ------------------------------------------------------------------------
+# phase 10: full YOLOv3 training; 10b: ResNet-18; 10c: the layers left
+# ------------------------------------------------------------------------
+
+# full YOLOv3 training: examples/yolo/yolov3.cfg through config.load_net
+# at 416 px (the cfg says 608), 80 classes, batch 16, the cfg's SGD,
+# AUGMENT (rotation 10: K2), yolo_stats; one warm-up and P10_STEPS timed
+# steps fp32 (TF32 off), then bf16 + act16; the step forms accum_steps=2
+# and the resident scan on P10_RECORDS raw records
+P10_BATCH, P10_STEPS, P10_RECORDS = 16, 5, 32
+# the card the phases below run on (a rehearsal on the CPU sets "cpu")
+DEV = "cuda"
+# a step card vs CPU (batch 2, byte-equal fp32 batches): the loss within
+# STEP_LOSS_RTOL; each device's update against a float64 run of the step
+# that takes the device's own choices (bcnn_tpu_torch.replay: each
+# RELU/LRELU unit's side of its kink and each max-pool window's pick),
+# so that only rounding parts them. The card's within STEP_UPDATE_TOL of
+# the tensor's largest entry, or within twice the CPU fp32 update's own
+# distance to its replay where that is wider: F3 (tools/f3_float64.py,
+# PERF.md) found either device's fp32 update of a seeded BN-conv net up
+# to 3.8e-3 from float64, the card's of the CPU's order; one float32
+# spacing of the parameter's largest entry is the floor. A YOLO delta
+# that jumps between a run and its replay (DELTA_JUMP) fails the step.
+# Without the replay a unit within 2e-7 of its kink that takes the other
+# slope moves its conv's update by 7.7% and every update below it by up
+# to 4% (F3's run of phase 10's step, PERF.md)
+# ResNet-18 at 224 px, 1000 classes: served at batch 64, trained at 32
+R18_SERVE, R18_TRAIN, R18_STEPS = 64, 32, 5
+# the layers left: a small net (conv, deconv, LRN, dropout, PReLU twice,
+# an FC embedding, the lifted loss) at 32 px, batch 16, 8 classes; its
+# fp32 gradients card vs CPU within STEP_UPDATE_TOL of each tensor's
+# largest, bf16 under tests/test_torch_train_bf16.py's gate; MobileNet-v1
+# bf16 + act16 training at batch 32, 224 px; bcnn-cl train on the
+# lifted-structure recipe (batch 128, 64 px) for P10C_CLI_BATCHES
+L10_BATCH, L10_SIZE, L10_CLASSES = 16, 32, 8
+MB_TRAIN, MB_TRAIN_STEPS, P10C_CLI_BATCHES = 32, 3, 6
+
+
+def zero_counts():
+    for kern in (decode_fused, depthwise_fused, row_shift, conv_int8_fused):
+        kern.launches = 0
+
+
+def counts():
+    return {"K1": decode_fused.launches, "K2": row_shift.launches,
+            "K3": depthwise_fused.launches, "K4": conv_int8_fused.launches}
+
+
+def replayed_step(label, net, p_np, s_np, x, lab):
+    """One SGD step of `net` (no augmentation) from the same weights and
+    host batch on the card (`Session.train_on_batch`) and on the CPU,
+    each held to a float64 replay of its own choices, as the constants
+    above say. Also prints the choices each device makes against a plain
+    float64 run, and each device's distance to that run. Returns the
+    worst errors (card, CPU) against the replays."""
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    batch = {"input": torch.from_numpy(x), "label": torch.from_numpy(lab)}
+    params, state = bridge.params_from_numpy(net, p_np, s_np)
+    gpu = Session(net, SEED, device=DEV)
+    gpu.params, gpu.state = bridge.params_from_numpy(net, p_np, s_np, DEV)
+    gpu.compile_net()
+    heads = [n.src[0] for n in net.nodes if n.type.name == "YOLOV3"]
+    kinked, pooling = replay.kinked_nodes(net), replay.pooling_nodes(net)
+    choices, upd, deltas, bad = {}, {}, {}, []
+    for run, dev, dt in (("card", DEV, f32), ("CPU", "cpu", f32),
+                         ("float64", "cpu", f64)):
+        choices[run] = replay.Choices()
+        upd[run], ex = replay.sgd_update(
+            net, params, state, batch, dt, dev,
+            replay.record(choices[run]), retain=heads)
+        deltas[run] = [ex.values[i].grad.cpu().double() for i in heads]
+        if run == "CPU":
+            loss_c = float(get_loss(ex))
+        del ex
+    # the card's update is train_on_batch's, held to a replay of the
+    # choices its own forward made (the run above may differ from it by
+    # a unit at a kink: cuDNN's backward is not deterministic)
+    p0 = {k: params[k].clone() for k in upd["CPU"]}
+    choices["step"] = replay.Choices()
+    with replay.record(choices["step"]):
+        loss_g = float(gpu.train_on_batch(x, lab))
+    du_card = {k: gpu.params[k].cpu() - p0[k] for k in p0}
+    if not np.isclose(loss_g, loss_c, rtol=STEP_LOSS_RTOL, atol=0):
+        bad.append(f"loss card {loss_g}, CPU {loss_c}")
+
+    def differ(a, b):
+        """Choices of run a that differ from run b's, by node."""
+        out = {f"kink {i}": int((u != v).sum()) for i, u, v in
+               zip(kinked, choices[a].kinks, choices[b].kinks)}
+        out.update({f"pool {i}": int((u != v).sum()) for i, u, v in
+                    zip(pooling, choices[a].picks, choices[b].picks)})
+        return {k: n for k, n in out.items() if n}
+
+    flips = {run: differ(run, "float64") for run in ("step", "CPU")}
+    ref = {}
+    for run in ("card", "CPU"):
+        ref[run], ex = replay.sgd_update(
+            net, params, state, batch, f64, "cpu",
+            replay.impose(choices["step" if run == "card" else run]),
+            retain=heads)
+        jumps = sum(int(((d - ex.values[i].grad.double()).abs() > DELTA_JUMP
+                         + DELTA_RTOL * d.abs()).sum())
+                    for i, d in zip(heads, deltas[run]))
+        if jumps:
+            bad.append(f"{jumps} YOLO deltas of the {run}'s run jump "
+                       "against its float64 replay")
+        del ex
+
+    def rel(a, b, scale):
+        err = float((a - b).abs().max())
+        return err / scale if scale else err
+
+    worst = {"card": (0.0, ""), "CPU": (0.0, ""), "share": (0.0, "")}
+    errs, plain = [], []
+    for k, v0 in p0.items():
+        scale = float(ref["card"][k].abs().max())
+        scale_c = float(ref["CPU"][k].abs().max())
+        if scale == 0 or scale_c == 0:
+            if float(du_card[k].abs().max()) or float(
+                    upd["CPU"][k].abs().max()):
+                bad.append(f"{k} moved, float64's update is 0")
+            continue
+        e_card = rel(du_card[k], ref["card"][k], scale)
+        e_cpu = rel(upd["CPU"][k], ref["CPU"][k], scale_c)
+        # an update a few float32 spacings of its parameter wide (a layer
+        # whose gradient the routing has faded) moves by one spacing on
+        # another rounding: one spacing of the largest entry is the floor
+        floor = float(np.spacing(np.float32(v0.abs().max()))) / scale
+        lim = max(STEP_UPDATE_TOL, 2 * e_cpu, floor)
+        worst["card"] = max(worst["card"], (e_card, k))
+        worst["CPU"] = max(worst["CPU"], (e_cpu, k))
+        worst["share"] = max(worst["share"], (e_card / lim, k))
+        errs.append((e_card, e_cpu))
+        s64 = float(upd["float64"][k].abs().max())
+        plain.append((rel(du_card[k], upd["float64"][k], s64),
+                      rel(upd["CPU"][k], upd["float64"][k], s64)))
+        if e_card > lim:
+            bad.append(f"{k}: the card's update is {e_card:.3g} of its "
+                       f"largest entry from its float64 replay (limit "
+                       f"{lim:.3g}; the CPU's {e_cpu:.3g})")
+    same = max(rel(du_card[k], upd["card"][k], float(upd["card"][k].abs(
+    ).max())) for k in p0)
+    med = [statistics.median(e[j] for e in errs) for j in (0, 1)]
+    med_plain = [statistics.median(e[j] for e in plain) for j in (0, 1)]
+    print(f"{label}, card vs CPU, each against float64: loss {loss_g:.6f} "
+          f"vs {loss_c:.6f} (rel {abs(loss_g - loss_c) / abs(loss_c):.2g}); "
+          f"choices that differ from a float64 run's, of {len(kinked)} "
+          f"kinked and {len(pooling)} max-pool layers: card "
+          f"{sum(flips['step'].values())} {flips['step']}, CPU "
+          f"{sum(flips['CPU'].values())} {flips['CPU']}; median update "
+          f"error against that run, as a share of its largest entry: card "
+          f"{med_plain[0]:.3g}, CPU {med_plain[1]:.3g}; against a float64 "
+          f"replay of each device's own choices: worst card "
+          f"{worst['card'][0]:.3g} ({worst['card'][1]}), CPU "
+          f"{worst['CPU'][0]:.3g} ({worst['CPU'][1]}), median over the "
+          f"{len(errs)} tensors card {med[0]:.3g}, CPU {med[1]:.3g}; worst "
+          f"share of its limit {worst['share'][0]:.2f} "
+          f"({worst['share'][1]}); train_on_batch's update within "
+          f"{same:.3g} of the card's first run's, choices that differ "
+          f"between the two {differ('step', 'card')}; "
+          f"{time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: " + "; ".join(bad[:6]))
+    return worst["card"][0], worst["CPU"][0]
+
+
+def timed_steps(label, sess, x, lab, steps, gpu, want_k2):
+    """A warm-up step, then `steps` timed train_on_batch calls (host clock,
+    the loss read back each step) with the launch counts set to 0 before
+    them; K1, K3 and K4 must stay at 0 and K2 at want_k2. Prints the
+    median, img/s, busy share, peak memory and device time by kind;
+    returns (median ms, K2 launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    sess.train_on_batch(x, lab)
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(sess.train_on_batch(x, lab)))
+        times.append(1e3 * (time.perf_counter() - t0))
+    got = counts()
+    if got != dict(K1=0, K2=want_k2, K3=0, K4=0):
+        raise RuntimeError(f"{label}: launches {got}, K2 {want_k2} wanted")
+    if not all(np.isfinite(losses)) or min(losses) < 0:
+        raise RuntimeError(f"{label}: losses {losses}")
+    check_fp32(label, sess.params, sess.state, sess.opt_state)
+    med = statistics.median(times)
+    dev = device_us(lambda: sess.train_on_batch(x, lab), iters=2)
+    busy = sum(dev.values()) / 2 / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = x.shape[0]
+    print(f"{label} on {gpu}: steps " + ", ".join(f"{v:.1f}" for v in times)
+          + f" ms (after one warm-up); median {med:.2f} ms = "
+          f"{n / med * 1e3:.1f} images/s; losses "
+          + ", ".join(f"{v:.4g}" for v in losses) + "; device busy "
+          + (f"{busy:.2f} ms per step ({100 * busy / med:.0f}% of the "
+             "median)" if busy else "not measured")
+          + f"; peak memory {peak:.2f} GiB", flush=True)
+    groups = {}
+    for k, us in dev.items():
+        g = kernel_group(k)
+        groups[g] = groups.get(g, 0.0) + us / 2 / 1e3
+    print("    by kind, ms a step: " + ", ".join(
+        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(),
+                                           key=lambda kv: -kv[1])))
+    return med, got["K2"]
+
+
+def yolov3_train_phase(gpu):
+    """Phase 10: full YOLOv3 training at 416 px from its cfg and a
+    .weights file of seeded weights (He-scaled, each residual branch's BN
+    scales times RESIDUAL_SCALE), through config.load_net; fp32 then bf16
+    + act16, each with three K2 launches a step and yolo_stats; the
+    accum_steps=2 step and the resident scan; one batch-2 step card vs
+    CPU vs float64. Returns K2's launches on the path."""
+    from bcnn_tpu_torch.config import load_net
+    from bcnn_tpu_torch.data import records
+    from bcnn_tpu_torch.graph import Net
+
+    t_phase = time.perf_counter()
+    ref = yolov3(P10_BATCH, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+    p_np, s_np = bridge.he_numpy_weights(ref, SEED,
+                                         residual_scale=RESIDUAL_SCALE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "yolo", "yolov3.cfg")) as f:
+        text = f.read()
+    for a, b in (("\nbatch=1\n", f"\nbatch={P10_BATCH}\n"),
+                 ("width=608", f"width={SIZE}"),
+                 ("height=608", f"height={SIZE}")):
+        if a not in text:
+            raise RuntimeError(f"yolov3.cfg lacks {a!r}")
+        text = text.replace(a, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, weights = (os.path.join(tmp, "yolov3_train.cfg"),
+                        os.path.join(tmp, "yolov3.weights"))
+        with open(cfg, "w") as f:
+            f.write(text)
+        save_weights_darknet(ref, *bridge.params_from_numpy(ref, p_np, s_np),
+                             weights)
+        net = load_net(Net(Mode.TRAIN), cfg, weights)
+    types = [n.type.name for n in net.nodes]
+    if (types.count("CONV2D"), types.count("ELTWISE"), types.count(
+            "YOLOV3"), net.batch_size, net.tensors[0].h) != (
+            75, 23, 3, P10_BATCH, SIZE):
+        raise RuntimeError("the yolov3.cfg net is not Darknet-53 at 416")
+    net.device_augment = AUGMENT
+    net.yolo_stats = True
+    rng = np.random.RandomState(SEED + 10)
+    x = rng.randint(0, 256, (P10_BATCH, 3, SIZE, SIZE)).astype(np.uint8)
+    lab = det_labels(rng, P10_BATCH)
+    k2, meds = 0, {}
+    heads = [net.tensors[net.nodes[i - 1].src[1]].key
+             for i, n in enumerate(net.nodes) if n.type.name == "YOLOV3"]
+    for prec in ("fp32", "bf16"):
+        net.compute_dtype = net.train_act_dtype = (
+            torch.bfloat16 if prec == "bf16" else None)
+        torch.cuda.empty_cache()
+        sess = Session(net, SEED, device=DEV).compile_net()
+        p0 = {k: sess.params[k].clone() for k in heads}
+        what = "bf16 + act16" if prec == "bf16" else "fp32 (TF32 off)"
+        meds[prec], n2 = timed_steps(
+            f"full YOLOv3 train_on_batch {what}, batch {P10_BATCH}, {SIZE} "
+            f"px, {CLASSES} classes, augment {AUGMENT}, yolo_stats", sess,
+            x, lab, P10_STEPS, gpu, 3 * P10_STEPS)
+        k2 += n2
+        if any(torch.equal(p0[k], sess.params[k]) for k in heads):
+            raise RuntimeError(f"full YOLOv3 {prec}: a head did not move")
+        st = sess.last_yolo_stats
+        if len(st) != 3 or not all(np.isfinite(d["cost"]) for d in st):
+            raise RuntimeError(f"full YOLOv3 {prec}: yolo stats {st}")
+        print("    " + "; ".join(
+            f"head {i}: cost {d['cost']:.1f}, {d['count']:.0f} truths"
+            for i, d in enumerate(st)))
+        del sess
+    print(f"full YOLOv3 training on {gpu}: bf16 + act16 "
+          f"{meds['fp32'] / meds['bf16']:.2f}x fp32", flush=True)
+
+    # the step forms on full YOLOv3, fp32
+    net.compute_dtype = net.train_act_dtype = None
+    torch.cuda.empty_cache()
+    sess = Session(net, SEED, device=DEV).compile_net()
+    p0 = {k: sess.params[k].clone() for k in heads}
+    zero_counts()
+    t0 = time.perf_counter()
+    out = make_train_step(net, accum_steps=2)(
+        sess.params, sess.state, sess.opt_state,
+        {"input": torch.from_numpy(x).to(DEV),
+         "label": torch.from_numpy(lab).to(DEV)},
+        torch.Generator().manual_seed(SEED))
+    loss = float(out[3])
+    t_accum = 1e3 * (time.perf_counter() - t0)
+    if row_shift.launches != 6 or not np.isfinite(loss) or any(
+            torch.equal(p0[k], out[0][k]) for k in heads):
+        raise RuntimeError(f"full YOLOv3 accum_steps=2: loss {loss}, "
+                           f"launches {counts()}")
+    k2 += row_shift.launches
+    sess = Session(net, SEED, device=DEV).compile_net()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v3.bcrd")
+        xs = rng.randint(0, 256, (P10_RECORDS, 3, SIZE, SIZE)).astype(
+            np.uint8)
+        records.write_records(path, zip(xs, det_labels(rng, P10_RECORDS)),
+                              3, SIZE, SIZE, 250)
+        sess.loader = records.RawRecordLoader(net, path)
+        zero_counts()
+        t0 = time.perf_counter()
+        total = sess.train_scan_resident_on_batches(2)
+        t_res = 1e3 * (time.perf_counter() - t0)
+        sess.loader = None
+    if row_shift.launches != 6 or not np.isfinite(total) or total <= 0:
+        raise RuntimeError(f"full YOLOv3 resident scan: loss sum {total}, "
+                           f"launches {counts()}")
+    k2 += row_shift.launches
+    print(f"full YOLOv3 step forms, fp32, batch {P10_BATCH}: accum_steps=2 "
+          f"one step {t_accum:.1f} ms (loss {loss:.1f}, 6 K2 launches); "
+          f"the resident scan of 2 steps on {P10_RECORDS} raw records "
+          f"{t_res:.1f} ms with its first call's upload (loss sum "
+          f"{total:.1f}, 6 K2 launches)", flush=True)
+    del sess, out
+
+    small = yolov3(2, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+    rng = np.random.RandomState(SEED + 11)
+    x2 = (rng.rand(2, 3, SIZE, SIZE) * 2 - 1).astype(np.float32)
+    replayed_step(f"full YOLOv3 fp32 step at batch 2, {SIZE} px", small,
+                  p_np, s_np, x2, det_labels(rng, 2))
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k2
+
+
+def resnet18_phase(gpu):
+    """Phase 10b: ResNet-18 at 224 px, 1000 classes (He-scaled seeded
+    weights): served at batch R18_SERVE in fp32 and bf16 (fc and softmax
+    of two images against the CPU port), trained at batch R18_TRAIN in
+    fp32 and bf16 + act16, one batch-2 step card vs CPU vs float64."""
+    t_phase = time.perf_counter()
+    net = resnet18(R18_SERVE, 1000)
+    p_np, s_np = bridge.he_numpy_weights(net, SEED)
+    sess = Session(net, SEED, device=DEV)
+    sess.params, sess.state = bridge.params_from_numpy(net, p_np, s_np,
+                                                       DEV)
+    sess.compile_net()
+    cpu = Session(net, SEED, device="cpu")
+    cpu.params, cpu.state = bridge.params_from_numpy(net, p_np, s_np)
+    cpu.compile_net()
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.rand(R18_SERVE, 3, 224, 224).astype(np.float32)
+    for prec in ("fp32", "bf16"):
+        net.compute_dtype = net.act_dtype = (
+            torch.bfloat16 if prec == "bf16" else None)
+        zero_counts()
+        req = lambda v: sess.predict_on_batch(  # noqa: E731
+            v, outputs=MB_OUTPUTS)[0]
+        outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+        if any(counts().values()):
+            raise RuntimeError(f"ResNet-18 serving launched {counts()}")
+        fc = outs[-1][0].float()
+        if tuple(fc.shape) != (R18_SERVE, 1000, 1, 1) or not torch.isfinite(
+                fc).all():
+            raise RuntimeError(f"ResNet-18 {prec}: fc {tuple(fc.shape)}")
+        (ref, _), _ = cpu.predict_on_batch(x[:2], outputs=MB_OUTPUTS)
+        err = float((fc[:2] - ref.float()).abs().max())
+        scale = float(ref.abs().max())
+        if prec == "fp32":
+            torch.testing.assert_close(fc[:2], ref, rtol=HEAD_RTOL,
+                                       atol=HEAD_ATOL * scale)
+        elif err > BF16_FC_TOL * scale:
+            raise RuntimeError(f"ResNet-18 bf16 fc: {err:.3g} of "
+                               f"{scale:.3g}")
+        dev = device_us(lambda: req(x), iters=5)
+        busy_report(f"ResNet-18 predict_on_batch {prec}, batch {R18_SERVE}, "
+                    f"224 px, {SERVE_STEADY} requests after the warm-up; fc "
+                    f"of two images vs the CPU port max_abs_err {err:.3g} "
+                    f"(largest {scale:.3g})", lat, lat[1:], dev, 5, gpu)
+    net.compute_dtype = net.act_dtype = None
+    del sess, cpu
+
+    tnet = resnet18(R18_TRAIN, 1000, mode=Mode.TRAIN)
+    x = rng.rand(R18_TRAIN, 3, 224, 224).astype(np.float32)
+    lab = np.zeros((R18_TRAIN, 1000), np.float32)
+    lab[np.arange(R18_TRAIN), rng.randint(1000, size=R18_TRAIN)] = 1.0
+    meds = {}
+    for prec in ("fp32", "bf16"):
+        tnet.compute_dtype = tnet.train_act_dtype = (
+            torch.bfloat16 if prec == "bf16" else None)
+        torch.cuda.empty_cache()
+        sess = Session(tnet, SEED, device=DEV)
+        sess.params, sess.state = bridge.params_from_numpy(tnet, p_np, s_np,
+                                                           DEV)
+        sess.compile_net()
+        what = "bf16 + act16" if prec == "bf16" else "fp32 (TF32 off)"
+        meds[prec], _ = timed_steps(
+            f"ResNet-18 train_on_batch {what}, batch {R18_TRAIN}, 224 px",
+            sess, x, lab, R18_STEPS, gpu, 0)
+        del sess
+    print(f"ResNet-18 training: bf16 + act16 "
+          f"{meds['fp32'] / meds['bf16']:.2f}x fp32")
+    x2 = (rng.rand(2, 3, 224, 224) * 2 - 1).astype(np.float32)
+    lab2 = np.zeros((2, 1000), np.float32)
+    lab2[[0, 1], rng.randint(1000, size=2)] = 1.0
+    replayed_step("ResNet-18 fp32 step at batch 2, 224 px",
+                  resnet18(2, 1000, mode=Mode.TRAIN), p_np, s_np, x2, lab2)
+    print(f"phase 10b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def layers_net(quirk=False, bf16=False):
+    """conv -> deconv (pad 1) -> LRN (k = 2, AlexNet's; the builder drops
+    k, and k = 0 lets the window's sum cancel to 0) -> dropout -> conv
+    with PReLU -> standalone PReLU -> FC embedding -> the lifted loss."""
+    from bcnn_tpu_torch.graph import Net
+    from bcnn_tpu_torch.types import FillerType, Loss, Metric
+
+    net = Net(Mode.TRAIN)
+    net.set_input_shape(L10_SIZE, L10_SIZE, 3, L10_BATCH)
+    net.set_sgd_optimizer(0.01, 0.9)
+    net.set_weight_regularizer(0.0005)
+    A, X = Activation, FillerType.XAVIER
+    net.add_convolutional_layer(16, 3, 2, 1, 1, 1, X, A.RELU, 0, "input",
+                                "c1")
+    net.add_deconvolutional_layer(12, 3, 2, 1, X, A.LRELU, "c1", "d1")
+    net.add_lrn_layer(5, 0.5, 0.75, 2.0, "d1", "n1")
+    net.nodes[-1].param["k"] = 2.0
+    net.add_dropout_layer(0.3, "n1")
+    net.add_convolutional_layer(16, 3, 2, 1, 1, 0, X, A.PRELU, 0, "n1", "c2")
+    net.add_activation_layer(A.PRELU, "c2")
+    net.add_fullc_layer(32, X, A.NONE, 0, "c2", "emb")
+    net.add_cost_layer(Loss.LIFTED_STRUCT, Metric.SSE, 1.0, "emb", "label",
+                       "cost")
+    net.ref_deconv_quirk = quirk
+    if bf16:
+        net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    return net
+
+
+def layers_step(net, p_np, s_np, x, lab, device, seed=None, masks=None):
+    """One forward and backward of `net` on `device`: (loss, the updates of
+    one SGD step as CPU tensors, the dropout masks it used)."""
+    update, ex = replay.sgd_update(
+        net, *bridge.params_from_numpy(net, p_np, s_np),
+        {"input": x, "label": lab}, device=device, seed=seed,
+        dropout_masks=masks)
+    return float(get_loss(ex).detach()), update, ex.dropout_masks
+
+
+def lifted_recipe(tmp, batch=128):
+    """Seeded 64x64 PNGs (8 classes, 4 images each, a class colour and
+    noise) and examples/lifted_structure_loss/lifted_structure.conf on a
+    list of `batch` lines that groups same-class images; returns the
+    conf's path."""
+    from bcnn_tpu_torch import bip
+
+    rng = np.random.RandomState(SEED + 13)
+    rows = []
+    for c in range(8):
+        base = rng.randint(0, 256, 3)
+        for j in range(4):
+            img = np.clip(base + rng.randint(-30, 30, (64, 64, 3)), 0,
+                          255).astype(np.uint8)
+            path = os.path.join(tmp, f"c{c}_{j}.png")
+            bip.write_image(path, img)
+            rows.append(f"{path} {c}")
+    lst = os.path.join(tmp, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(rows[i % len(rows)] for i in range(batch)) + "\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "lifted_structure_loss",
+                           "lifted_structure.conf")) as f:
+        text = f.read()
+    for a, b in (("source_train=train_list.txt",
+                  f"source_train={lst}\noutput_model="
+                  f"{os.path.join(tmp, 'lifted.bcnnmodel')}"),
+                 ("source_test=test_list.txt", f"source_test={lst}"),
+                 ("max_batches=100000", f"max_batches={P10C_CLI_BATCHES}"),
+                 ("eval_period=500", f"eval_period={P10C_CLI_BATCHES // 2}"),
+                 ("num_pred=1024", f"num_pred={batch}")):
+        if a not in text:
+            raise RuntimeError(f"lifted_structure.conf lacks {a!r}")
+        text = text.replace(a, b)
+    conf = os.path.join(tmp, "lifted.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    return conf
+
+
+def layers_left_phase(gpu):
+    """Phase 10c: one training step of `layers_net` card vs CPU in fp32,
+    bf16 and the deconv quirk (the card's dropout masks handed to the
+    CPU); MobileNet-v1 bf16 + act16 training (FC and depthwise in bf16,
+    no K3 in TRAIN); bcnn-cl train on the lifted-structure recipe."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 14)
+    x = rng.randn(L10_BATCH, 3, L10_SIZE, L10_SIZE).astype(np.float32)
+    lab = np.zeros((L10_BATCH, 32), np.float32)
+    lab[np.arange(L10_BATCH), np.arange(L10_BATCH) // 2 % L10_CLASSES] = 1.0
+    p_np, s_np = bridge.he_numpy_weights(layers_net(), SEED)
+    for form in ("fp32", "quirk", "bf16"):
+        net = layers_net(quirk=form == "quirk", bf16=form == "bf16")
+        zero_counts()
+        loss_g, du_g, masks = layers_step(net, p_np, s_np, x, lab, DEV,
+                                          seed=SEED)
+        if any(counts().values()):
+            raise RuntimeError(f"layers net launched {counts()}")
+        cpu_masks = {i: m.cpu() for i, m in masks.items()}
+        loss_c, du_c, _ = layers_step(net, p_np, s_np, x, lab, "cpu",
+                                      masks=cpu_masks)
+        # the lifted loss reads only the embeddings' differences, so the
+        # embedding's bias gets no gradient but rounding: left out
+        for du in (du_c, du_g):
+            du.pop("c2_b")
+        keep = float(next(iter(cpu_masks.values())).float().mean())
+        if form != "bf16":
+            if not np.isclose(loss_g, loss_c, rtol=STEP_LOSS_RTOL, atol=0):
+                raise RuntimeError(f"layers net {form}: loss card {loss_g}, "
+                                   f"CPU {loss_c}")
+            errs = {k: float((du_g[k] - v).abs().max()) / float(
+                v.abs().max()) for k, v in du_c.items() if v.abs().max()}
+            worst = max(errs.items(), key=lambda kv: kv[1])
+            if worst[1] > STEP_UPDATE_TOL:
+                raise RuntimeError(f"layers net {form}: {worst[0]} update "
+                                   f"differs by {worst[1]:.3g}")
+            print(f"layers net {form} (conv, deconv, LRN, dropout kept "
+                  f"{keep:.3f}, PReLU x2, FC, lifted loss), batch "
+                  f"{L10_BATCH}, {L10_SIZE} px, one SGD step card vs CPU: "
+                  f"loss {loss_g:.6f} vs {loss_c:.6f}; worst update error "
+                  f"{worst[1]:.3g} ({worst[0]}) of {len(errs)} tensors",
+                  flush=True)
+            continue
+        _, du32, _ = layers_step(layers_net(), p_np, s_np, x, lab, "cpu",
+                                 masks=cpu_masks)
+        du32.pop("c2_b")
+        if not np.isclose(loss_g, loss_c, rtol=T16_LOSS_RTOL, atol=0):
+            raise RuntimeError(f"layers net bf16: loss card {loss_g}, CPU "
+                               f"{loss_c}")
+        noise, gaps = grad_gaps(du32, du_c), grad_gaps(du_c, du_g)
+        for k, (cg, rg) in gaps.items():
+            clean = noise[k][0] <= 0.01 and noise[k][1] < 0.5
+            lim = ((COS_GAP, RMS_GAP) if clean else
+                   (NOISE_RATIO * noise[k][0], NOISE_RATIO * noise[k][1]))
+            if cg > lim[0] or rg > lim[1]:
+                raise RuntimeError(f"layers net bf16 {k}: 1 - cosine "
+                                   f"{cg:.3g}, max|d| {rg:.3g} rms")
+        print(f"layers net bf16 + act16: loss {loss_g:.5f} vs {loss_c:.5f} "
+              f"card vs CPU; {len(gaps)} updates under the bf16 gate "
+              "(worst 1 - cosine "
+              f"{max(v[0] for v in gaps.values()):.3g})", flush=True)
+
+    # MobileNet-v1 bf16 + act16 training, FC and depthwise in bf16
+    net = mobilenet_v1(MB_TRAIN, MB_CLASSES, Mode.TRAIN)
+    net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    sess = Session(net, SEED, device=DEV)
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, SEED), DEV)
+    sess.compile_net()
+    xm = rng.rand(MB_TRAIN, 3, MB_SIZE, MB_SIZE).astype(np.float32)
+    lm = np.zeros((MB_TRAIN, MB_CLASSES), np.float32)
+    lm[np.arange(MB_TRAIN), rng.randint(MB_CLASSES, size=MB_TRAIN)] = 1.0
+    timed_steps(f"MobileNet-v1 train_on_batch bf16 + act16 (FC and 13 "
+                f"depthwise in bf16, K3 not in TRAIN), batch {MB_TRAIN}, "
+                f"{MB_SIZE} px", sess, xm, lm, MB_TRAIN_STEPS, gpu, 0)
+    del sess
+
+    # bcnn-cl train on the lifted-structure recipe
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = lifted_recipe(tmp)
+        t0 = time.perf_counter()
+        err = run_cli(["train", conf], tmp)
+        t_cli = time.perf_counter() - t0
+        evals = [ln for ln in err if ln.startswith("iter-batches=")]
+        ended = [ln for ln in err if ln.startswith("Training ended")]
+        if len(evals) != 1 or not ended or not os.path.exists(
+                os.path.join(tmp, "lifted.bcnnmodel")):
+            raise RuntimeError(f"bcnn-cl lifted recipe printed {err[-3:]}")
+    print(f"bcnn-cl train on examples/lifted_structure_loss/"
+          f"lifted_structure.conf (batch 128, 64 px, host contrast/"
+          f"brightness/flip), {P10C_CLI_BATCHES} batches on {gpu} in "
+          f"{t_cli:.1f} s: {evals[0]}; {ended[0]}")
+    print(f"phase 10c: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2476,6 +3068,11 @@ def main() -> int:
 
     # -- phase 9: train from files: the CLI, the feeds, MNIST --------------
     k2_launches += files_phase(gpu, prebuilt_ms)
+
+    # -- phase 10: train full YOLOv3; 10b ResNet-18; 10c the layers left ---
+    k2_launches += yolov3_train_phase(gpu)
+    resnet18_phase(gpu)
+    layers_left_phase(gpu)
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

@@ -857,3 +857,113 @@ def test_resident_scan_gathers_the_staged_batches_on_the_card(cuda,
         du_a, du_b = pa[k] - p0[k], pb[k] - p0[k]
         scale = float(du_b.abs().max())
         assert float((du_a - du_b).abs().max()) <= 1e-3 * scale, k
+
+
+# ------------- the shortcut's backward, deconv, LRN, dropout, PReLU #
+
+
+def _card_vs_cpu(cuda, fn, *args, rtol=1e-4):
+    """fn(*args) and its gradients on the card against the CPU's: each
+    output and each gradient within rtol of its largest |value| (sums in
+    another order; TF32 stays off in the fp32 ops)."""
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev).detach().requires_grad_(a.is_floating_point())
+                  for a in args]
+        y = fn(*leaves)
+        g = torch.ones_like(y) + torch.arange(
+            y.numel(), device=y.device, dtype=y.dtype).reshape(y.shape) % 3
+        y.backward(g)
+        outs.append([y.detach().cpu()] + [
+            a.grad.cpu() for a in leaves if a.grad is not None])
+    for ref, got in zip(*outs):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=rtol * float(ref.abs().max()))
+
+
+def test_eltwise_backward_on_the_card(cuda):
+    """The strided add's gradients: x0 all of it, x1 its strided subset."""
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(2, 6, 16, 16, generator=gen)
+    b = torch.randn(2, 4, 8, 8, generator=gen)
+    _card_vs_cpu(cuda, lambda u, v: ops.eltwise_add(u, v, (2, 1),
+                                                    (4, 8, 8)) ** 2, a, b)
+
+
+@pytest.mark.parametrize("form", ["fp32", "bf16", "quirk"])
+def test_deconv_on_the_card(cuda, form):
+    """The deconv on the card against the CPU, forward and gradients:
+    fp32 (TF32 off both ways), bf16 (gradients within 2^-7) and the
+    reference's padded quirk."""
+    from bcnn_tpu_torch.ops.conv import conv2d_transpose_ref_quirk
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 13, 13, generator=gen)
+    w = torch.randn(32, 16, 4, 4, generator=gen) * 0.1
+    if form == "quirk":
+        fn = lambda u, v: conv2d_transpose_ref_quirk(u, v, 2, 1)  # noqa
+    else:
+        cd = torch.bfloat16 if form == "bf16" else None
+        fn = lambda u, v: ops.conv2d_transpose(u, v, 2, 1, cd)  # noqa
+    _card_vs_cpu(cuda, fn, x, w,
+                 rtol=2.0**-7 if form == "bf16" else 1e-4)
+
+
+def test_lrn_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 24, 9, 9, generator=gen) + 0.5
+    _card_vs_cpu(cuda, lambda u: ops.lrn(u, 5, 1e-2, 0.75, 2.0), x)
+
+
+def test_dropout_generator_on_the_card(cuda):
+    """A mask drawn on the card repeats under one seed (the executor's
+    per-node seed), differs under another, keeps about 1 - rate, and the
+    CPU given that mask computes the same layer and gradient."""
+    x = torch.randn(4, 8, 32, 32, device=cuda)
+    masks = [ops.dropout_mask(x.shape, 0.3, cuda, torch.Generator(
+        device=cuda).manual_seed(s + 3)) for s in (5, 5, 6)]
+    assert torch.equal(masks[0], masks[1])
+    assert not torch.equal(masks[0], masks[2])
+    assert abs(float(masks[0].float().mean()) - 0.7) < 0.02
+    _card_vs_cpu(cuda, lambda u: ops.dropout(u, 1 / 0.7, masks[0].to(
+        u.device)) * u, x.cpu(), rtol=0)
+
+
+def test_prelu_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 10, 10, generator=gen)
+    s = torch.rand(8, generator=gen) * 0.3
+    _card_vs_cpu(cuda, lambda u, v: ops.apply_activation(
+        u, Activation.PRELU, v), x, s)
+
+
+def test_bf16_fc_and_depthwise_step_on_the_card(cuda):
+    """A MobileNet-v1 (width 0.25, 96 px) bf16 + act16 training step on
+    the card against the CPU: FC and depthwise in bf16 both ways, the
+    loss within 2^-5, every parameter fp32 and finite, and the FC's and
+    the first depthwise layer's updates within 2^-5 of their largest
+    (bf16 roundings taken in another order)."""
+    net = mobilenet_v1(2, 10, Mode.TRAIN, width_mult=0.25).resize(96, 96)
+    net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    p_np, s_np = bridge.he_numpy_weights(net, 0)
+    rng = np.random.RandomState(1)
+    x = rng.rand(2, 3, 96, 96).astype(np.float32)
+    lab = np.zeros((2, 10), np.float32)
+    lab[[0, 1], [3, 7]] = 1.0
+    runs = []
+    for dev in ("cpu", cuda):
+        sess = Session(net, 0, device=dev)
+        sess.params, sess.state = bridge.params_from_numpy(net, p_np, s_np,
+                                                           dev)
+        sess.compile_net()
+        loss = float(sess.train_on_batch(x, lab))
+        assert all(v.dtype == torch.float32 and torch.isfinite(v).all()
+                   for v in sess.params.values())
+        runs.append((loss, {k: v.cpu() for k, v in sess.params.items()}))
+    (lc, pc), (lg, pg) = runs
+    assert abs(lg - lc) <= 2.0**-5 * abs(lc)
+    p0 = bridge.params_from_numpy(net, p_np, s_np)[0]
+    for k in ("avgpool_w", "conv1_w"):
+        du_c, du_g = pc[k] - p0[k], pg[k] - p0[k]
+        assert float((du_g - du_c).abs().max()) <= 2.0**-5 * float(
+            du_c.abs().max()), k

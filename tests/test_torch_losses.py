@@ -31,7 +31,7 @@ from bcnn_tpu.compile import init_params as jinit_params
 from bcnn_tpu.models import mobilenet_v1 as jmobilenet
 from bcnn_tpu.ops import losses as jlosses
 
-from bcnn_tpu_torch import Session, bridge
+from bcnn_tpu_torch import bridge
 from bcnn_tpu_torch.compile import execute, get_loss
 from bcnn_tpu_torch.graph import Net
 from bcnn_tpu_torch.models import mobilenet_v1
@@ -214,18 +214,71 @@ def test_cost_without_a_label_is_forward_only():
     assert ex.surrogate is None and float(get_loss(ex)) == 0.0
 
 
-def test_unported_loss_and_prelu_raise():
-    _, net, _, _, params, state = _pair(Mode.TRAIN, Activation.RELU,
-                                        Metric.SSE)
+def _train_grads(jnet, net, jp, js, params, state, x, label):
+    """(bcnn_tpu's surrogate, metric and gradients; the port's surrogate,
+    metric and gradients in bcnn_tpu's layout) of one TRAIN forward."""
+    batch = {"input": jnp.asarray(x), "label": jnp.asarray(label)}
+
+    def jloss(p):
+        ex = jexecute(jnet, p, js, batch, JMode.TRAIN)
+        return ex.surrogate, jget_loss(ex)
+
+    (jsur, jmetric), jgrads = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(jp)
+    leaves = {k: v.requires_grad_() for k, v in params.items()}
+    ex = execute(net, leaves, state, {"input": torch.from_numpy(x),
+                                      "label": torch.from_numpy(label)},
+                 Mode.TRAIN)
+    ex.surrogate.backward()
+    return (float(jsur), float(jmetric), jgrads), (
+        float(ex.surrogate), float(get_loss(ex)),
+        bridge.params_to_numpy(net, {k: v.grad for k, v in leaves.items()}))
+
+
+@pytest.mark.parametrize("metric", [Metric.SSE, Metric.ERROR_RATE],
+                         ids=lambda m: m.name)
+def test_unported_loss_and_prelu_raise(metric):
+    """Ported since, the two cases this test once refused: the small
+    net's cost node switched to the lifted-structure loss (the reported
+    value is the loss itself under SSE, as bcnn_tpu reports it), and the
+    small net with PReLU activations (slopes drawn away from the
+    reference's zero init, so that they act); each against bcnn_tpu's
+    surrogate, metric and gradients (the slopes' included)."""
+    from bcnn_tpu.types import Loss as JLoss
+
+    jnet, net, jp, js, params, state = _pair(Mode.TRAIN, Activation.RELU,
+                                             metric)
     net.nodes[-1].param["loss"] = Loss.LIFTED_STRUCT
+    jnet.nodes[-1].param["loss"] = JLoss.LIFTED_STRUCT
     x, label = _batch(3)
-    inputs = {"input": torch.from_numpy(x), "label": torch.from_numpy(label)}
-    with pytest.raises(NotImplementedError, match="LIFTED_STRUCT"):
-        execute(net, params, state, inputs, Mode.TRAIN)
-    prelu = small(Net, Mode.TRAIN, Activation.PRELU, Metric.SSE)
-    sess = Session(prelu, 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match="PRELU"):
-        execute(prelu, sess.params, sess.state, inputs, Mode.TRAIN)
+    label[2:] = label[:2]  # positive pairs
+    ref, got = _train_grads(jnet, net, jp, js, params, state, x, label)
+    assert ref[0] > 0
+    for a, b in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    for k, g in got[2].items():
+        r = np.asarray(ref[2][k])
+        assert np.abs(r).max() > 0, k
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=k)
+
+    jnet, net, jp, js, params, state = _pair(Mode.TRAIN, Activation.PRELU,
+                                             metric)
+    rng = np.random.RandomState(4)
+    for t in net.param_specs():
+        if t.key.endswith("_w_prelu"):
+            v = rng.uniform(0.05, 0.3, t.mem_shape).astype(np.float32)
+            jp[t.key], params[t.key] = jnp.asarray(v), torch.from_numpy(v)
+    ref, got = _train_grads(jnet, net, jp, js, params, state, x, label)
+    for a, b in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    slopes = [k for k in got[2] if k.endswith("_w_prelu")]
+    assert len(slopes) == 2
+    for k, g in got[2].items():
+        r = np.asarray(ref[2][k])
+        assert np.abs(r).max() > 0, k
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=k)
 
 
 # --------------------------------------------------------- MobileNet-v1 #

@@ -88,7 +88,29 @@ def test_activation(act):
 
 
 def test_prelu_not_ported():
-    with pytest.raises(NotImplementedError):
+    """Ported since: PReLU's forward and its output-based backward (the
+    slope gradient sum dy*y*(y<0), dx = dy*(y > 0 ? 1 : slope)) against
+    bcnn_tpu's custom VJP, zeros included; without slopes both raise."""
+    import jax
+
+    rng = np.random.RandomState(11)
+    x = (rng.randn(2, 3, 4, 5) * 2).astype(np.float32)
+    x[0, 0, 0, :3] = 0.0
+    s = rng.uniform(-0.3, 0.5, 3).astype(np.float32)
+    g = rng.randn(2, 3, 4, 5).astype(np.float32)
+    ref, vjp = jax.vjp(
+        lambda u, v: jops.apply_activation(u, Activation.PRELU, v),
+        jnp.asarray(nhwc(x)), jnp.asarray(s))
+    jdx, jds = vjp(jnp.asarray(nhwc(g)))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.from_numpy(s).requires_grad_()
+    out = ops.apply_activation(tx, Activation.PRELU, ts)
+    out.backward(torch.from_numpy(g))
+    check(out.detach(), ref)
+    check(tx.grad, jdx)
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(jds), rtol=RTOL,
+                               atol=ATOL)
+    with pytest.raises(ValueError, match="slopes"):
         ops.apply_activation(torch.zeros(1, 2, 2, 2), Activation.PRELU)
 
 

@@ -431,9 +431,10 @@ def test_quant_from_numpy_carries_the_dict(pair):
 # ------------------------------------------------- what is not ported #
 
 
-def _small_train_net(layer):
-    """A TRAIN net of one FC or depthwise layer with compute_dtype."""
-    net = tgraph.Net(Mode.TRAIN)
+def _small_train_net(layer, pkg=tgraph, dtype=torch.bfloat16):
+    """A TRAIN net of one FC or depthwise layer with compute_dtype, in
+    the port (pkg = its graph module) or in bcnn_tpu (bt)."""
+    net = pkg.Net(Mode.TRAIN)
     net.set_input_shape(6, 6, 2, 2)
     if layer == "FULL_CONNECTED":
         net.add_fullc_layer(3, ttypes.FillerType.XAVIER,
@@ -441,7 +442,7 @@ def _small_train_net(layer):
     else:
         net.add_depthwise_conv_layer(3, 1, 1, 0, ttypes.FillerType.XAVIER,
                                      ttypes.Activation.RELU, "input", "d")
-    net.compute_dtype = torch.bfloat16
+    net.compute_dtype = dtype
     return net
 
 
@@ -449,11 +450,14 @@ def _small_train_net(layer):
     "qat", "compute_dtype FULL_CONNECTED", "compute_dtype DEPTHWISE_CONV2D",
     "train_scan_on_batches", "train_scan_resident_on_batches"])
 def test_unported_training_attributes_raise(case):
-    """What the port still refuses in training: net.qat; compute_dtype
-    in TRAIN on FC and depthwise (the conv alone has its bf16 backward),
-    naming the layer; in Session's scans over the data loader, the step
-    forms they do not run (remat), and the resident scan without
-    device_augment (its records are raw uint8)."""
+    """What the port still refuses in training: net.qat; in Session's
+    scans over the data loader, the step forms they do not run (remat),
+    and the resident scan without device_augment (its records are raw
+    uint8). compute_dtype in TRAIN on FC and depthwise, refused here
+    before, runs since: the layer's output and its gradients against
+    bcnn_tpu's (forward rtol 1e-5 of the largest; gradients within 2^-7
+    of the largest, one bf16 rounding; tests/test_torch_layers_left.py
+    holds the roundings themselves)."""
     if case == "qat":
         net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
         net.qat = True
@@ -467,11 +471,37 @@ def test_unported_training_attributes_raise(case):
     elif case.startswith("compute_dtype"):
         layer = case.split()[1]
         net = _small_train_net(layer)
+        jnet = _small_train_net(layer, bt, jnp.bfloat16)
         sess = Session(net, 0, device="cpu").compile_net()
-        with pytest.raises(NotImplementedError,
-                           match=f"compute_dtype in TRAIN on {layer}"):
-            execute(net, sess.params, sess.state,
-                    {"input": torch.zeros(2, 2, 6, 6)}, Mode.TRAIN)
+        rng = np.random.RandomState(len(layer))
+        x = rng.randn(2, 2, 6, 6).astype(np.float32)
+        out = net.tensors[net.nodes[0].dst[0]]
+        g = rng.randn(2, out.c, out.h, out.w).astype(np.float32)
+        leaves = {k: v.detach().requires_grad_() for k, v in
+                  sess.params.items()}
+        y = execute(net, leaves, sess.state, {"input": torch.from_numpy(x)},
+                    Mode.TRAIN).values[net.nodes[0].dst[0]]
+        (y * torch.from_numpy(g)).sum().backward()
+        p_np = bridge.params_to_numpy(net, sess.params)
+
+        def jfn(p):
+            v = jax_execute(jnet, p, {}, {"input": jnp.asarray(x)},
+                            JaxMode.TRAIN).values[jnet.nodes[0].dst[0]]
+            return v, jnp.sum(v * jnp.transpose(jnp.asarray(g), (0, 2, 3, 1)))
+
+        jp = {k: jnp.asarray(v) for k, v in p_np.items()}
+        jg = jax.grad(lambda p: jfn(p)[1])(jp)
+        jy = np.transpose(np.asarray(jfn(jp)[0], np.float32), (0, 3, 1, 2))
+        np.testing.assert_allclose(y.detach().float().numpy(), jy, rtol=0,
+                                   atol=1e-5 * np.abs(jy).max())
+        got = bridge.params_to_numpy(
+            net, {k: v.grad for k, v in leaves.items()})
+        for k, v in got.items():
+            r = np.asarray(jg[k], np.float32)
+            assert v.dtype == np.float32 and np.abs(r).max() > 0, k
+            np.testing.assert_allclose(v, r, rtol=0,
+                                       atol=2.0**-7 * np.abs(r).max(),
+                                       err_msg=k)
         # inference at bf16 runs
         with torch.no_grad():
             execute(net, sess.params, sess.state,
@@ -522,8 +552,8 @@ def test_quantized_grouped_conv_raises():
 
 
 def test_quantized_deconv_raises():
-    """The port has no TRANSPOSE_CONV2D yet: a quantized one raises too,
-    never running at fp32."""
+    """The port runs TRANSPOSE_CONV2D in fp32 and bf16, but not int8: a
+    quantized one raises, never running at fp32."""
     net = tgraph.Net(Mode.PREDICT)
     net.set_input_shape(8, 8, 4, 1)
     net.add_convolutional_layer(4, 3, 1, 1, 1, 0, ttypes.FillerType.XAVIER,
@@ -532,5 +562,5 @@ def test_quantized_deconv_raises():
     net.quant = {"act_scales": {0: 0.1},
                  "weights": tq.quantize_weights(net, sess.params)}
     net.nodes[0].type = ttypes.LayerType.TRANSPOSE_CONV2D
-    with pytest.raises(NotImplementedError, match="TRANSPOSE_CONV2D"):
+    with pytest.raises(NotImplementedError, match="int8 TRANSPOSE_CONV2D"):
         sess.predict_on_batch(np.zeros((1, 4, 8, 8), np.float32))

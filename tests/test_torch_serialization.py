@@ -3,8 +3,8 @@
 `bcnn_tpu` writes loads into the port as equal params and state (the BN
 fold in PREDICT included); the port writes the same bytes for the same
 params; the Darknet header's versions (u64 or u32 `seen`, the
-transposed-era FC) read alike; broken files raise alike; PReLU slots
-raise; `Session.load_weights` / `save_weights`."""
+transposed-era FC) read alike; broken files raise alike; the PReLU
+slope slots; `Session.load_weights` / `save_weights`."""
 
 import struct
 
@@ -215,23 +215,61 @@ def test_bad_magic_and_onnx_raise(tmp_path):
         tser.load_weights(net, {}, {}, str(tmp_path / "m.onnx"))
 
 
-@pytest.mark.parametrize("where", ["conv", "activation"])
-def test_prelu_slots_raise(tmp_path, where):
-    net = pt.Net(Mode.PREDICT)
-    net.set_input_shape(8, 8, 3, 1)
-    A, F = pt.Activation, pt.FillerType
-    net.add_convolutional_layer(
-        4, 3, 1, 1, 1, 1, F.XAVIER,
-        A.PRELU if where == "conv" else A.RELU, 0, "input", "c1")
+def prelu_net(pkg, mode, where):
+    """A BN conv with PReLU (slopes at src[6]), a plain conv with PReLU
+    (src[3]), or a conv and a standalone PReLU activation."""
+    net = pkg.Net(pkg.Mode(int(mode)))
+    net.set_input_shape(8, 8, 3, 2)
+    if mode != Mode.PREDICT:
+        net.set_sgd_optimizer(0.01, 0.9)
+    A, F = pkg.Activation, pkg.FillerType
+    conv_act = A.PRELU if where != "activation" else A.RELU
+    net.add_convolutional_layer(4, 3, 1, 1, 1, int(where != "conv_nobn"),
+                                F.XAVIER, conv_act, 0, "input", "c1")
     if where == "activation":
         net.add_activation_layer(A.PRELU, "c1")
+    net.add_convolutional_layer(2, 1, 1, 0, 1, 0, F.XAVIER, A.PRELU, 0,
+                                "c1", "c2")
+    return net
+
+
+@pytest.mark.parametrize("mode", [Mode.PREDICT, Mode.TRAIN],
+                         ids=["predict", "train"])
+@pytest.mark.parametrize("where", ["conv", "activation", "conv_nobn"])
+def test_prelu_slots_raise(tmp_path, where, mode):
+    """Ported since: the PReLU slope slots (a conv's after its weights and
+    BN, in both formats; a standalone activation's in .bcnnmodel only),
+    read and written byte-identical to bcnn_tpu; a Session round trip
+    keeps the slopes."""
+    jnet, net = prelu_net(bt, mode, where), prelu_net(pt, mode, where)
+    p_np, s_np = random_numpy(jnet)
+    slopes = [k for k in p_np if "prelu" in k]  # c1_w_prelu standalone
+    assert len(slopes) == 2
+    for fmt in EXT:
+        ref = str(tmp_path / f"r{EXT[fmt]}")
+        got = str(tmp_path / f"p{EXT[fmt]}")
+        write_jax(fmt, jnet, p_np, s_np, ref)
+        tp, ts = to_port(net, p_np), to_port(net, s_np)
+        save = tser.save_weights if fmt == "bcnn" else (
+            lambda *a: tser.save_weights_darknet(*a, seen=77))
+        save(net, tp, ts, got)
+        with open(ref, "rb") as a, open(got, "rb") as b:
+            assert a.read() == b.read(), fmt
+        zero = {k: (np.zeros_like(v) if k in slopes else v)
+                for k, v in p_np.items()}
+        want, have = load_both(jnet, net, ref, zero, s_np)
+        assert_tables_equal(want, have)
+        for k in slopes:  # read back, but for a standalone .weights slope
+            standalone = k.endswith("_w_prelu")
+            assert torch.equal(have[0][k], torch.from_numpy(
+                zero[k] if fmt == "darknet" and standalone else p_np[k])), k
     sess = Session(net, 0, device="cpu").compile_net()
-    for call in (sess.save_weights, sess.load_weights):
-        with pytest.raises(NotImplementedError, match="PReLU"):
-            call(str(tmp_path / "m.bcnnmodel"))
-    with pytest.raises(NotImplementedError, match="PReLU"):
-        tser.save_weights_darknet(net, sess.params, sess.state,
-                                  str(tmp_path / "m.weights"))
+    sess.params = dict(to_port(net, p_np))
+    sess.save_weights(str(tmp_path / "s.bcnnmodel"))
+    back = Session(net, 1, device="cpu").compile_net().load_weights(
+        str(tmp_path / "s.bcnnmodel"))
+    for k in slopes:
+        assert torch.equal(back.params[k], sess.params[k]), k
 
 
 @pytest.mark.parametrize("fmt", list(EXT))

@@ -202,14 +202,30 @@ def test_cpu_session_never_launches_the_kernel(pair):
 
 
 def test_unported_layer_raises_naming_it():
+    """RESHAPE, the one layer no package runs (the reference declares it
+    and implements nothing, bcnn.h:157): the port raises naming it in
+    every mode, as bcnn_tpu's executor does."""
+    import jax.numpy as jnp
+
+    from bcnn_tpu.compile import execute as jax_execute
+    from bcnn_tpu.compile import init_params as jax_init_params
+    from bcnn_tpu.graph import Node as JNode
+    from bcnn_tpu.models import yolov3_tiny as jax_tiny
+
     net = yolov3_tiny(1, 64, 64, 4)
-    net.add_node(Node(type=LayerType.LRN, src=[2], dst=[2]))
+    net.add_node(Node(type=LayerType.RESHAPE, src=[2], dst=[2]))
     sess = Session(net, 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match="LRN"):
+    with pytest.raises(NotImplementedError, match="RESHAPE"):
         sess.predict_on_batch(np.zeros((1, 3, 64, 64), np.float32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="RESHAPE"):
         execute(net, sess.params, sess.state,
                 {"input": torch.zeros(1, 3, 64, 64)}, Mode.TRAIN)
+    jnet = jax_tiny(1, 64, 64, 4)
+    jnet.add_node(JNode(type=LayerType.RESHAPE, src=[2], dst=[2]))
+    jp, js = jax_init_params(jnet, 0)
+    with pytest.raises(NotImplementedError, match="RESHAPE"):
+        jax_execute(jnet, jp, js, {"input": jnp.zeros((1, 3, 64, 64))},
+                    Mode.PREDICT)
 
 
 def test_get_tensor_is_the_port_layout(pair):

@@ -42,7 +42,7 @@ from bcnn_tpu.ops import norm as jnorm
 from bcnn_tpu.ops import yolo as jyolo
 from bcnn_tpu.types import Mode as JaxMode
 
-from bcnn_tpu_torch import Session, bridge, learner, ops
+from bcnn_tpu_torch import Session, bridge, learner, ops, replay
 from bcnn_tpu_torch.compile import (
     _grad_split,
     build_grad_routing,
@@ -596,3 +596,34 @@ def test_opt_state_bridge_round_trip(tiny):
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(jo["velocity"][k]))
     assert dataclasses.asdict(net.learner)["decay"] == 0.0005
+
+
+# ------------------------------------------------ F3: fp32 vs float64 #
+
+
+def test_fp32_update_of_a_seeded_bn_net_against_float64():
+    """The CPU half of F3 (tools/f3_float64.py): YOLOv3-tiny with He-scaled
+    seeded weights (chip_smoke.py phase 9's) at batch 4, 160 px, whose
+    loss is the no-object delta of nearly every cell, so the gradient
+    reaching the BN convs is nearly uniform and their backward cancels.
+    The port's fp32 update on the CPU, against the float64 one: its worst
+    tensor lands 1.32e-3 of its largest entry away (lid4_b; measured),
+    above the 1e-3 a card-vs-CPU check asks of the two devices together,
+    and of the order F3 measured at batch 32, 416 px (CPU 3.5e-3, card
+    3.8e-3: so chip_smoke.BN_UPDATE_TOL is 1e-2). Held within twice the
+    measured error, every tensor moving."""
+    net = yolov3_tiny(4, 160, 160, 80, mode=Mode.TRAIN)
+    params, state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0))
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.rand(4, 3, 160, 160) * 2 - 1).astype(
+        np.float32))
+    lab = torch.from_numpy(_det_labels(rng, 4))
+    u64, u32 = (replay.sgd_update(net, params, state,
+                                  {"input": x, "label": lab}, dtype)[0]
+                for dtype in (torch.float64, torch.float32))
+    errs = {k: float((u32[k] - v).abs().max() / v.abs().max())
+            for k, v in u64.items() if v.abs().max() > 0}
+    assert len(errs) == len(u64)
+    worst = max(errs.values())
+    assert worst <= 2 * 1.32e-3, sorted(errs.items(), key=lambda kv: -kv[1])

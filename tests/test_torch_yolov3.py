@@ -352,14 +352,39 @@ def test_shortcut_int8_heads_end_to_end(int8_pair):
 
 
 def test_eltwise_in_train_raises(tmp_path):
+    """Ported since: the shortcut net trains, its step's loss and updates
+    bcnn_tpu's (rtol 1e-4; each update within 1e-3 of its largest
+    entry), the shortcut layer's gradient routed as bcnn_tpu routes it
+    (tests/test_torch_train_shortcut.py holds every form)."""
+    import jax
+
+    from bcnn_tpu import learner as jlearner
+    from bcnn_tpu.compile import make_train_step as jax_make_train_step
+
     cfg = tmp_path / "shortcut.cfg"
     cfg.write_text(SHORTCUT_CFG)
+    jnet = darknet_parse(jconfig, bt.Net(bt.Mode.TRAIN), str(cfg))
     net = darknet_parse(tconfig, Net(Mode.TRAIN), str(cfg))
-    sess = Session(net, 0, device="cpu").compile_net()
+    p_np, s_np = bridge.he_numpy_weights(net, 3, residual_scale=0.5)
+    sess = Session(net, 0, device="cpu")
+    sess.params, sess.state = bridge.params_from_numpy(net, p_np, s_np)
+    sess.compile_net()
     lab = np.zeros((2, 250), np.float32)
     lab[:, :5] = [0.5, 0.5, 0.3, 0.4, 1]
-    with pytest.raises(NotImplementedError, match="ELTWISE in TRAIN"):
-        sess.train_on_batch(np.zeros((2, 3, 64, 64), np.float32), lab)
+    x = np.random.RandomState(4).rand(2, 3, 64, 64).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in p_np.items()}
+    jp, _, _, jloss = jax_make_train_step(jnet)(
+        jp, {k: jnp.asarray(v) for k, v in s_np.items()},
+        jlearner.init_opt_state(jnet, jp),
+        {"input": jnp.asarray(x), "label": jnp.asarray(lab)},
+        jax.random.PRNGKey(0))
+    np.testing.assert_allclose(float(sess.train_on_batch(x, lab)),
+                               float(jloss), rtol=1e-4)
+    for k, v in bridge.params_to_numpy(net, sess.params).items():
+        r, r0 = np.asarray(jp[k]), p_np[k]
+        np.testing.assert_allclose(v - r0, r - r0, rtol=0,
+                                   atol=1e-3 * np.abs(r - r0).max(),
+                                   err_msg=k)
 
 
 # ------------------------------------------------ eltwise stride rule #

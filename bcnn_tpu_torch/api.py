@@ -2,7 +2,8 @@
 the data loader (`set_data_loader`), predict, detect and train on a batch
 (given, or the loader's next), the K-step scans over loader batches and
 over a record file held on the device, the split-phase forward /
-backward / update, weight files, and the host-exact YOLO detections.
+backward / update, weight files, the host-exact YOLO detections, and
+`freeze_qat` (a net trained with net.qat into its int8 dict).
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -410,6 +411,21 @@ class Session:
                 d["x"], d["y"], d["w"], d["h"], w, h, netw, neth, relative
             )
         return yolo_ops.nms_obj(dets)
+
+    def freeze_qat(self):
+        """Freeze a net trained with net.qat into the int8 dict
+        (`bcnn_tpu/api.py:520-527`): activation scales from the trained
+        EMA ranges in the state, per-channel int8 weights from the
+        params (`ops.quant.qat_export`), set as net.quant; the cached
+        steps are dropped. predict_on_batch and detect_on_batch in
+        PREDICT then take the int8 path unchanged. Returns net.quant."""
+        from .ops.quant import qat_export
+
+        self.net.quant = qat_export(self.net, self.params, self.state)
+        self._train_step = None
+        self._train_scan = None
+        self._resident = None
+        return self.net.quant
 
     def save_weights(self, path: str):
         """bcnn_save_weights: the bit-compatible .bcnnmodel format."""

@@ -57,14 +57,20 @@ def params_from_numpy(
     state_np: Mapping[str, np.ndarray],
     device="cpu",
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(params, state) of `net` as float32 tensors on `device`."""
+    """(params, state) of `net` as float32 tensors on `device`; the state
+    also carries net.qat's ranges ("qat_amax/<idx>", 0-d; the index is
+    the same tensor's in both packages) where state_np has them."""
+    state = tensors_from_numpy(
+        net, {t.key: state_np[t.key] for t in net.state_specs()}, device)
+    state.update({
+        k: torch.tensor(float(np.asarray(v)), dtype=torch.float32,
+                        device=device)
+        for k, v in state_np.items() if k.startswith("qat_amax/")})
     return (
         tensors_from_numpy(
             net, {t.key: params_np[t.key] for t in net.param_specs()}, device
         ),
-        tensors_from_numpy(
-            net, {t.key: state_np[t.key] for t in net.state_specs()}, device
-        ),
+        state,
     )
 
 
@@ -175,28 +181,32 @@ def he_numpy_weights(
 def quant_from_numpy(
     net: Net, quant_np: Mapping[str, Any], device="cpu"
 ) -> Dict[str, Any]:
-    """A JAX `net.quant` (`bcnn_tpu.ops.quant`: PTQ scales and int8
-    weights, leaves as numpy arrays or JAX arrays) as the port's:
+    """A JAX `net.quant` (`bcnn_tpu.ops.quant`: PTQ's or QAT's scales and
+    int8 weights, leaves as numpy arrays or JAX arrays) as the port's:
     `act_scales` keep their tensor-index keys and float values; each
-    weight's `q` goes HWIO -> OIHW (conv, depthwise; held channels-last,
-    as `ops.quant.quantize_weights` holds it) as int8 on `device` with its
-    fp32 `scale`; `act_flow`, `flow_pass` and `flow_joiners`
-    are copied."""
+    weight's `q` goes into the port's layout of its layer (conv and
+    depthwise HWIO -> OIHW, deconv (k, k, O, C) -> (C, O, k, k), FC
+    (in, out) as it is) as int8 on `device`, with its fp32 `scale`, and
+    is then held as `ops.quant.weight_entry` holds it (each in the
+    layout its kernel reads, made here once); `act_flow`, `flow_pass`
+    and `flow_joiners` are copied."""
+    from .ops.quant import weight_entry
+
     conv_w = _conv_weight_keys(net)
+    nodes = {net.tensors[n.src[1]].key: n for n in net.nodes
+             if len(n.src) > 1 and net.tensors[n.src[1]].key is not None}
     weights = {}
     for k, entry in quant_np["weights"].items():
         q = np.asarray(entry["q"])
         if q.dtype != np.int8:
             raise ValueError(f"{k}: int8 weights expected, got {q.dtype}")
         t = torch.from_numpy(np.array(q, order="C"))
-        if k in conv_w:  # HWIO -> OIHW, (O, H, W, I) in memory
-            t = t.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-        weights[k] = {
-            "q": t.to(device),
-            "scale": torch.from_numpy(
-                np.array(entry["scale"], np.float32)).to(device),
-        }
+        if k in conv_w:  # HWIO-like -> the port's (O, I, k, k) order
+            t = t.permute(3, 2, 0, 1)
+        weights[k] = weight_entry(
+            net, nodes[k], t.to(device),
+            torch.from_numpy(np.array(entry["scale"], np.float32)).to(device),
+        )
     out = {
         "act_scales": {int(i): float(s)
                        for i, s in quant_np["act_scales"].items()},

@@ -2,18 +2,21 @@
 `bcnn_tpu.compile`: every layer but RESHAPE (which the reference does
 not implement either), forward in every mode in fp32, at bf16
 (net.compute_dtype, net.act_dtype) and, in PREDICT, at int8 (net.quant:
-PTQ with int8 activations between layers, the convs on K4; a quantized
-deconv, depthwise or FC raises), the detection program, and training in
-fp32 or bf16 (net.compute_dtype, net.train_act_dtype) in every form of
-the step: plain, remat, accum_steps, a K-step scan over staged or
-device-resident batches, with net.bn_frozen_stats, net.yolo_stats,
-net.ref_grad_routing and net.ref_deconv_quirk. net.qat raises.
+PTQ with int8 activations between layers; the convs, the FC and the
+deconv on K4, the grouped and depthwise convs on K5), the detection
+program, and training in fp32 or bf16 (net.compute_dtype,
+net.train_act_dtype) in every form of the step: plain, remat,
+accum_steps, a K-step scan over staged or device-resident batches, with
+net.bn_frozen_stats, net.yolo_stats, net.ref_grad_routing,
+net.ref_deconv_quirk and net.qat (quantization-aware training: fake
+quant in TRAIN and VALID, the ranges' EMAs in the state).
 
 PyTorch runs eagerly, so the executor is a loop over the nodes that
 calls one op per node; nothing is traced, and autograd records the TRAIN
 forward for the backward. Conventions:
   - `params`: dict key -> tensor, the learned tensors (PARAM specs);
-  - `state`:  dict key -> tensor, BN running stats (STATE specs);
+  - `state`:  dict key -> tensor, BN running stats (STATE specs) and,
+    with net.qat, the 0-d "qat_amax/<idx>" ranges;
   - `values`: tensor index -> tensor; activations have NCHW shapes
     throughout, conv weights OIHW; the int8 flow's activations are held
     channels-last (NHWC in memory), the layout K4 reads and writes.
@@ -35,7 +38,8 @@ def init_params(
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Create (params, state) from the tensor specs' fillers, drawn in
     tensor order from one `torch.Generator` seeded with `seed`;
-    unfilled tensors are zeros (calloc semantics, bh_align_calloc)."""
+    unfilled tensors are zeros (calloc semantics, bh_align_calloc), and
+    so are net.qat's ranges (`bcnn_tpu/compile.py:63-67`)."""
     gen = torch.Generator().manual_seed(seed)
     params: Dict[str, torch.Tensor] = {}
     state: Dict[str, torch.Tensor] = {}
@@ -51,6 +55,11 @@ def init_params(
             state[t.key] = torch.zeros(
                 t.mem_shape, dtype=torch.float32, device=device
             )
+    if getattr(net, "qat", None):
+        from .ops.quant import qat_state_keys
+
+        for k in qat_state_keys(net):
+            state[k] = torch.zeros((), dtype=torch.float32, device=device)
     return params, state
 
 
@@ -127,24 +136,6 @@ class _GradSplit(torch.autograd.Function):
 
 _grad_split = _GradSplit.apply
 
-# net attributes that bcnn_tpu honours and the port does not yet, each
-# with the modes in which bcnn_tpu reads it
-_UNPORTED = (
-    ("qat", (Mode.TRAIN, Mode.VALID)),
-)
-
-
-def refuse_unported(net: Net, mode: Mode) -> None:
-    """Raise NotImplementedError for a set attribute that `bcnn_tpu`
-    would honour in `mode` and the port cannot: never ignore it."""
-    for attr, modes in _UNPORTED:
-        if mode in modes and getattr(net, attr, None):
-            raise NotImplementedError(
-                f"bcnn_tpu_torch: net.{attr} in {mode.name} mode is not "
-                "ported yet"
-            )
-
-
 class _Executor:
     """One pass over the graph in any mode."""
 
@@ -170,7 +161,6 @@ class _Executor:
         self.seed = seed
         self.dropout_masks = dict(dropout_masks or {})
         self.pos = 0  # the position of the node being run
-        refuse_unported(net, mode)
         # bcnn_tpu/compile.py:174-204: compute_dtype in every mode,
         # act_dtype in PREDICT only, train_act_dtype (the stored boundary
         # tensors; the epilogue math stays fp32) in TRAIN only
@@ -195,6 +185,20 @@ class _Executor:
             from .ops.quant import plan_int8_flow
 
             self.int8_flow = plan_int8_flow(net, quant)
+        # net.qat (True, or a dict with "ema" and "per_layer"): TRAIN and
+        # VALID fake-quantize each conv-like input and weight; the input
+        # ranges' EMAs live in the state (`bcnn_tpu/compile.py:216-229`).
+        # PREDICT ignores it: Session.freeze_qat makes net.quant
+        qat = getattr(net, "qat", None)
+        self.qat = qat if (qat and mode != Mode.PREDICT) else None
+        if self.qat:
+            from .ops.quant import watch_tensors
+
+            self.qat_ema = (
+                float(qat.get("ema", 0.99)) if isinstance(qat, dict) else 0.99
+            )
+            self.qat_watch = set(watch_tensors(net))
+            self._qat_seen: set = set()
 
     def key_of(self, idx: int) -> str:
         return self.net.tensors[idx].key
@@ -241,6 +245,13 @@ class _Executor:
                                        self.values[d])
                     for (pos, _), o in zip(rec, outs):
                         taps[(d, pos)] = o
+        if self.qat and self.mode == Mode.TRAIN:
+            # the watched tensors no conv-like node observed (joiner
+            # inputs), at their end-of-pass values, as calibrate sees them
+            # (`bcnn_tpu/compile.py:305-311`)
+            for idx in sorted(self.qat_watch - self._qat_seen):
+                if idx in self.values:
+                    self._qat_observe(idx, self.values[idx])
         return self
 
     # ------------------------------------------------------------------ #
@@ -292,11 +303,46 @@ class _Executor:
             return None
         return wq, self.int8_flow.get(node.src[0], sx)
 
-    def _refuse_quantized(self, node: Node):
-        if self._quant_entry(node) is not None:
-            raise NotImplementedError(
-                f"bcnn_tpu_torch: int8 {node.type.name} is not ported yet"
-            )
+    # -- QAT (`bcnn_tpu/compile.py:351-387`) ------------------------------
+
+    def _qat_observe(self, idx: int, x) -> torch.Tensor:
+        """The fake-quant scale of tensor idx, a 0-d fp32 tensor: in
+        TRAIN the EMA of its abs-max moves (the first observation seeds
+        it) and is written to the state; in VALID it is read, the batch's
+        own abs-max before any training. max(range, 1e-8) / 127, the
+        division a true one on either device."""
+        k = f"qat_amax/{idx}"
+        obs = x.detach().to(torch.float32).abs().max()
+        old = self.state.get(k)
+        if old is None:
+            old = torch.zeros((), dtype=torch.float32, device=obs.device)
+        if self.mode == Mode.TRAIN:
+            new = torch.where(
+                old > 0, self.qat_ema * old + (1 - self.qat_ema) * obs, obs)
+            self.state[k] = new
+            self._qat_seen.add(idx)
+        else:
+            new = torch.where(old > 0, old, obs)
+        return torch.clamp_min(new, 1e-8) / torch.tensor(
+            127.0, device=new.device)
+
+    def _qat_on(self, node: Node) -> bool:
+        """net.qat quantizes every conv-like node; {"per_layer": True}
+        only the layers added with `quantize` set."""
+        if not self.qat:
+            return False
+        if isinstance(self.qat, dict) and self.qat.get("per_layer"):
+            return bool(node.param.get("quantize"))
+        return True
+
+    def _qat_xw(self, node: Node, x, w):
+        """x fake-quantized per tensor at its tracked range, w per output
+        channel."""
+        from .ops.quant import (QAT_WEIGHT_AXES, fake_quant_ste,
+                                fake_quant_weight)
+
+        x = fake_quant_ste(x, self._qat_observe(node.src[0], x))
+        return x, fake_quant_weight(w, QAT_WEIGHT_AXES[node.type])
 
     def _deq(self, idx: int, x):
         """An int8-flow tensor back to fp32 (mixed-input joiners)."""
@@ -333,36 +379,55 @@ class _Executor:
             return y.to(ad)
         return y
 
-    def _conv2d_int8(self, node: Node, x, wq, sx: float):
-        """The quantized conv (`bcnn_tpu/compile.py:438-468`): K4 sums the
-        int8 product and runs the dequant, BN or bias, the activation and,
-        where the plan routes the output as int8, the requantize, in one
-        launch on the card, on channels-last x and the quant weight, held
-        channels-last since it was made. inv = 1 /
-        sqrt(var + eps) takes two correctly rounded ops where bcnn_tpu
-        takes rsqrt, so the card and the CPU agree bit for bit."""
+    def _conv_int8(self, node: Node, x, wq, sx: float, groups: int = 1):
+        """The quantized conv (`bcnn_tpu/compile.py:438-468`; a depthwise
+        layer's, `:470-496`, is the grouped one with groups = C and no
+        BN): K4 (groups 1) or K5 sums the int8 product and runs the
+        dequant, BN or bias, the activation and, where the plan routes
+        the output as int8, the requantize, in one launch on the card,
+        on channels-last x and the quant weight, held in the kernel's
+        layout since it was made. inv = 1 / sqrt(var + eps) takes two
+        correctly rounded ops where bcnn_tpu takes rsqrt, so the card
+        and the CPU agree bit for bit. An activation neither kernel fuses
+        runs after it."""
         from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
+        from .ops.grouped_int8 import grouped_int8_fused
 
         p = node.param
-        if p["num_groups"] != 1:
-            raise NotImplementedError(
-                "bcnn_tpu_torch: int8 grouped CONV2D is not ported yet"
-            )
         act = p["activation"]
         fused = act in FUSED_ACT
         s_out = self.int8_flow.get(node.dst[0]) if fused else None
         bn = {}
-        if p.get("batch_norm"):
+        if node.type == LayerType.CONV2D and p.get("batch_norm"):
             bn["scale"] = self.p(node.src[5])
             if not (self.net.bn_folded and self.mode == Mode.PREDICT):
                 var = self.state[self.key_of(node.src[4])]
                 bn["mean"] = self.state[self.key_of(node.src[3])]
                 bn["inv"] = torch.ones_like(var) / torch.sqrt(
                     var + ops.norm.EPS)
+        args = (self._quant_in(x, sx), wq["q"], wq["scale"] * sx,
+                self.p(node.src[2]), p["stride"], p["pad"])
+        kw = dict(act=act if fused else Activation.NONE, s_out=s_out, **bn)
+        if groups == 1:
+            y = conv_int8_fused(*args, **kw)
+        else:
+            y = grouped_int8_fused(*args, groups, **kw)
+        if not fused:
+            y = self._maybe_emit_int8(node, ops.apply_activation(y, act))
+        return y
+
+    def _k4_linear(self, node: Node, x, w, d, pad: int):
+        """A quantized FC or deconv as the conv K4 runs for it (stride
+        1, bias in its epilogue), with the activation and the requantize
+        as `_conv_int8` fuses them."""
+        from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
+
+        act = node.param["activation"]
+        fused = act in FUSED_ACT
         y = conv_int8_fused(
-            self._quant_in(x, sx), wq["q"], wq["scale"] * sx,
-            self.p(node.src[2]), p["stride"], p["pad"],
-            act if fused else Activation.NONE, s_out=s_out, **bn,
+            x, w, d, self.p(node.src[2]), 1, pad,
+            act if fused else Activation.NONE,
+            s_out=self.int8_flow.get(node.dst[0]) if fused else None,
         )
         if not fused:
             y = self._maybe_emit_int8(node, ops.apply_activation(y, act))
@@ -373,10 +438,13 @@ class _Executor:
         x = self.values[node.src[0]]
         q = self._quant_entry(node)
         if q is not None:
-            y = self._conv2d_int8(node, x, *q)
+            y = self._conv_int8(node, x, *q, groups=p["num_groups"])
         else:
+            w = self.p(node.src[1])
+            if self._qat_on(node):
+                x, w = self._qat_xw(node, x, w)
             y = ops.conv2d(
-                x, self.p(node.src[1]), p["stride"], p["pad"],
+                x, w, p["stride"], p["pad"],
                 p["num_groups"], self.compute_dtype, self.act_dtype,
             )
             extra = {"mean": 3, "var": 4, "scales": 5,
@@ -396,11 +464,19 @@ class _Executor:
         a bf16 rounding. K3 has no backward: TRAIN runs the grouped conv
         (`ops.conv2d`, with compute_dtype its bf16 form and backward) on
         any device, as bcnn_tpu trains through `ops.depthwise_conv2d`
-        and never through its Pallas kernel."""
-        self._refuse_quantized(node)
+        and never through its Pallas kernel. Quantized (PREDICT with
+        net.quant), one K5 launch with groups = C; under net.qat, x and w
+        fake-quantized first."""
         p = node.param
         x, w, b = (self.values[node.src[0]], self.p(node.src[1]),
                    self.p(node.src[2]))
+        q = self._quant_entry(node)
+        if q is not None:
+            self.values[node.dst[0]] = self._cast_act(
+                self._conv_int8(node, x, *q, groups=x.shape[1]))
+            return
+        if self._qat_on(node):
+            x, w = self._qat_xw(node, x, w)
         if self.mode == Mode.TRAIN:
             y = ops.conv2d(x, w, p["stride"], p["pad"], x.shape[1],
                            self.compute_dtype)
@@ -422,15 +498,35 @@ class _Executor:
         """The deconv (`bcnn_tpu/compile.py:498-527`): the transpose conv,
         or under net.ref_deconv_quirk with pad > 0 the reference's
         misread col2im bit for bit (`ops.conv.conv2d_transpose_ref_quirk`),
-        + bias, the activation, the boundary cast. A quantized deconv is
-        not ported."""
-        self._refuse_quantized(node)
+        + bias, the activation, the boundary cast; under net.qat (not
+        with the quirk) x and w fake-quantized first. Quantized, K4 runs
+        the equivalent conv: the input dilated by the stride
+        (`ops.quant.dilate_int8`), pad k-1-p (a negative one crops),
+        stride 1, the weight turned and transposed once
+        (`deconv_k4_weight`, the quant entry's q); its integer sum equals
+        `conv2d_transpose_int8`'s."""
+        from .ops.quant import dilate_int8
+
         p = node.param
         x, w = self.values[node.src[0]], self.p(node.src[1])
+        q = self._quant_entry(node)
+        if q is not None:
+            wq, sx = q
+            e = wq["q"].shape[2] - 1 - p["pad"]
+            xd = dilate_int8(self._quant_in(x, sx), p["stride"])
+            if e < 0:
+                xd = xd[:, :, -e:xd.shape[2] + e, -e:xd.shape[3] + e]
+                xd = xd.contiguous(memory_format=torch.channels_last)
+            y = self._k4_linear(node, xd, wq["q"], wq["scale"] * sx,
+                                max(e, 0))
+            self.values[node.dst[0]] = self._cast_act(y)
+            return
         if p["pad"] > 0 and getattr(self.net, "ref_deconv_quirk", False):
             y = ops.conv.conv2d_transpose_ref_quirk(x, w, p["stride"],
                                                     p["pad"])
         else:
+            if self._qat_on(node):
+                x, w = self._qat_xw(node, x, w)
             y = ops.conv.conv2d_transpose(x, w, p["stride"], p["pad"],
                                           self.compute_dtype)
         y = y + self.p(node.src[2]).reshape(1, -1, 1, 1)
@@ -438,14 +534,26 @@ class _Executor:
             ops.apply_activation(y, p["activation"]))
 
     def _full_connected(self, node: Node):
-        """`bcnn_tpu/compile.py:529-551`: fp32 out, no boundary cast."""
-        self._refuse_quantized(node)
-        y = ops.full_connected(
-            self.values[node.src[0]],
-            self.p(node.src[1]),
-            self.p(node.src[2]),
-            self.compute_dtype,
-        )
+        """`bcnn_tpu/compile.py:529-551`: fp32 out, no boundary cast;
+        under net.qat, x and w fake-quantized first. Quantized, K4 runs
+        it as a 1x1 conv over the int8 x flattened as it lies, NHWC
+        (a view of the channels-last x), whose weight rows were put in
+        that order once (`ops.quant.fc_k4_weight`); bcnn_tpu flattens in
+        NCHW order, which that order of rows undoes."""
+        x, w = self.values[node.src[0]], self.p(node.src[1])
+        q = self._quant_entry(node)
+        if q is not None:
+            wq, sx = q
+            x = self._quant_in(x, sx)
+            xf = (x.permute(0, 2, 3, 1) if x.dim() == 4 else x).reshape(
+                x.shape[0], -1, 1, 1)
+            self.values[node.dst[0]] = self._k4_linear(
+                node, xf, wq["q"], wq["scale"] * sx, 0)
+            return
+        if self._qat_on(node):
+            x, w = self._qat_xw(node, x, w)
+        y = ops.full_connected(x, w, self.p(node.src[2]),
+                               self.compute_dtype)
         self.values[node.dst[0]] = self._maybe_emit_int8(
             node, ops.apply_activation(y, node.param["activation"])
         )
@@ -880,7 +988,6 @@ def make_train_step(
             f"batch_size {net.batch_size} not divisible by "
             f"accum_steps {accum_steps}"
         )
-    refuse_unported(net, Mode.TRAIN)
     if device_augment is None:
         device_augment = getattr(net, "device_augment", None)
     want_stats = bool(getattr(net, "yolo_stats", False))

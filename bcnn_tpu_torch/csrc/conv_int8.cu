@@ -77,15 +77,16 @@
 
 #include <cstdint>
 
+#include "int8_epilogue.cuh"
+
 namespace {
+
+using namespace bcnn_int8;  // Chan, requant, the BN and activation codes
 
 constexpr int kTileK = 32;   // reduction depth of one m16n8k32
 constexpr int kStageK = 64;  // k values a stage: two m16n8k32 steps
 constexpr int kChunks = kStageK / 16;  // 16-byte chunks of a stage row
 constexpr int kStages = 4;   // stages in a block's ring
-
-enum { kBnNone = 0, kBnFolded = 1, kBnUnfolded = 2 };
-enum { kActNone = 0, kActRelu = 1, kActLrelu = 2 };
 
 struct Conv {
   const int8_t* x;
@@ -163,43 +164,18 @@ __device__ __forceinline__ KPos kpos(int kk, int c, int k) {
 // shared memory once a block
 enum { kVecD = 0, kVecScale, kVecBias, kVecMean, kVecInv, kVecs };
 
-// one output channel's vectors, read from the staged ones once a thread
-// and column
-struct Chan {
-  float d, scale, bias, mean, inv;
-};
-
+// one output channel's vectors (Chan), read from the staged ones once a
+// thread and column
 template <int BN>
 __device__ __forceinline__ Chan chan(const float (&v)[kVecs][BN], int col) {
   return Chan{v[kVecD][col], v[kVecScale][col], v[kVecBias][col],
               v[kVecMean][col], v[kVecInv][col]};
 }
 
-// the epilogue of one accumulator
+// the epilogue of one accumulator (int8_epilogue.cuh)
 __device__ __forceinline__ float epilogue(const Conv& p, int acc,
                                           const Chan& v) {
-  float y = __fmul_rn(__int2float_rn(acc), v.d);
-  if (p.bn == kBnUnfolded) {
-    y = __fmul_rn(__fsub_rn(y, v.mean), v.inv);
-    y = __fadd_rn(__fmul_rn(y, v.scale), v.bias);
-  } else if (p.bn == kBnFolded) {
-    y = __fadd_rn(__fmul_rn(y, v.scale), v.bias);
-  } else {
-    y = __fadd_rn(y, v.bias);
-  }
-  if (p.act == kActLrelu) {
-    y = y > 0.f ? y : __fmul_rn(0.1f, y);
-  } else if (p.act == kActRelu) {
-    y = y < 0.f ? 0.f : y;
-  }
-  return y;
-}
-
-// int8(clip(rint(fl(y / s)), -127, 127)), the plain version's true
-// division and round
-__device__ __forceinline__ int8_t requant(float y, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f);
-  return (int8_t)(int)q;
+  return bcnn_int8::epilogue(acc, v, p.bn, p.act);
 }
 
 // Shared memory a block of this shape takes: the ring, or the staged

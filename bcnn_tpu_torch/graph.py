@@ -135,14 +135,23 @@ class Net:
         # fp32 throughout, the parity path):
         # - compute_dtype (torch.bfloat16): bf16 conv/FC inputs, fp32
         #   accumulation and master params, in every mode; in TRAIN the
-        #   conv backward runs in bf16 too (ops.conv), while FC and
-        #   depthwise raise there;
+        #   conv backward runs in bf16 too (ops.conv), as do the FC's
+        #   and the depthwise layer's;
         # - act_dtype (torch.bfloat16): bf16 activations between layers in
         #   PREDICT;
         # - train_act_dtype (torch.bfloat16): bf16 activations between
         #   layers in TRAIN (read like bn_frozen_stats, yolo_stats, remat,
         #   accum_steps and device_augment with getattr: unset is off);
-        # - quant: the int8 PTQ dict of ops.quant (PREDICT only).
+        # - quant: the int8 dict of ops.quant (PREDICT only): PTQ's
+        #   (calibrate + quantize_weights, or ptq_synthetic) or QAT's
+        #   (Session.freeze_qat);
+        # - qat (True, or {"ema": 0.99, "per_layer": False}; read with
+        #   getattr): quantization-aware training. TRAIN and VALID
+        #   fake-quantize every conv, depthwise, deconv and FC input and
+        #   weight (with per_layer, only the layers built with
+        #   `quantize`); each input's range is an EMA ("ema") of its
+        #   abs-max, held in the state as "qat_amax/<idx>". PREDICT
+        #   ignores it.
         self.compute_dtype = None
         self.act_dtype = None
         self.quant = None

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
 At first CUDA use, `nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a),
-one process per source, all started together, and links them into one
+one process per source, all started together (a `.cuh` header they
+include counts among the sources hashed), and links them into one
 shared library with a plain C interface, under `_build/` beside this
 file, named by a hash of the sources and flags: a change to either
 builds anew. `ctypes` loads it. Nothing here runs at import, so the CPU
@@ -136,6 +137,15 @@ def library() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.bcnn_conv_int8.restype = ctypes.c_int
+    lib.bcnn_grouped_int8.argtypes = [
+        p, p, p, p, p, p, p, p,  # x, w, d, scale, bias, mean, inv, out
+        i, i, i, i,             # n, c, h, w
+        i, i, i, i, i,          # o, k, stride, pad, groups
+        i, i, i, f,             # bn, act, out_int8, s_out
+        i, i, i, i,             # plan: quads, rows, pix, staged
+        p,                      # stream
+    ]
+    lib.bcnn_grouped_int8.restype = ctypes.c_int
     lib.bcnn_cuda_error_string.argtypes = [i]
     lib.bcnn_cuda_error_string.restype = ctypes.c_char_p
     return lib

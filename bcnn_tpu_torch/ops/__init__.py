@@ -6,9 +6,11 @@ dropout, LRN, the activations, the losses, the detection tail and
 training deltas); a hand-written CUDA kernel where it wrote a Pallas kernel
 (`yolo_decode.decode_fused`, K1; `row_shift.row_shift` and
 `row_shift.col_shift`, K2;
-`depthwise.depthwise_fused`, K3), and for the int8 conv that PyTorch
-lacks on CUDA (`conv_int8.conv_int8_fused`, K4). `quant` holds the int8
-post-training quantization.
+`depthwise.depthwise_fused`, K3), and for the int8 convs that PyTorch
+lacks on CUDA (`conv_int8.conv_int8_fused`, K4, which also runs the int8
+FC and deconv; `grouped_int8.grouped_int8_fused`, K5, the grouped and
+depthwise ones). `quant` holds the int8 post-training quantization and
+the quantization-aware training's fake quant.
 """
 
 from .activations import apply_activation

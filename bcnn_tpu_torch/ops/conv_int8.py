@@ -191,8 +191,25 @@ def conv_int8_fused_ref(
 ) -> torch.Tensor:
     """The plain version of K4 (see the module's docstring): the exact
     sum, then each epilogue step a separate torch op, in K4's order."""
+    return int8_epilogue_ref(conv2d_int32(x, w, stride, pad), d, bias, act,
+                             scale, mean, inv, s_out)
+
+
+def int8_epilogue_ref(
+    acc: torch.Tensor,
+    d: torch.Tensor,
+    bias: torch.Tensor,
+    act: Activation = Activation.NONE,
+    scale: Optional[torch.Tensor] = None,
+    mean: Optional[torch.Tensor] = None,
+    inv: Optional[torch.Tensor] = None,
+    s_out: Optional[float] = None,
+) -> torch.Tensor:
+    """The epilogue of K4 and K5 on an int32 sum (N, O, H, W), each step
+    a separate torch op: the dequant, BN or bias, the activation, the
+    requantize."""
     act = Activation(act)
-    y = conv2d_int32(x, w, stride, pad).to(torch.float32) * _vec(d)
+    y = acc.to(torch.float32) * _vec(d)
     if mean is not None:
         y = (y - _vec(mean)) * _vec(inv)
         y = y * _vec(scale) + _vec(bias)

@@ -1,23 +1,36 @@
-"""Post-training int8 quantization for inference, ported from
-`bcnn_tpu.ops.quant` (PTQ; QAT, `conv2d_transpose_int8` and `fc_int8`
-are not ported yet).
+"""int8 quantization, ported from `bcnn_tpu.ops.quant`: post-training
+quantization (PTQ) for inference, the plain int8 conv, deconv and FC
+sums, and quantization-aware training (QAT).
 
 Scheme (symmetric PTQ, as in the JAX package):
   - weights: per-output-channel int8, scales from |w|max / 127;
   - activations: per-tensor int8, scales from a calibration pass, kept as
     Python floats computed in double (m / 127.0) and cast to fp32 only
     at use;
-  - convs accumulate in int32 (K4, `ops.conv_int8`) and dequantize with
-    the fused scale fp32(sx) * w_scale[o], then BN/bias and the
-    activation in fp32;
+  - convs accumulate in int32 (K4, `ops.conv_int8`; grouped and
+    depthwise ones K5, `ops.grouped_int8`; the FC and the deconv also
+    run on K4) and dequantize with the fused scale fp32(sx) *
+    w_scale[o], then BN/bias and the activation in fp32;
   - `plan_int8_flow` decides which activations live as int8 between
     layers.
 
-Layout: conv and depthwise weights are OIHW here (held channels-last,
-(O, k, k, C) in memory, as K4 reads them), so their scale runs over dim
-0 (HWIO and the last dim in the JAX package); FC weights are
-(in, out) in both. `bridge.quant_from_numpy` carries a JAX `net.quant`
-across.
+QAT (`bcnn_tpu/ops/quant.py:231-300`): with net.qat set, TRAIN and
+VALID pass each conv, depthwise, deconv and FC input and weight through
+a fake quant (quantize-dequantize) with a straight-through gradient
+(`fake_quant_ste`, `fake_quant_weight`); the executor tracks each
+watched tensor's abs-max as an EMA in the state ("qat_amax/<idx>", made
+by `compile.init_params`), and `qat_export` freezes the trained net
+into the PTQ dict.
+
+Layouts: conv and depthwise weights are OIHW here, so their scale runs
+over dim 0 (the last dim of HWIO in the JAX package); deconv weights
+(C, O, k, k) over dim 1 (dim 2 of the JAX package's (k, k, O, C)); FC
+weights are (in, out) in both, over dim 1. Each entry of the dict holds
+its weight in the layout its kernel reads, made once
+(`weight_entry`): a conv's (O, k, k, C) in memory (K4); a grouped or
+depthwise one's (k, k, C/G, O) (K5); a deconv's and an FC's the K4
+weight of the equivalent conv.
+`bridge.quant_from_numpy` carries a JAX `net.quant` across.
 """
 
 from __future__ import annotations
@@ -26,6 +39,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+import torch.nn.functional as F
 
 from ..types import LayerType, Mode
 from .conv_int8 import conv2d_int32
@@ -45,30 +60,74 @@ def _per_channel_int8(w: np.ndarray, axis: int):
 
 def quantize_weights(net, params) -> Dict[str, Dict]:
     """Per-output-channel int8 for conv and depthwise (OIHW, scale over
-    O) and FC ((in, out), scale over out), `bcnn_tpu/ops/quant.py:35-67`.
-    Returns {param_key: {"q": int8 tensor, "scale": fp32 tensor (O,)}} on
-    the params' device; a conv's q is held channels-last ((O, k, k, C) in
-    memory), the layout K4 reads."""
+    O), deconv ((C, O, k, k), scale over O) and FC ((in, out), scale
+    over out), `bcnn_tpu/ops/quant.py:35-67`. Returns {param_key:
+    `weight_entry`} on the params' device."""
     out = {}
     for node in net.nodes:
-        if node.type in (LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D):
-            axis = 0
-        elif node.type == LayerType.FULL_CONNECTED:
-            axis = 1
-        else:
+        axis = _SCALE_AXIS.get(node.type)
+        if axis is None:
             continue
         key = net.tensors[node.src[1]].key
         t = params[key]
         q, scale = _per_channel_int8(
             t.detach().cpu().numpy().astype(np.float32), axis
         )
-        q = torch.from_numpy(q).to(t.device)
-        out[key] = {
-            "q": q.contiguous(memory_format=torch.channels_last)
-            if q.dim() == 4 else q,
-            "scale": torch.from_numpy(scale).to(t.device),
-        }
+        out[key] = weight_entry(net, node, torch.from_numpy(q).to(t.device),
+                                torch.from_numpy(scale).to(t.device))
     return out
+
+
+# the output-channel axis of each quantized layer's weight, in the port's
+# layout
+_SCALE_AXIS = {
+    LayerType.CONV2D: 0,
+    LayerType.DEPTHWISE_CONV2D: 0,
+    LayerType.TRANSPOSE_CONV2D: 1,
+    LayerType.FULL_CONNECTED: 1,
+}
+
+
+def weight_entry(net, node, q: torch.Tensor, scale: torch.Tensor) -> Dict:
+    """A node's quant entry from its int8 weight q (in the port's layout
+    of the layer) and fp32 scale, q held in the layout its kernel reads:
+    a conv's channels-last ((O, k, k, C) in memory, K4); a grouped
+    conv's and a depthwise layer's (k, k, C/G, O) (K5); a deconv's and
+    an FC's as the weight of the conv that K4 runs for them
+    (`deconv_k4_weight`, `fc_k4_weight`)."""
+    from .grouped_int8 import grouped_weight
+
+    t = node.type
+    if t == LayerType.DEPTHWISE_CONV2D or (
+        t == LayerType.CONV2D and node.param["num_groups"] > 1
+    ):
+        q = grouped_weight(q)
+    elif t == LayerType.CONV2D:
+        q = q.contiguous(memory_format=torch.channels_last)
+    elif t == LayerType.TRANSPOSE_CONV2D:
+        q = deconv_k4_weight(q)
+    else:
+        src = net.tensors[node.src[0]]
+        q = fc_k4_weight(q, src.c, src.h, src.w)
+    return {"q": q, "scale": scale}
+
+
+def deconv_k4_weight(q: torch.Tensor) -> torch.Tensor:
+    """A deconv's int8 weight (C, O, k, k) as the weight of the conv
+    that computes it on the stride-dilated input (`dilate_int8`): (O, C,
+    k, k), each window turned by 180 degrees, channels-last."""
+    return q.flip(2, 3).transpose(0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def fc_k4_weight(q: torch.Tensor, c: int, h: int, w: int) -> torch.Tensor:
+    """An FC's int8 weight (in, out), its rows in the NCHW flatten order
+    (c, h, w) of a (c, h, w) input, as a 1x1 conv's (out, in, 1, 1) whose
+    rows run in (h, w, c) order: the order of the int8 flow's
+    channels-last input, flattened as it lies (no copy of x)."""
+    o = q.shape[1]
+    return q.reshape(c, h, w, o).permute(3, 1, 2, 0).contiguous().reshape(
+        o, -1, 1, 1)
 
 
 def watch_tensors(net) -> List[int]:
@@ -241,6 +300,46 @@ def conv2d_int8(
     return acc * (w_scale * x_scale).reshape(1, -1, 1, 1)
 
 
+def conv2d_transpose_int8(
+    x: torch.Tensor, wq: torch.Tensor, x_scale: float,
+    w_scale: torch.Tensor, stride: int, pad: int,
+) -> torch.Tensor:
+    """The int8 deconv, dequantized to fp32, `bcnn_tpu/ops/quant.py:
+    327-345`: x int8 (N,C,H,W), wq int8 (C,O,k,k), w_scale (O,); the int32
+    sum taken in float64 (exact), output s*(h-1) + k - 2p. The plain
+    version of what the executor runs on K4 (`dilate_int8`,
+    `deconv_k4_weight`)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv_transpose2d(x.double(), wq.double(), None, stride, pad)
+    return acc.to(torch.int32).to(torch.float32) * (
+        w_scale * x_scale).reshape(1, -1, 1, 1)
+
+
+def fc_int8(
+    x: torch.Tensor, wq: torch.Tensor, x_scale: float, w_scale: torch.Tensor
+) -> torch.Tensor:
+    """The int8 FC, dequantized to fp32, `bcnn_tpu/ops/quant.py:348-355`:
+    x int8 (N, in), wq int8 (in, out), w_scale (out,); the int32 sum taken
+    in float64 (exact). The plain version of what the executor runs on
+    K4 (`fc_k4_weight`)."""
+    acc = (x.double() @ wq.double()).to(torch.int32)
+    return acc.to(torch.float32) * (w_scale * x_scale)
+
+
+def dilate_int8(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """x (N, C, H, W) with stride - 1 zeros between neighbouring pixels,
+    (N, C, (H-1)*stride + 1, (W-1)*stride + 1), channels-last: a plain
+    indexed copy; x itself at stride 1."""
+    if stride == 1:
+        return x
+    n, c, h, w = x.shape
+    out = torch.empty((n, c, (h - 1) * stride + 1, (w - 1) * stride + 1),
+                      dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last).zero_()
+    out[:, :, ::stride, ::stride] = x
+    return out
+
+
 def plan_int8_flow(net, quant) -> Dict[int, float]:
     """Which activation tensors can live as int8 between layers, and at
     what scale: `bcnn_tpu/ops/quant.py:358-516`, the same rules and the
@@ -385,3 +484,65 @@ def ptq_synthetic(net, sess, n: int = 4, seed: int = 1,
         "weights": quantize_weights(net, sess.params),
     }
     return net.quant
+
+
+# ------------------------------------------------------------------ #
+# Quantization-aware training (`bcnn_tpu/ops/quant.py:231-300`)
+# ------------------------------------------------------------------ #
+
+
+def fake_quant_ste(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantize-dequantize with the clipped straight-
+    through gradient, as `bcnn_tpu.ops.quant.fake_quant_ste` takes it:
+    the value x + (q - x) inside [-127 s, 127 s] (q = clip(round(x / s))
+    * s, the difference held constant), q outside; the gradient 1 inside
+    and 0 outside. scale (a 0-d tensor or a keepdims per-channel one)
+    is a constant. x is promoted to scale's dtype first, as JAX promotes
+    a bf16 x against an fp32 scale; the division is a true one, also on
+    the card."""
+    s = scale.detach()
+    x = x.to(torch.promote_types(x.dtype, s.dtype))
+    q = (torch.clamp(torch.round(x / s), -127.0, 127.0) * s).detach()
+    inside = x.abs() <= 127.0 * s
+    return torch.where(inside, x + (q - x).detach(), q)
+
+
+def fake_quant_weight(w: torch.Tensor, reduce_axes) -> torch.Tensor:
+    """Per-output-channel fake quant of a weight: the scale over the
+    non-output axes (`QAT_WEIGHT_AXES`), max|w| / 127 (1 for an all-zero
+    channel), the grid `quantize_weights` exports."""
+    amax = torch.amax(w.detach().abs(), dim=tuple(reduce_axes),
+                      keepdim=True)
+    s127 = torch.tensor(127.0, dtype=amax.dtype, device=amax.device)
+    scale = torch.where(amax > 0, amax, s127) / s127
+    return fake_quant_ste(w, scale)
+
+
+# the non-output axes of each layer's weight in the port's layouts: conv
+# and depthwise OIHW, deconv (C, O, k, k), FC (in, out)
+QAT_WEIGHT_AXES = {
+    LayerType.CONV2D: (1, 2, 3),
+    LayerType.DEPTHWISE_CONV2D: (1, 2, 3),
+    LayerType.TRANSPOSE_CONV2D: (0, 2, 3),
+    LayerType.FULL_CONNECTED: (0,),
+}
+
+
+def qat_state_keys(net) -> List[str]:
+    return [f"qat_amax/{i}" for i in watch_tensors(net)]
+
+
+def qat_export(net, params, state) -> Dict:
+    """Freeze a QAT-trained (params, state) into the net.quant dict of
+    the int8 PREDICT path, as `calibrate` + `quantize_weights` make it:
+    each watched tensor's scale from its trained EMA abs-max (m / 127 in
+    double, 1 where it is 0), the weights quantized from the params."""
+    act_scales = {}
+    for i in watch_tensors(net):
+        v = state.get(f"qat_amax/{i}")
+        m = 0.0 if v is None else float(v)
+        act_scales[i] = m / 127.0 if m > 0 else 1.0
+    return {
+        "act_scales": act_scales,
+        "weights": quantize_weights(net, params),
+    }

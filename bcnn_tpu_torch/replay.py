@@ -3,8 +3,11 @@ on another, and the SGD update that a run's gradients make.
 
 Two runs of one TRAIN step (on another device, in another precision)
 part where a choice flips: a RELU or LRELU unit whose input lies within
-rounding of 0 takes the other slope, and a max-pool window whose largest
-inputs tie within rounding sends its gradient to another input. The
+rounding of 0 takes the other slope, a max-pool window whose largest
+inputs tie within rounding sends its gradient to another input, and
+under net.qat a fake-quant input within rounding of a code's boundary
+rounds to the next code (or, at the range's end, falls outside it and
+passes no gradient). The
 gradient then moves by the whole slope, or the whole input, there, and a
 BN layer's backward spreads that over the unit's channel and every layer
 below it: the two updates part by percents with neither run at fault.
@@ -12,10 +15,11 @@ below it: the two updates part by percents with neither run at fault.
 `record(choices)` keeps every kink's side (x > 0) and every window's pick
 of the forward run inside its `with` block; `impose(choices)` makes the
 forward inside its block take them, so that the two runs differ by
-rounding only. Both patch the executor's two ops (`ops.apply_activation`
-and `ops.maxpool`) for the block and keep the choices in the order the
-forward makes them, which is the net's node order: `kinked_nodes` and
-`pooling_nodes` name the node of each entry.
+rounding only. Both patch the executor's ops (`ops.apply_activation`,
+`ops.maxpool` and `ops.quant.fake_quant_ste`) for the block and keep the
+choices in the order the forward makes them, which is the net's node
+order: `kinked_nodes` and `pooling_nodes` name the node of each entry;
+the fake quant's come in pairs, a node's input, then its weight.
 
 `sgd_update` runs one step's forward and backward on a device in a
 dtype (float64 for a reference), under `record` or `impose` if given,
@@ -34,12 +38,18 @@ import torch.nn.functional as F
 
 from . import ops
 from .compile import execute
+from .ops import quant
 from .graph import Net
 from .learner import apply_updates, init_opt_state
 from .types import Activation, LayerType, Mode
 
 # the activations with a kink at 0, and their slope below it
 KINKED = {Activation.RELU: 0.0, Activation.LRELU: 0.1}
+# how far, in codes, a run's x / s may lie from the rounding interval of
+# a code it imposes: that code was taken by a forward of the same
+# choices in another precision or on another device, which differs from
+# this run's by rounding only
+CODE_EPS = 1e-2
 
 
 @dataclass
@@ -47,9 +57,16 @@ class Choices:
     """kinks: one bool tensor (x > 0) per RELU/LRELU call; picks: one
     int64 tensor (N, C, out_h, out_w) per max-pool call, the index of the
     input each window takes within its size x size window (row-major);
-    all on the CPU, in call order."""
+    codes and inside: per fake-quant call, the int8 code of each value
+    and whether it lies inside the range (its gradient 1, else 0); all
+    on the CPU, in call order. boundary and off: set by the last
+    `impose` of these choices."""
     kinks: List[torch.Tensor] = field(default_factory=list)
     picks: List[torch.Tensor] = field(default_factory=list)
+    codes: List[torch.Tensor] = field(default_factory=list)
+    inside: List[torch.Tensor] = field(default_factory=list)
+    boundary: List[int] = field(default_factory=list)
+    off: List[float] = field(default_factory=list)
 
 
 def kinked_nodes(net: Net) -> List[int]:
@@ -75,20 +92,31 @@ def windows(x: torch.Tensor, size: int, stride: int, out_h: int,
     return x.unfold(2, size, stride).unfold(3, size, stride).flatten(-2)
 
 
+def fake_quant_choice(x: torch.Tensor, scale: torch.Tensor):
+    """(int8 codes, inside) of `quant.fake_quant_ste(x, scale)`: the
+    codes its forward takes and where its gradient is 1."""
+    s = scale.detach()
+    x = x.detach().to(torch.promote_types(x.dtype, s.dtype))
+    codes = torch.clamp(torch.round(x / s), -127.0, 127.0)
+    return codes.to(torch.int8), x.abs() <= 127.0 * s
+
+
 @contextlib.contextmanager
-def _patched(activation, maxpool):
-    saved = ops.apply_activation, ops.maxpool
+def _patched(activation, maxpool, fake_quant):
+    saved = ops.apply_activation, ops.maxpool, quant.fake_quant_ste
     ops.apply_activation, ops.maxpool = activation, maxpool
+    quant.fake_quant_ste = fake_quant
     try:
         yield
     finally:
-        ops.apply_activation, ops.maxpool = saved
+        ops.apply_activation, ops.maxpool, quant.fake_quant_ste = saved
 
 
 def record(choices: Choices):
     """A context in which the executor's forward appends its choices to
     `choices` and computes as it always does."""
-    act0, pool0 = ops.apply_activation, ops.maxpool
+    act0, pool0, fq0 = ops.apply_activation, ops.maxpool, \
+        quant.fake_quant_ste
 
     def activation(x, act, slopes=None):
         if act in KINKED:
@@ -100,7 +128,13 @@ def record(choices: Choices):
                                      out_w).argmax(-1).cpu())
         return pool0(x, size, stride, out_h, out_w)
 
-    return _patched(activation, maxpool)
+    def fake_quant(x, scale):
+        codes, inside = fake_quant_choice(x, scale)
+        choices.codes.append(codes.cpu())
+        choices.inside.append(inside.cpu())
+        return fq0(x, scale)
+
+    return _patched(activation, maxpool, fake_quant)
 
 
 @contextlib.contextmanager
@@ -108,10 +142,21 @@ def impose(choices: Choices):
     """A context in which the executor's forward takes `choices` in
     order: a kinked unit is x or slope * x as its recorded side says (its
     gradient 1 or slope), a max-pool window outputs (and sends its
-    gradient to) its recorded pick. Raises ValueError if the forward's
-    calls do not match the record in number or shape."""
-    act0 = ops.apply_activation
+    gradient to) its recorded pick, a fake quant outputs its recorded
+    code times the scale, with a gradient of 1 where it was inside the
+    range and 0 elsewhere. Each imposed code is held to this run's own
+    x / s: it must lie within 0.5 + CODE_EPS of it (clipped to the
+    range), and its inside mask must agree except within CODE_EPS of
+    127; per fake-quant call, `choices.boundary` gets how many imposed
+    codes (or masks) this run would have taken otherwise, and
+    `choices.off` how far, in codes, the farthest imposed code lies
+    outside the interval that rounds to it (negative: inside). Raises
+    ValueError on a code or mask outside that, or if the forward's calls
+    do not match the record in number or shape."""
+    act0, pool0 = ops.apply_activation, ops.maxpool
     kinks, picks = iter(choices.kinks), iter(choices.picks)
+    codes, insides = iter(choices.codes), iter(choices.inside)
+    choices.boundary, choices.off = [], []
 
     def take(it, what, shape):
         got = next(it, None)
@@ -131,9 +176,30 @@ def impose(choices: Choices):
         pick = take(picks, "MAXPOOL", win.shape[:-1]).to(x.device)
         return win.gather(-1, pick.unsqueeze(-1)).squeeze(-1)
 
-    with _patched(activation, maxpool):
+    def fake_quant(x, scale):
+        s = scale.detach()
+        x = x.to(torch.promote_types(x.dtype, s.dtype))
+        code = take(codes, "fake quant", x.shape).to(x.device, x.dtype)
+        inside = take(insides, "fake quant", x.shape).to(x.device)
+        v = x.detach() / s
+        off = float(((v.clamp(-127.0, 127.0) - code).abs() - 0.5).max())
+        own, own_inside = fake_quant_choice(x, scale)
+        stray = (inside != own_inside) & ((v.abs() - 127.0).abs() > CODE_EPS)
+        if off > CODE_EPS or bool(stray.any()):
+            raise ValueError(
+                f"fake quant {len(choices.boundary)}: an imposed code lies "
+                f"{off + 0.5:.4g} codes from this run's x / s, or "
+                f"{int(stray.sum())} inside masks differ away from 127")
+        choices.boundary.append(int(((own.to(code.dtype) != code)
+                                     | (own_inside != inside)).sum()))
+        choices.off.append(off)
+        q = (code * s).detach()
+        return torch.where(inside, x + (q - x).detach(), q)
+
+    with _patched(activation, maxpool, fake_quant):
         yield
-    if next(kinks, None) is not None or next(picks, None) is not None:
+    if any(next(it, None) is not None
+           for it in (kinks, picks, codes, insides)):
         raise ValueError("the forward made fewer choices than were "
                          "recorded")
 

@@ -102,8 +102,13 @@ from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
                                           plan_conv_int8)
+from bcnn_tpu_torch.ops import quant as tq
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
-from bcnn_tpu_torch.ops.quant import ptq_synthetic
+from bcnn_tpu_torch.ops.grouped_int8 import (grouped_int8_fused,
+                                             grouped_int8_fused_ref,
+                                             grouped_weight,
+                                             plan_grouped_int8)
+from bcnn_tpu_torch.ops.quant import ptq_synthetic, quantize_tensor
 from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
                                           row_shift, row_shift_ref)
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
@@ -152,6 +157,14 @@ DELTA_JUMP, DELTA_RTOL = 1e-3, 1e-5
 # (tests/test_torch_train.py pins the CPU's half). The losses keep
 # STEP_LOSS_RTOL; the MNIST recipe keeps STEP_UPDATE_TOL.
 BN_UPDATE_TOL = 1e-2
+# under net.qat each device's fake-quant codes are imposed on its float64
+# replay, which holds each to the replay's own x / s (within
+# replay.CODE_EPS of its rounding interval) and counts the codes it would
+# have rounded the other way: at most BOUNDARY_SHARE of them. Measured
+# on an H100 at 700 W (PERF.md): phase 12's batch-2 step at 416 px lies
+# 0.5 + 6.9e-5 codes at worst from its replay on the card, 0.5 + 3.5e-5
+# on the CPU, with 6.0e-6 and 4.8e-6 of the codes on a boundary
+BOUNDARY_SHARE = 1e-4
 ANCHORS = [10, 14, 23, 27, 37, 58, 81, 82, 135, 169, 344, 319]
 # K1 against its plain version: the tolerance tests/test_yolo_pallas.py
 # sets for the TPU kernel
@@ -694,8 +707,7 @@ def k4_request(rows, label):
            for key in ("ms", "cold_ms", "plain_ms", "library_ms",
                        "library_cold_ms", "bound")}
     launches = sum(r["n"] for r in rows)
-    print(f"K4 per {label} int8 request ({launches} launches, batch "
-          f"{BATCH}): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} ms, "
+    print(f"K4 per {label} int8 request ({launches} launches): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} ms, "
           f"bound {tot['bound']:.4f} ms ({tot['bound'] / tot['cold_ms']:.0%} "
           f"of it cold); plain {tot['plain_ms']:.2f} ms; library (bf16 "
           f"cuDNN) {tot['library_ms']:.4f} ms warm, "
@@ -716,13 +728,23 @@ def check_k4():
     a request."""
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
-    paths = {"yolov3_tiny": [], "yolov3": []}
+    paths = {"yolov3_tiny": [], "yolov3": [], "mobilenet_v1": [],
+             "resnet18": []}
     rows = []
+    # phase 11's int8 classifiers at batch 64: their convs, and the FC as
+    # the 1x1 conv K4 runs for it (no BN, fp32 out)
+    fcs = [(f"{name}:fc", (I8_BATCH, c, 1, 1, 1000, 1, 1, 0), None,
+            Activation.NONE, False, 1)
+           for name, c in (("mobilenet_v1", 1024), ("resnet18", 512))]
     cases = [c + (True,) for c in
              k4_path_cases(yolov3_tiny(BATCH, SIZE, SIZE, CLASSES),
                            "yolov3_tiny", "unfolded")
              + k4_path_cases(yolov3(BATCH, SIZE, SIZE, CLASSES), "yolov3",
-                             "folded")]
+                             "folded")
+             + k4_path_cases(mobilenet_v1(I8_BATCH, 1000), "mobilenet_v1",
+                             "unfolded") + fcs[:1]
+             + k4_path_cases(resnet18(I8_BATCH, 1000), "resnet18",
+                             "unfolded") + fcs[1:]]
     cases += [(f"ragged{i}", shape, "unfolded" if i % 2 == 0 else None,
                Activation.LRELU, i % 2 == 0, 0, False)
               for i, shape in enumerate(K4_RAGGED)]
@@ -796,6 +818,8 @@ def check_k4():
     del flush
     k4_request(paths["yolov3_tiny"], "YOLOv3-tiny 416")
     k4_request(paths["yolov3"], "full YOLOv3 416")
+    k4_request(paths["mobilenet_v1"], "MobileNet-v1 224, batch 64,")
+    k4_request(paths["resnet18"], "ResNet-18 224, batch 64,")
     return paths["yolov3_tiny"], paths["yolov3"], rows
 
 
@@ -2400,20 +2424,23 @@ MB_TRAIN, MB_TRAIN_STEPS, P10C_CLI_BATCHES = 32, 3, 6
 
 
 def zero_counts():
-    for kern in (decode_fused, depthwise_fused, row_shift, conv_int8_fused):
+    for kern in (decode_fused, depthwise_fused, row_shift, conv_int8_fused,
+                 grouped_int8_fused):
         kern.launches = 0
 
 
 def counts():
     return {"K1": decode_fused.launches, "K2": row_shift.launches,
-            "K3": depthwise_fused.launches, "K4": conv_int8_fused.launches}
+            "K3": depthwise_fused.launches, "K4": conv_int8_fused.launches,
+            "K5": grouped_int8_fused.launches}
 
 
 def replayed_step(label, net, p_np, s_np, x, lab):
     """One SGD step of `net` (no augmentation) from the same weights and
     host batch on the card (`Session.train_on_batch`) and on the CPU,
-    each held to a float64 replay of its own choices, as the constants
-    above say. Also prints the choices each device makes against a plain
+    each held to a float64 replay of its own choices (under net.qat its
+    fake-quant codes too, and its loss to its replay's), as the
+    constants above say. Also prints the choices each device makes against a plain
     float64 run, and each device's distance to that run. Returns the
     worst errors (card, CPU) against the replays."""
     t0 = time.perf_counter()
@@ -2444,24 +2471,48 @@ def replayed_step(label, net, p_np, s_np, x, lab):
     with replay.record(choices["step"]):
         loss_g = float(gpu.train_on_batch(x, lab))
     du_card = {k: gpu.params[k].cpu() - p0[k] for k in p0}
-    if not np.isclose(loss_g, loss_c, rtol=STEP_LOSS_RTOL, atol=0):
+    # under net.qat a fake-quant code near .5 rounds to the next code on
+    # one device and moves the loss by more than rounding: each device's
+    # loss is then held to its own replay's, and its codes to the
+    # replay's own x / s (below), else card to CPU
+    qat = bool(getattr(net, "qat", None))
+    if not qat and not np.isclose(loss_g, loss_c, rtol=STEP_LOSS_RTOL,
+                                  atol=0):
         bad.append(f"loss card {loss_g}, CPU {loss_c}")
 
     def differ(a, b):
-        """Choices of run a that differ from run b's, by node."""
+        """Choices of run a that differ from run b's, by node (the fake
+        quant's by call: a node's input, then its weight)."""
         out = {f"kink {i}": int((u != v).sum()) for i, u, v in
                zip(kinked, choices[a].kinks, choices[b].kinks)}
         out.update({f"pool {i}": int((u != v).sum()) for i, u, v in
                     zip(pooling, choices[a].picks, choices[b].picks)})
+        out.update({f"code {j}": int((u != v).sum()) for j, (u, v) in
+                    enumerate(zip(choices[a].codes, choices[b].codes))})
         return {k: n for k, n in out.items() if n}
 
     flips = {run: differ(run, "float64") for run in ("step", "CPU")}
-    ref = {}
+    ref, loss64, edge, worst_off = {}, {}, {}, {}
     for run in ("card", "CPU"):
+        own_choices = choices["step" if run == "card" else run]
         ref[run], ex = replay.sgd_update(
             net, params, state, batch, f64, "cpu",
-            replay.impose(choices["step" if run == "card" else run]),
-            retain=heads)
+            replay.impose(own_choices), retain=heads)
+        loss64[run] = float(get_loss(ex))
+        if qat:
+            total = sum(c.numel() for c in own_choices.codes)
+            edge[run] = sum(own_choices.boundary) / total
+            worst_off[run] = max(own_choices.off)
+            if edge[run] > BOUNDARY_SHARE:
+                bad.append(f"{sum(own_choices.boundary)} of {total} "
+                           f"fake-quant codes of the {run}'s run round the "
+                           "other way in its float64 replay (limit "
+                           f"{BOUNDARY_SHARE:.0e} of them)")
+        own = loss_g if run == "card" else loss_c
+        if qat and not np.isclose(own, loss64[run], rtol=STEP_LOSS_RTOL,
+                                  atol=0):
+            bad.append(f"loss {run} {own}, its float64 replay's "
+                       f"{loss64[run]}")
         jumps = sum(int(((d - ex.values[i].grad.double()).abs() > DELTA_JUMP
                          + DELTA_RTOL * d.abs()).sum())
                     for i, d in zip(heads, deltas[run]))
@@ -2506,10 +2557,22 @@ def replayed_step(label, net, p_np, s_np, x, lab):
     ).max())) for k in p0)
     med = [statistics.median(e[j] for e in errs) for j in (0, 1)]
     med_plain = [statistics.median(e[j] for e in plain) for j in (0, 1)]
+    apart = differ("step", "CPU")
     print(f"{label}, card vs CPU, each against float64: loss {loss_g:.6f} "
-          f"vs {loss_c:.6f} (rel {abs(loss_g - loss_c) / abs(loss_c):.2g}); "
+          f"vs {loss_c:.6f} (rel {abs(loss_g - loss_c) / abs(loss_c):.2g}"
+          + (f"; each against its replay's: {loss64['card']:.6f}, "
+             f"{loss64['CPU']:.6f}; fake-quant codes that differ card vs "
+             f"CPU {sum(n for k, n in apart.items() if 'code' in k)}; "
+             "each device's codes against its replay's own x / s: worst "
+             f"0.5 + {worst_off['card']:.3g} codes on the card, 0.5 + "
+             f"{worst_off['CPU']:.3g} on the CPU (limit 0.5 + "
+             f"{replay.CODE_EPS:.0e}), share on a boundary card "
+             f"{edge['card']:.3g}, CPU {edge['CPU']:.3g}"
+             if qat else "") + "); "
           f"choices that differ from a float64 run's, of {len(kinked)} "
-          f"kinked and {len(pooling)} max-pool layers: card "
+          f"kinked and {len(pooling)} max-pool layers"
+          + (f" and {len(choices['CPU'].codes)} fake quants" if qat else "")
+          + ": card "
           f"{sum(flips['step'].values())} {flips['step']}, CPU "
           f"{sum(flips['CPU'].values())} {flips['CPU']}; median update "
           f"error against that run, as a share of its largest entry: card "
@@ -2545,7 +2608,7 @@ def timed_steps(label, sess, x, lab, steps, gpu, want_k2):
         losses.append(float(sess.train_on_batch(x, lab)))
         times.append(1e3 * (time.perf_counter() - t0))
     got = counts()
-    if got != dict(K1=0, K2=want_k2, K3=0, K4=0):
+    if got != dict(K1=0, K2=want_k2, K3=0, K4=0, K5=0):
         raise RuntimeError(f"{label}: launches {got}, K2 {want_k2} wanted")
     if not all(np.isfinite(losses)) or min(losses) < 0:
         raise RuntimeError(f"{label}: losses {losses}")
@@ -2942,6 +3005,335 @@ def layers_left_phase(gpu):
     print(f"phase 10c: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+
+# -- phase 3e, 11, 12: K5, int8 classification, QAT ----------------------
+
+# K5 against its plain version, bit for bit: MobileNet-v1's nine
+# depthwise shapes at batch 64 (the path's), a grouped conv with BN, and
+# ragged shapes: (n, c, h, w, o, k, stride, pad, groups, bn, act)
+K5_MOBILENET = [(MB_BATCH, c, h, w, c, 3, s, 1, c, None, Activation.RELU)
+                for _, c, h, w, s in K3_MOBILENET]
+K5_OTHER = [
+    (8, 256, 26, 26, 256, 3, 1, 1, 4, "unfolded", Activation.LRELU),
+    (3, 6, 15, 13, 6, 3, 1, 1, 6, None, Activation.LRELU),
+    (2, 5, 9, 11, 5, 5, 2, 0, 5, None, Activation.NONE),
+    (2, 9, 7, 7, 6, 3, 2, 1, 3, "folded", Activation.NONE),
+    (1, 1400, 3, 3, 4, 3, 1, 1, 1, None, Activation.RELU),
+    (70, 16, 7, 7, 16, 3, 1, 1, 16, None, Activation.LRELU),
+]
+# phase 11: int8 classification at batch 64, 224 px, 1000 classes
+I8_BATCH = 64
+
+
+def k5_args(shape, gen):
+    """Random int8 x (channels-last) and w (K5's (k, k, C/G, O) layout)
+    on the card, d scaled so that y spreads over the codes of s_out =
+    2/127, the BN vectors as `bn` says."""
+    n, c, h, w, o, k, stride, pad, groups, bn, act = shape
+    x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
+                      dtype=torch.int8).contiguous(
+                          memory_format=torch.channels_last)
+    wt = grouped_weight(torch.randint(-127, 128, (o, c // groups, k, k),
+                                      generator=gen, dtype=torch.int8))
+    u = lambda lo, hi: (lo + (hi - lo) * torch.rand(o, generator=gen)  # noqa
+                        ).cuda()
+    d = u(0.5, 1.5) * (3.0 / (127.0**2 * (c // groups * k * k) ** 0.5))
+    kw = dict(act=act, s_out=2.0 / 127)
+    if bn:
+        kw.update(scale=u(0.8, 1.2))
+    if bn == "unfolded":
+        kw.update(mean=u(-0.1, 0.1), inv=1 / torch.sqrt(u(0.5, 1.5) + 1e-6))
+    return (x.cuda(), wt.cuda(), d, u(-0.1, 0.1), stride, pad, groups), kw
+
+
+def check_k5():
+    """Phase 3e: K5 against grouped_int8_fused_ref on the card, bit for
+    bit, int8 and fp32 out: MobileNet-v1's nine depthwise shapes at batch
+    64, then the other shapes. The MobileNet shapes and the grouped one
+    timed warm in turns (plain, kernel, library, library, kernel, plain),
+    the library being cuDNN's bf16 grouped conv of the same values,
+    channels-last (PyTorch has no int8 conv on CUDA), then cold. Returns
+    per-shape records, the MobileNet ones first."""
+    gen = torch.Generator().manual_seed(SEED)
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    rows = []
+    sms = kernels.sm_count(torch.device("cuda"))
+    for i, shape in enumerate(K5_MOBILENET + K5_OTHER):
+        args, kw = k5_args(shape, gen)
+        err = 0.0
+        for s_out in (kw["s_out"], None):
+            kw_f = dict(kw, s_out=s_out)
+            before = grouped_int8_fused.launches
+            got = grouped_int8_fused(*args, **kw_f)
+            want = grouped_int8_fused_ref(*args, **kw_f)
+            torch.cuda.synchronize()
+            if grouped_int8_fused.launches != before + 1:
+                raise RuntimeError("grouped_int8_fused did not count its "
+                                   "launch")
+            if got.shape != want.shape or got.dtype != want.dtype or \
+                    not torch.equal(got, want):
+                raise RuntimeError(
+                    f"K5 {shape[:9]} {'int8' if s_out else 'fp32'} out is "
+                    "not bit-equal to its plain version: max_abs_err "
+                    f"{float((got.float() - want.float()).abs().max())}")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            del got, want
+        n, c, h, w, o, k, stride, pad, groups, bn, act = shape
+        plan = plan_grouped_int8(n, c, h, w, o, k, stride, pad, groups, sms)
+        plan_s = (f"plan {plan.quads} quads x {plan.rows} pixels a block, "
+                  f"{plan.pix} pixels a thread, {plan.blocks} blocks, "
+                  f"staged {plan.staged}, char4 {plan.vec}")
+        rows.append(dict(shape=shape[:9], max_abs_err=err))
+        if i > len(K5_MOBILENET):
+            print(f"K5 {shape[:9]} {bn or 'no BN'} {act.name}: bit-equal, "
+                  f"int8 and fp32 out; {plan_s}")
+            continue
+        x, wt, _, _, _, _, _ = args
+        xb = x.to(torch.bfloat16)  # channels-last, as x
+        wb = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        kern = lambda: grouped_int8_fused(*args, **kw)  # noqa: E731
+        plain = lambda: grouped_int8_fused_ref(*args, **kw)  # noqa: E731
+        lib = lambda: F.conv2d(xb, wb, None, stride, pad, 1,  # noqa: E731
+                               groups)
+        t = [cuda_ms(f, iters=it, warmup=wu) for f, it, wu in (
+            (plain, 3, 1), (kern, 50, 5), (lib, 50, 5), (lib, 50, 5),
+            (kern, 50, 5), (plain, 3, 1))]
+        out = kern()
+        nbytes = x.numel() + wt.numel() + out.numel() + 4 * 5 * o
+        ops = 2 * out.numel() * (c // groups) * k * k
+        r = rows[-1]
+        r.update(ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
+                 library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
+                 library_cold_ms=cold_ms(lib, flush),
+                 bound=bound(nbytes, ops, INT8_OP_S), mb=nbytes / 1e6,
+                 gop=ops / 1e9)
+        del x, wt, xb, wb, out, args
+        print(f"K5 {shape[:9]} {bn or 'no BN'} {act.name}: bit-equal, int8 "
+              f"and fp32 out; {r['mb']:.2f} MB, {r['gop']:.3f} G int ops, "
+              f"bound {1e3 * r['bound'][0]:.2f} us ({r['bound'][1]}); warm: "
+              f"kernel {1e3 * r['ms']:.1f} us, plain "
+              f"{1e3 * r['plain_ms']:.1f} us, library (bf16 cuDNN grouped, "
+              f"channels-last) {1e3 * r['library_ms']:.1f} us; cold: kernel "
+              f"{1e3 * r['cold_ms']:.1f} us "
+              f"({r['bound'][0] / r['cold_ms']:.0%} of the bound), library "
+              f"{1e3 * r['library_cold_ms']:.1f} us; {plan_s}")
+    del flush
+    mb = rows[:len(K5_MOBILENET)]
+    fwd = {key: sum(m * (r[key][0] if key == "bound" else r[key])
+                    for m, r in zip(K3_PER_FORWARD, mb))
+           for key in ("ms", "cold_ms", "plain_ms", "library_ms",
+                       "library_cold_ms", "bound")}
+    print(f"K5 per int8 MobileNet-v1 forward (13 launches, batch "
+          f"{MB_BATCH}): warm {fwd['ms']:.4f} ms, cold {fwd['cold_ms']:.4f} "
+          f"ms, bound {fwd['bound']:.4f} ms ({fwd['bound'] / fwd['cold_ms']:.0%}"
+          f" of it cold); plain {fwd['plain_ms']:.2f} ms; library (bf16 "
+          f"cuDNN grouped) {fwd['library_ms']:.4f} ms warm, "
+          f"{fwd['library_cold_ms']:.4f} ms cold")
+    for r, m in zip(mb, K3_PER_FORWARD):
+        r["n"] = m
+    return rows
+
+
+def int8_classifier_phase(gpu, name, net, p_np, s_np):
+    """Phase 11: `net` (PREDICT, batch I8_BATCH, 224 px, 1000 classes) on
+    He-scaled seeded weights, PTQ by ptq_synthetic on the CPU (one quant
+    dict for card and CPU), served through predict_on_batch: a warm-up
+    and SERVE_STEADY requests with the launch counts set to 0 before them,
+    K4 on every conv and the FC, K5 on every depthwise layer; then two
+    images card against CPU: every int8 tensor equal, the logits within
+    the effect of the FC input codes that differ (at most one an
+    image). Returns (K4, K5) launches."""
+    t_phase = time.perf_counter()
+    cpu = Session(net, SEED, device="cpu")
+    cpu.params, cpu.state = bridge.params_from_numpy(net, p_np, s_np)
+    cpu.compile_net()
+    quant_cpu = ptq_synthetic(net, cpu)
+    quant_gpu = dict(quant_cpu, weights={
+        k: {kk: vv.cuda() for kk, vv in e.items()}
+        for k, e in quant_cpu["weights"].items()})
+    sess = Session(net, SEED, device="cuda")
+    sess.params = {k: v.cuda() for k, v in cpu.params.items()}
+    sess.state = {k: v.cuda() for k, v in cpu.state.items()}
+    sess.compile_net()
+    net.quant = quant_gpu
+    n_dw = sum(n.type.name == "DEPTHWISE_CONV2D" for n in net.nodes)
+    n_k4 = sum(n.type.name in ("CONV2D", "FULL_CONNECTED") for n in net.nodes)
+    x = np.random.RandomState(SEED + 21).rand(
+        I8_BATCH, 3, 224, 224).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    req = lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0]  # noqa
+    zero_counts()
+    outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+    got = counts()
+    want = dict(K1=0, K2=0, K3=0, K4=n_k4 * len(lat), K5=n_dw * len(lat))
+    if got != want:
+        raise RuntimeError(f"int8 {name}: launches {got}, wanted {want}")
+    for o in outs:
+        for t in o:
+            if tuple(t.shape) != (I8_BATCH, 1000, 1, 1) or not bool(
+                    torch.isfinite(t).all()):
+                raise RuntimeError(f"int8 {name}: bad output {t.shape}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev = device_us(lambda: req(x), iters=5)
+    k4_dev = sum(v for k, v in dev.items() if "conv_int8" in k) / 5e3
+    k5_dev = sum(v for k, v in dev.items() if "grouped_int8" in k) / 5e3
+    busy_report(f"int8 {name} predict_on_batch (PTQ, int8 activation "
+                f"flow), batch {I8_BATCH}, 224 px, 1000 classes, "
+                f"{SERVE_STEADY} requests after the warm-up; {n_k4} K4 and "
+                f"{n_dw} K5 launches a request, K4 {k4_dev:.3f} ms and K5 "
+                f"{k5_dev:.3f} ms of device time a request; peak memory "
+                f"{peak:.2f} GiB", lat, lat[1:], dev, 5, gpu)
+    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 5 / 1e3:8.3f} ms  {k[:90]}")
+
+    x2 = x[:2]
+    with torch.inference_mode():
+        g_ex = execute(net, sess.params, sess.state,
+                       {"input": torch.from_numpy(x2).cuda()}, Mode.PREDICT)
+        net.quant = quant_cpu
+        c_ex = execute(net, cpu.params, cpu.state,
+                       {"input": torch.from_numpy(x2)}, Mode.PREDICT)
+    net.quant = None
+    n_int8 = 0
+    for i, v in c_ex.values.items():
+        if v.dtype != torch.int8:
+            continue
+        n_int8 += 1
+        g = g_ex.values[i]
+        if not g.is_contiguous(memory_format=torch.channels_last):
+            raise RuntimeError(f"int8 {name}: {net.tensors[i].name} is not "
+                               "channels-last on the card")
+        if not torch.equal(g.cpu(), v):
+            raise RuntimeError(f"int8 {name}: {net.tensors[i].name} differs "
+                               "between card and CPU")
+    fc = next(n for n in net.nodes if n.type.name == "FULL_CONNECTED")
+    s_x = quant_cpu["act_scales"][fc.src[0]]
+    codes = [quantize_tensor(e.values[fc.src[0]].cpu().float(), s_x)
+             for e in (g_ex, c_ex)]
+    apart = (codes[0] != codes[1]).flatten(1).sum(1)
+    wfc = quant_cpu["weights"][net.tensors[fc.src[1]].key]
+    one = s_x * float((wfc["q"].float().flatten(1).abs()
+                       * wfc["scale"][:, None]).max())
+    fc_g = g_ex.values[fc.dst[0]].cpu().flatten(1)
+    fc_c = c_ex.values[fc.dst[0]].cpu().flatten(1)
+    err = (fc_g - fc_c).abs().amax(1)
+    lim = apart.float() * one + 1e-5 * float(fc_c.abs().max())
+    if int(apart.max()) > 1 or bool((err > lim).any()):
+        raise RuntimeError(f"int8 {name}: logits card vs CPU {err.tolist()}"
+                           f", FC input codes apart {apart.tolist()}, one "
+                           f"code moves a logit by up to {one:.3g}")
+    print(f"int8 {name} card vs CPU, two images, one quant dict: all "
+          f"{n_int8} int8 tensors (channels-last) bit-equal; FC input codes "
+          f"that differ {apart.tolist()}; logits max_abs_err "
+          f"{err.tolist()} (one code's effect {one:.3g}); top-1 card "
+          f"{fc_g.argmax(1).tolist()}, CPU {fc_c.argmax(1).tolist()}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got["K4"], got["K5"]
+
+
+def qat_phase(gpu):
+    """Phase 12: YOLOv3-tiny QAT training at 416 px, batch 32, rotation
+    10 (three K2 launches a step; K4 and K5 none), a warm-up and
+    TRAIN_STEPS timed steps; one batch-2 step card vs CPU, each held to a
+    float64 replay of its own choices (fake-quant codes included); then
+    Session.freeze_qat and the frozen net served at int8 on both
+    detection branches at batch BATCH (13 K4 launches a request, K1 two
+    on decode-everything), every int8 tensor equal card vs CPU. Returns
+    (K1, K2, K4) launches."""
+    t_phase = time.perf_counter()
+    sess = train_session(TRAIN_BATCH, "cuda")
+    sess.net.qat = True
+    sess.state = {k: v.cuda() for k, v in bn_stats(sess.net).items()}
+    sess.compile_net()
+    if len([k for k in sess.state if k.startswith("qat_amax/")]) != 15:
+        raise RuntimeError("QAT: YOLOv3-tiny should watch 15 tensors")
+    rng = np.random.RandomState(SEED + 31)
+    x = rng.randint(0, 256, (TRAIN_BATCH, 3, SIZE, SIZE)).astype(np.uint8)
+    lab = det_labels(rng, TRAIN_BATCH)
+    med, k2 = timed_steps(
+        f"QAT train_on_batch (net.qat, fake quant on 13 convs), batch "
+        f"{TRAIN_BATCH}, {SIZE} px, augment {AUGMENT}", sess, x, lab,
+        TRAIN_STEPS, gpu, 3 * TRAIN_STEPS)
+    ranges = {k: float(v) for k, v in sess.state.items()
+              if k.startswith("qat_amax/")}
+    if not all(np.isfinite(v) and v > 0 for v in ranges.values()):
+        raise RuntimeError(f"QAT ranges {ranges}")
+    print(f"QAT: {len(ranges)} ranges after {TRAIN_STEPS + 3} steps, "
+          f"{min(ranges.values()):.3g} to {max(ranges.values()):.3g}")
+
+    small = yolov3_tiny(2, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+    small.qat = True
+    p_np, s_np = bridge.he_numpy_weights(small, SEED)
+    x2 = (rng.rand(2, 3, SIZE, SIZE) * 2 - 1).astype(np.float32)
+    replayed_step("YOLOv3-tiny QAT fp32 step at batch 2, 416 px", small,
+                  p_np, s_np, x2, det_labels(rng, 2))
+
+    quant = sess.freeze_qat()
+    serve_net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
+    if sorted(quant["act_scales"]) != sorted(
+            tq.watch_tensors(serve_net)):
+        raise RuntimeError("QAT: the serving net watches other tensors")
+    card = Session(serve_net, SEED, device="cuda")
+    card.params = dict(sess.params)
+    card.state = {k: v for k, v in sess.state.items()
+                  if not k.startswith("qat_amax/")}
+    card.compile_net()
+    del sess
+    xs = np.random.RandomState(SEED + 32).rand(BATCH, 3, SIZE, SIZE).astype(
+        np.float32)
+    serve_net.quant = quant
+    launches = {}
+    for topk_first in (True, False):
+        zero_counts()
+        req = lambda v: card.detect_on_batch(  # noqa: E731
+            v, topk_first=topk_first)
+        outs, lat = serve(req, [xs] * (1 + SERVE_STEADY))
+        got = counts()
+        want = dict(K1=0 if topk_first else 2 * len(lat), K2=0, K3=0,
+                    K4=13 * len(lat), K5=0)
+        if got != want:
+            raise RuntimeError(f"frozen QAT detect: launches {got}, wanted "
+                               f"{want}")
+        for o in outs:
+            check_detections(o, BATCH)
+        launches[topk_first] = got
+        dev = device_us(lambda: req(xs), iters=5)
+        busy_report(f"frozen QAT YOLOv3-tiny detect_on_batch int8, "
+                    f"{'top-k-first' if topk_first else 'decode-everything (K1)'}"
+                    f", batch {BATCH}, {SIZE} px, {SERVE_STEADY} requests "
+                    "after the warm-up", lat, lat[1:], dev, 5, gpu)
+    cpu = Session(serve_net, SEED, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in card.params.items()}
+    cpu.state = {k: v.cpu() for k, v in card.state.items()}
+    cpu.compile_net()
+    quant_cpu = dict(quant, weights={
+        k: {kk: vv.cpu() for kk, vv in e.items()}
+        for k, e in quant["weights"].items()})
+    with torch.inference_mode():
+        g_ex = execute(serve_net, card.params, card.state,
+                       {"input": torch.from_numpy(xs[:2]).cuda()},
+                       Mode.PREDICT)
+        serve_net.quant = quant_cpu
+        c_ex = execute(serve_net, cpu.params, cpu.state,
+                       {"input": torch.from_numpy(xs[:2])}, Mode.PREDICT)
+    serve_net.quant = None
+    n_int8 = 0
+    for i, v in c_ex.values.items():
+        if v.dtype == torch.int8:
+            n_int8 += 1
+            if not torch.equal(g_ex.values[i].cpu(), v):
+                raise RuntimeError(f"frozen QAT: {serve_net.tensors[i].name}"
+                                   " differs between card and CPU")
+    if n_int8 < 10:
+        raise RuntimeError(f"frozen QAT: only {n_int8} int8 tensors")
+    print(f"frozen QAT int8 card vs CPU, two images, one quant dict: all "
+          f"{n_int8} int8 tensors bit-equal; phase 12 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return (launches[False]["K1"], k2,
+            launches[True]["K4"] + launches[False]["K4"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2976,6 +3368,9 @@ def main() -> int:
 
     # -- phase 3d: K4 against its plain version on the card ---------------
     _, k4_path, k4 = check_k4()
+
+    # -- phase 3e: K5 against its plain version on the card ---------------
+    k5 = check_k5()
 
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
@@ -3074,6 +3469,18 @@ def main() -> int:
     resnet18_phase(gpu)
     layers_left_phase(gpu)
 
+    # -- phase 11: int8 MobileNet-v1 and ResNet-18; 12: QAT ---------------
+    mb_net = mobilenet_v1(I8_BATCH, 1000)
+    k4_mb, k5_launches = int8_classifier_phase(
+        gpu, "MobileNet-v1", mb_net, *bridge.he_numpy_weights(mb_net, SEED))
+    r18_net = resnet18(I8_BATCH, 1000)
+    k4_r18, _ = int8_classifier_phase(
+        gpu, "ResNet-18", r18_net, *bridge.he_numpy_weights(r18_net, SEED))
+    k1_q, k2_q, k4_q = qat_phase(gpu)
+    k1_launches += k1_q
+    k2_launches += k2_q
+    k4_launches += k4_mb + k4_r18 + k4_q
+
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step
     mobilenet_dw = k3[:len(K3_MOBILENET)]  # the nine MobileNet layers
@@ -3115,6 +3522,12 @@ def main() -> int:
         # XLA; its library yardstick is cuDNN's bf16 conv of the same values
         entry("conv_int8", "bcnn_tpu_torch/csrc/conv_int8.cu",
               "bcnn_tpu/ops/quant.py:302", k4_launches, k4_path, k4, True),
+        # no Pallas kernel: the quantized grouped and depthwise conv the
+        # JAX package leaves to XLA (conv2d_int8 with groups); its library
+        # yardstick is cuDNN's bf16 grouped conv of the same values
+        entry("grouped_int8", "bcnn_tpu_torch/csrc/grouped_int8.cu",
+              "bcnn_tpu/ops/quant.py:302", k5_launches,
+              k5[:len(K5_MOBILENET)], k5, True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -34,6 +34,7 @@ from bcnn_tpu_torch.types import Mode
 
 from tests.test_cli_detection import CONF as DET_CONF
 from tests.test_data import write_mnist
+from tests.test_torch_data import pin_port_bip
 
 torch.set_num_threads(1)
 
@@ -42,8 +43,9 @@ NUM = re.compile(r"-?\d+\.\d+|-?\d+|nan")
 
 
 @pytest.fixture(scope="module", autouse=True)
-def native_lib():
-    bip.native.get_lib()  # built once, under its lock
+def same_backend():
+    """Both CLIs augment on one host image backend: bcnn_tpu.bip's."""
+    yield from pin_port_bip()
 
 
 def init_model(conf, path):

@@ -967,3 +967,221 @@ def test_bf16_fc_and_depthwise_step_on_the_card(cuda):
         du_c, du_g = pc[k] - p0[k], pg[k] - p0[k]
         assert float((du_g - du_c).abs().max()) <= 2.0**-5 * float(
             du_c.abs().max()), k
+
+
+# ------------------------------------------- K5, the int8 FC and deconv #
+
+from bcnn_tpu_torch import graph as tgraph  # noqa: E402
+from bcnn_tpu_torch import replay  # noqa: E402
+from bcnn_tpu_torch.compile import execute, make_train_step  # noqa: E402
+from bcnn_tpu_torch.learner import init_opt_state  # noqa: E402
+from bcnn_tpu_torch.ops import quant as tq  # noqa: E402
+from bcnn_tpu_torch.ops.grouped_int8 import (  # noqa: E402
+    grouped_int8_fused, grouped_int8_fused_ref, grouped_weight)
+
+# (n, c, h, w, o, k, stride, pad, groups, bn, act): MobileNet-v1's nine
+# depthwise shapes at batch 2, then ragged and grouped ones
+K5_CASES = [
+    (2, c, hw, hw, c, 3, s, 1, c, 0, Activation.RELU)
+    for c, hw, s in [(32, 112, 1), (64, 112, 2), (128, 56, 1), (128, 56, 2),
+                     (256, 28, 1), (256, 28, 2), (512, 14, 1), (512, 14, 2),
+                     (1024, 7, 1)]
+] + [
+    (3, 6, 15, 13, 6, 3, 1, 1, 6, 0, Activation.LRELU),    # C % 4 != 0
+    (2, 5, 9, 11, 5, 5, 2, 0, 5, 0, Activation.NONE),      # k 5
+    (2, 64, 13, 13, 128, 3, 1, 1, 2, 2, Activation.LRELU),  # 2 groups, BN
+    (1, 48, 9, 9, 24, 1, 1, 0, 4, 1, Activation.RELU),     # 1x1, folded BN
+    (2, 9, 7, 7, 6, 3, 2, 1, 3, 0, Activation.NONE),       # O % 4 != 0
+    (1, 16, 5, 5, 32, 3, 1, 1, 16, 0, Activation.LRELU),   # multiplier 2
+    (1, 1400, 3, 3, 4, 3, 1, 1, 1, 0, Activation.RELU),    # unstaged
+    (70, 16, 7, 7, 16, 3, 1, 1, 16, 0, Activation.RELU),   # many images
+]
+
+
+def _k5_args(n, c, h, w, o, k, groups, bn, gen):
+    x = torch.randint(-127, 128, (n, c, h, w), generator=gen,
+                      dtype=torch.int8)
+    wt = torch.randint(-127, 128, (o, c // groups, k, k), generator=gen,
+                       dtype=torch.int8)
+    vec = lambda lo, hi: lo + (hi - lo) * torch.rand(o, generator=gen)  # noqa: E731,E501
+    d, b = vec(1e-4, 3e-4), vec(-0.2, 0.2)
+    kw = {}
+    if bn:
+        kw["scale"] = vec(0.8, 1.2)
+    if bn == 2:
+        var = vec(0.5, 1.5)
+        kw["mean"] = vec(-0.1, 0.1)
+        kw["inv"] = torch.ones_like(var) / torch.sqrt(var + 1e-5)
+    return x, wt, d, b, kw
+
+
+@pytest.mark.parametrize("n,c,h,w,o,k,stride,pad,groups,bn,act", K5_CASES)
+def test_k5_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad,
+                                  groups, bn, act):
+    """K5 on channels-last x and the (k, k, C/G, O) weight, bit-equal to
+    its plain version, fp32 and requantized, one launch a call."""
+    gen = torch.Generator().manual_seed(c * 7 + o + k)
+    x, wt, d, b, kw = _k5_args(n, c, h, w, o, k, groups, bn, gen)
+    wg = grouped_weight(wt)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    for s_out in (None, 0.05):
+        want = grouped_int8_fused_ref(x, wt, d, b, stride, pad, groups, act,
+                                      s_out=s_out, **kw)
+        before = grouped_int8_fused.launches
+        got = grouped_int8_fused(
+            xc.to(cuda), wg.to(cuda), d.to(cuda), b.to(cuda), stride, pad,
+            groups, act, s_out=s_out, **{k_: v.to(cuda)
+                                         for k_, v in kw.items()})
+        torch.cuda.synchronize()
+        assert grouped_int8_fused.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_k5_raises_on_an_nchw_x_or_a_conv_layout_w(cuda):
+    gen = torch.Generator().manual_seed(5)
+    x, wt, d, b, _ = _k5_args(2, 8, 6, 6, 8, 3, 8, 0, gen)
+    x, wt, d, b = x.to(cuda), wt.to(cuda), d.to(cuda), b.to(cuda)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    before = grouped_int8_fused.launches
+    with pytest.raises(ValueError, match="channels-last"):
+        grouped_int8_fused(x, grouped_weight(wt), d, b, 1, 1, 8)
+    with pytest.raises(ValueError, match="grouped_weight"):
+        grouped_int8_fused(xc, wt, d, b, 1, 1, 8)
+    with pytest.raises(ValueError, match="not fused"):
+        grouped_int8_fused(xc, grouped_weight(wt), d, b, 1, 1, 8,
+                           Activation.TANH)
+    assert grouped_int8_fused.launches == before
+
+
+def _int8_layers_net():
+    """Depthwise (stride 1, 2), a grouped conv with BN, a deconv (stride
+    2, pad 1) and FCs on a 4-d and on a pooled input."""
+    A, F = Activation, tgraph.FillerType
+    net = tgraph.Net(Mode.PREDICT)
+    net.set_input_shape(16, 16, 8, 2)
+    net.add_convolutional_layer(16, 3, 1, 1, 1, 1, F.XAVIER, A.LRELU, 0,
+                                "input", "c0")
+    net.add_depthwise_conv_layer(3, 1, 1, 0, F.XAVIER, A.RELU, "c0", "dw1")
+    net.add_depthwise_conv_layer(3, 2, 1, 0, F.XAVIER, A.LRELU, "dw1", "dw2")
+    net.add_convolutional_layer(16, 3, 1, 1, 4, 1, F.XAVIER, A.RELU, 0,
+                                "dw2", "g4")
+    net.add_deconvolutional_layer(8, 4, 2, 1, F.XAVIER, A.LRELU, "g4", "up")
+    net.add_convolutional_layer(8, 3, 2, 1, 1, 0, F.XAVIER, A.RELU, 0, "up",
+                                "c1")
+    net.add_fullc_layer(12, F.XAVIER, A.RELU, 0, "c1", "fc1")
+    net.add_fullc_layer(5, F.XAVIER, A.NONE, 0, "fc1", "fc2")
+    return net
+
+
+def test_int8_depthwise_grouped_deconv_and_fc_card_vs_cpu(cuda):
+    """Every quantized layer kind on the card (K5 on the depthwise and
+    grouped layers, K4 on the convs, the deconv and the FCs) against the
+    CPU with one quant dict: every int8 tensor equal, the output within
+    fp32 rounding; the launches counted."""
+    from bcnn_tpu_torch.ops.conv_int8 import conv_int8_fused
+
+    net = _int8_layers_net()
+    p_np, s_np = bridge.he_numpy_weights(net, 3)
+    x = np.random.RandomState(4).rand(2, 8, 16, 16).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        sess = Session(net, 0, device=dev)
+        sess.params, sess.state = bridge.params_from_numpy(net, p_np, s_np,
+                                                           dev)
+        sess.compile_net()
+        if dev == "cpu":
+            tq.ptq_synthetic(net, sess)  # resets run_var to 1
+            quant, state = net.quant, sess.state
+        else:
+            sess.state = {k: v.to(cuda) for k, v in state.items()}
+            net.quant = {**quant, "weights": {
+                k: {p: t.to(cuda) for p, t in e.items()}
+                for k, e in quant["weights"].items()}}
+        k4, k5 = conv_int8_fused.launches, grouped_int8_fused.launches
+        with torch.inference_mode():
+            ex = execute(net, sess.params, sess.state,
+                         {"input": torch.from_numpy(x).to(dev)},
+                         Mode.PREDICT)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert grouped_int8_fused.launches - k5 == 3
+            assert conv_int8_fused.launches - k4 == 5
+        outs[str(dev)] = {i: v.cpu() for i, v in ex.values.items()}
+    net.quant = None
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    n_int8 = 0
+    for i, v in cpu.items():
+        if v.dtype == torch.int8:
+            n_int8 += 1
+            assert torch.equal(card[i], v), net.tensors[i].name
+    assert n_int8 >= 6
+    last = net.nodes[-1].dst[0]
+    torch.testing.assert_close(card[last], cpu[last], rtol=1e-5, atol=1e-6)
+
+
+def _qat_net():
+    A, F = Activation, tgraph.FillerType
+    net = tgraph.Net(Mode.TRAIN)
+    net.set_input_shape(12, 12, 3, 4)
+    net.set_sgd_optimizer(0.02, 0.9)
+    net.add_convolutional_layer(16, 3, 1, 1, 1, 1, F.XAVIER, A.RELU, 1,
+                                "input", "c1")
+    net.add_maxpool_layer(2, 2, tgraph.Padding.SAME, "c1", "p1")
+    net.add_depthwise_conv_layer(3, 1, 1, 0, F.XAVIER, A.LRELU, "p1", "dw")
+    net.add_convolutional_layer(32, 3, 1, 1, 1, 1, F.XAVIER, A.RELU, 1,
+                                "dw", "c2")
+    net.add_fullc_layer(4, F.XAVIER, A.NONE, 1, "c2", "fc")
+    net.add_softmax_layer("fc", "sm")
+    net.add_cost_layer(tgraph.Loss.EUCLIDEAN, tgraph.Metric.ERROR_RATE, 1.0,
+                       "sm", "label", "cost")
+    net.qat = True
+    return net
+
+
+def test_qat_step_on_the_card(cuda):
+    """One QAT training step on the card against the CPU's: the loss
+    (rtol 1e-4) and the ranges (rtol 1e-5) and each update held to a
+    float64 step that takes the card's own kink sides, max-pool picks and
+    fake-quant codes (within 1e-3 of its largest entry), each code within
+    `replay.CODE_EPS` of float64's x / s and at most 1 in 1,000 on a
+    boundary there; the number of codes that differ from the CPU's run
+    is printed."""
+    net = _qat_net()
+    p_np, s_np = bridge.he_numpy_weights(net, 2)
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 3, 12, 12).astype(np.float32)
+    y = np.zeros((4, 4, 1, 1), np.float32)
+    y[np.arange(4), rng.randint(0, 4, 4)] = 1.0
+    batch = {"input": x, "label": y}
+    runs = {}
+    for dev in ("cpu", cuda):
+        params, state = bridge.params_from_numpy(net, p_np, s_np, dev)
+        state.update({k: torch.zeros((), device=dev)
+                      for k in tq.qat_state_keys(net)})
+        ch = replay.Choices()
+        with replay.record(ch):
+            params, state, _, loss = make_train_step(net)(
+                params, state, init_opt_state(net, params),
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[str(dev)] = (float(loss), {k: v.cpu() for k, v in
+                                        params.items()},
+                          {k: v.cpu() for k, v in state.items()}, ch)
+    (lc, pc, sc, chc), (lg, pg, sg, chg) = runs["cpu"], runs[str(cuda)]
+    apart = sum(int((a != b).sum()) for a, b in zip(chc.codes, chg.codes))
+    print(f"{apart} fake-quant codes differ card vs CPU")
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in tq.qat_state_keys(net):
+        torch.testing.assert_close(sg[k], sc[k], rtol=1e-5, atol=0)
+    p0, s0 = bridge.params_from_numpy(net, p_np, s_np)
+    s0.update({k: torch.zeros(()) for k in tq.qat_state_keys(net)})
+    update, _ = replay.sgd_update(net, p0, s0, batch, torch.float64,
+                                  choices=replay.impose(chg))
+    total = sum(c.numel() for c in chg.codes)
+    print(f"{sum(chg.boundary)} of {total} of the card's codes round the "
+          "other way in float64")
+    assert sum(chg.boundary) <= max(2, total // 1000)
+    for k, du64 in update.items():
+        du = pg[k] - p0[k]
+        tol = max(1e-3 * float(du64.abs().max()),
+                  float(np.spacing(np.float32(p0[k].abs().max()))))
+        assert float((du - du64).abs().max()) <= tol, k

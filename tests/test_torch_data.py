@@ -19,7 +19,6 @@ import torch
 from bcnn_tpu import Mode as JMode
 from bcnn_tpu import Net as JNet
 from bcnn_tpu import bip as jbip
-from bcnn_tpu.bip import native as jnative
 from bcnn_tpu.data import loaders as jloaders
 from bcnn_tpu.data import records as jrecords
 from bcnn_tpu.data.augment import Augmenter as JAugmenter
@@ -35,16 +34,35 @@ from tests.test_data import write_mnist
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def same_backend():
-    """The port on the backend bcnn_tpu.bip chose at its import; the
-    native library built once here, under its lock."""
-    name = "native" if jnative.available() else "numpy"
+def bcnn_tpu_bip_backend() -> str:
+    """The host image backend bcnn_tpu.bip resolved to at its import:
+    "native" where its library built and loaded (its ops, and with its
+    codecs its decode, run natively), else "numpy" (BCNN_TPU_NATIVE=0,
+    or a `make` that failed or timed out, as under many test workers)."""
+    return "native" if jbip._native.available() else "numpy"
+
+
+def pin_port_bip():
+    """Put the port's bip on bcnn_tpu.bip's backend (the native library
+    built once here, under its lock), yield its name, then restore the
+    port's backend: a module fixture of every test file that holds the
+    port's host batches or augmentation against bcnn_tpu's. With the
+    native backend both decode natively where their codecs built (the
+    same probe of the same sources), else with Pillow; the tests' images
+    are PNGs, which decode to the same bytes either way."""
+    name = bcnn_tpu_bip_backend()
     if name == "native":
         bip.native.get_lib()
     prev = bip.set_backend(name)
-    yield name
-    bip.set_backend(prev)
+    try:
+        yield name
+    finally:
+        bip.set_backend(prev)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_backend():
+    yield from pin_port_bip()
 
 
 def nets(w, h, c, batch, label, aug=None, device_augment=None):

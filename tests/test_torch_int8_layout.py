@@ -1,6 +1,7 @@
 """The int8 program's channels-last flow on the CPU: every int8 activation
-of YOLOv3-tiny's int8 program, and of a Darknet cfg with two shortcuts
-(the int8 eltwise add), is held channels-last (logical NCHW, NHWC in
+of YOLOv3-tiny's int8 program, of a Darknet cfg with two shortcuts (the
+int8 eltwise add) and of MobileNet-v1's (K5's depthwise layers, the FC
+on K4), is held channels-last (logical NCHW, NHWC in
 memory), the layout K4 reads and writes, down to H = W = 1; the quant
 weights are held (O, k, k, C) in memory from the start and the repack
 round-trips; K4's plain path on channels-last
@@ -15,8 +16,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from bcnn_tpu_torch import Net, Session, bridge, config, ops
 from bcnn_tpu_torch.compile import execute
-from bcnn_tpu_torch.models import yolov3_tiny
+from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops import conv_int8 as k4
+from bcnn_tpu_torch.ops import grouped_int8 as k5
 from bcnn_tpu_torch.ops import pool as pool_ops
 from bcnn_tpu_torch.ops.quant import (ptq_synthetic, quantize_tensor,
                                       quantize_weights)
@@ -37,8 +39,8 @@ def int8_cl(shape, seed):
 class LayoutCopies(TorchDispatchMode):
     """Records every copy of a 4-d tensor into the same dtype (clone,
     _to_copy, copy_): a change of layout, or a copy for nothing. Calls
-    inside K4's wrapper are left out (on the CPU it runs the plain
-    version; on the card one kernel)."""
+    inside K4's and K5's wrappers are left out (on the CPU they run the
+    plain versions; on the card one kernel each)."""
 
     COPIES = (aten.clone.default, aten._to_copy.default, aten.copy_.default)
 
@@ -99,22 +101,39 @@ def test_every_int8_flow_tensor_is_channels_last(int8_net, bf16):
 
 def assert_no_layout_copy(net, sess, x, bf16, monkeypatch):
     mode = LayoutCopies()
-    fused = k4.conv_int8_fused
+    fused, grouped = k4.conv_int8_fused, k5.grouped_int8_fused
+    calls = {"K4": 0, "K5": 0}
 
     def counted(x, w, *args, **kw):
-        # what the card takes: channels-last x and w, never a copy
-        assert x.is_contiguous(memory_format=CL) and not x.is_contiguous()
+        # what the card takes: channels-last x and w, never a copy (an
+        # FC's (N, K, 1, 1) view is both layouts at once)
+        assert x.is_contiguous(memory_format=CL)
+        assert not x.is_contiguous() or x.shape[2:] == (1, 1)
         assert w.is_contiguous(memory_format=CL)
+        calls["K4"] += 1
         mode.inside += 1
         try:
             return fused(x, w, *args, **kw)
         finally:
             mode.inside -= 1
 
+    def counted_k5(x, w, *args, **kw):
+        # channels-last x and the (k, k, C/G, O) weight, as made once
+        assert x.is_contiguous(memory_format=CL) and not x.is_contiguous()
+        assert k5.is_grouped_weight(w)
+        calls["K5"] += 1
+        mode.inside += 1
+        try:
+            return grouped(x, w, *args, **kw)
+        finally:
+            mode.inside -= 1
+
     monkeypatch.setattr(k4, "conv_int8_fused", counted)
+    monkeypatch.setattr(k5, "grouped_int8_fused", counted_k5)
     with mode:
         run(net, sess, x, bf16)
     assert mode.copies == []
+    return calls
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
@@ -308,6 +327,42 @@ def test_shortcut_int8_flow_is_channels_last(shortcut_int8, bf16):
 def test_no_layout_copy_on_the_shortcut_int8_path(shortcut_int8, bf16,
                                                   monkeypatch):
     assert_no_layout_copy(*shortcut_int8, bf16, monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def mobilenet_int8():
+    """MobileNet-v1 at width 0.25, 224 px, batch 2, He-scaled weights,
+    after ptq_synthetic on the CPU."""
+    net = mobilenet_v1(2, 10, width_mult=0.25)
+    sess = Session(net, 0, device="cpu")
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 5))
+    sess.compile_net()
+    ptq_synthetic(net, sess)
+    x = torch.from_numpy(np.random.RandomState(6).rand(
+        2, 3, 224, 224).astype(np.float32))
+    return net, sess, x
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_no_layout_copy_on_the_mobilenet_int8_path(mobilenet_int8, bf16,
+                                                   monkeypatch):
+    """MobileNet-v1's int8 request: every int8 tensor channels-last, the
+    13 depthwise layers on K5 with the weight in its layout since the
+    quant dict was made, the 14 convs and the FC on K4 (the FC over a
+    view of the pooled x), and no layout copy anywhere. The plan routes
+    the average pool's output as int8 for the FC, but the pool writes
+    fp32, as in bcnn_tpu, and the FC quantizes it."""
+    net = mobilenet_int8[0]
+    ex = run(*mobilenet_int8, bf16)
+    pooled = {n.dst[0] for n in net.nodes if n.type.name == "AVGPOOL"}
+    int8 = {i for i, v in ex.values.items() if v.dtype == torch.int8}
+    assert int8 == set(ex.int8_flow) - pooled and len(int8) == 26
+    for i in int8:
+        v = ex.values[i]
+        assert v.is_contiguous(memory_format=CL) and not v.is_contiguous()
+    calls = assert_no_layout_copy(*mobilenet_int8, bf16, monkeypatch)
+    assert calls == {"K4": 15, "K5": 13}
 
 
 def test_strided_int8_add_keeps_channels_last():

@@ -18,13 +18,13 @@ from bcnn_tpu import Net as JNet
 from bcnn_tpu.data import loaders as jloaders
 from bcnn_tpu.data import pipeline as jpipeline
 
-from bcnn_tpu_torch import bip
 from bcnn_tpu_torch.data import loaders, records
 from bcnn_tpu_torch.data.pipeline import BatchPipeline, ShardedBatchPipeline
 from bcnn_tpu_torch.graph import Net
 from bcnn_tpu_torch.types import Mode
 
-from tests.test_torch_data import det_list, list_file, write_images
+from tests.test_torch_data import (det_list, list_file, pin_port_bip,
+                                   write_images)
 
 torch.set_num_threads(1)
 
@@ -32,8 +32,9 @@ TIMEOUT_S = 60
 
 
 @pytest.fixture(scope="module", autouse=True)
-def native_lib():
-    bip.native.get_lib()  # built once, under its lock
+def same_backend():
+    """The port's workers augment on bcnn_tpu.bip's host backend."""
+    yield from pin_port_bip()
 
 
 def make_net(cls=Net, mode=Mode.TRAIN, batch=2, aug=None, raw=False):

@@ -1,7 +1,8 @@
 """int8 PTQ in the port against bcnn_tpu.ops.quant on the CPU: weight
 quantization, the watched tensors, the int8 flow plan, calibration, the
 int32 conv sum, the int8 forward of YOLOv3-tiny layer by layer and end to
-end, detection, and the refusals of what is not ported.
+end, detection, and (each once a refusal) QAT in TRAIN and VALID and the
+int8 depthwise, FC, grouped conv and deconv.
 
 Every JAX quant dict crosses with bridge.quant_from_numpy, so both
 packages quantize with identical scales. Tolerances:
@@ -33,7 +34,7 @@ import bcnn_tpu as bt
 from bcnn_tpu_torch import Session, bridge
 from bcnn_tpu_torch import graph as tgraph
 from bcnn_tpu_torch import types as ttypes
-from bcnn_tpu_torch.compile import _Executor, execute, make_train_step
+from bcnn_tpu_torch.compile import _Executor, execute
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops import quant as tq
 from bcnn_tpu_torch.ops.conv_int8 import conv2d_int32
@@ -133,11 +134,20 @@ def test_quantize_weights_bit_equal(which):
     got = tq.quantize_weights(net, ts.params)
     assert set(got) == set(want) and got
     conv_w = bridge._conv_weight_keys(net)
+    carried = bridge.quant_from_numpy(
+        net, {"act_scales": {}, "weights": want})["weights"]
+    fc_in = {net.tensors[n.src[1]].key: net.tensors[n.src[0]]
+             for n in net.nodes if n.type == ttypes.LayerType.FULL_CONNECTED}
     for k, w in want.items():
         q = np.asarray(w["q"])
         if k in conv_w:
             q = q.transpose(3, 2, 0, 1)
+        elif k in fc_in:  # K4's 1x1 conv: (out, in), in in (h, w, c) order
+            t = fc_in[k]
+            q = q.reshape(t.c, t.h, t.w, -1).transpose(3, 1, 2, 0).reshape(
+                q.shape[1], -1, 1, 1)
         assert got[k]["q"].dtype == torch.int8
+        assert torch.equal(got[k]["q"], carried[k]["q"])
         np.testing.assert_array_equal(got[k]["q"].numpy(), q)
         np.testing.assert_array_equal(got[k]["scale"].numpy(),
                                       np.asarray(w["scale"]))
@@ -428,12 +438,13 @@ def test_quant_from_numpy_carries_the_dict(pair):
     assert all(q2[key] == v for key, v in opts.items())
 
 
-# ------------------------------------------------- what is not ported #
+# ------------------------------- training attributes, int8 layers left #
 
 
-def _small_train_net(layer, pkg=tgraph, dtype=torch.bfloat16):
-    """A TRAIN net of one FC or depthwise layer with compute_dtype, in
-    the port (pkg = its graph module) or in bcnn_tpu (bt)."""
+def _small_train_net(layer, pkg=tgraph, dtype=torch.bfloat16, qat=None):
+    """A TRAIN net of one FC or depthwise layer with compute_dtype (or
+    net.qat), in the port (pkg = its graph module) or in bcnn_tpu
+    (bt)."""
     net = pkg.Net(Mode.TRAIN)
     net.set_input_shape(6, 6, 2, 2)
     if layer == "FULL_CONNECTED":
@@ -443,6 +454,8 @@ def _small_train_net(layer, pkg=tgraph, dtype=torch.bfloat16):
         net.add_depthwise_conv_layer(3, 1, 1, 0, ttypes.FillerType.XAVIER,
                                      ttypes.Activation.RELU, "input", "d")
     net.compute_dtype = dtype
+    if qat is not None:
+        net.qat = qat
     return net
 
 
@@ -450,28 +463,26 @@ def _small_train_net(layer, pkg=tgraph, dtype=torch.bfloat16):
     "qat", "compute_dtype FULL_CONNECTED", "compute_dtype DEPTHWISE_CONV2D",
     "train_scan_on_batches", "train_scan_resident_on_batches"])
 def test_unported_training_attributes_raise(case):
-    """What the port still refuses in training: net.qat; in Session's
-    scans over the data loader, the step forms they do not run (remat),
-    and the resident scan without device_augment (its records are raw
-    uint8). compute_dtype in TRAIN on FC and depthwise, refused here
-    before, runs since: the layer's output and its gradients against
-    bcnn_tpu's (forward rtol 1e-5 of the largest; gradients within 2^-7
-    of the largest, one bf16 rounding; tests/test_torch_layers_left.py
-    holds the roundings themselves)."""
-    if case == "qat":
-        net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
-        net.qat = True
-        with pytest.raises(NotImplementedError, match="qat"):
-            make_train_step(net)
-        sess = Session(net, 0, device="cpu").compile_net()
-        with pytest.raises(NotImplementedError, match="qat"):
-            with torch.no_grad():
-                execute(net, sess.params, sess.state,
-                        {"input": torch.zeros(1, 3, 64, 64)}, Mode.TRAIN)
-    elif case.startswith("compute_dtype"):
-        layer = case.split()[1]
-        net = _small_train_net(layer)
-        jnet = _small_train_net(layer, bt, jnp.bfloat16)
+    """What the port refused in training: net.qat, refused before, runs
+    since: an FC layer under QAT in TRAIN, its output, gradients and
+    tracked range against bcnn_tpu's (fp32: the output and gradients
+    within 1e-5 of their largest entry, the range at rtol 1e-6). In
+    Session's scans over the data loader, the step forms they do not run
+    (remat), and the resident scan without device_augment (its records
+    are raw uint8), still raise. compute_dtype in TRAIN on FC and
+    depthwise, refused before, runs since: the layer's output and its
+    gradients against bcnn_tpu's (forward rtol 1e-5 of the largest;
+    gradients within 2^-7 of the largest, one bf16 rounding;
+    tests/test_torch_layers_left.py holds the roundings themselves)."""
+    if case == "qat" or case.startswith("compute_dtype"):
+        if case == "qat":
+            layer, tol = "FULL_CONNECTED", 1e-5
+            net = _small_train_net(layer, dtype=None, qat=True)
+            jnet = _small_train_net(layer, bt, None, qat=True)
+        else:
+            layer, tol = case.split()[1], 2.0**-7
+            net = _small_train_net(layer)
+            jnet = _small_train_net(layer, bt, jnp.bfloat16)
         sess = Session(net, 0, device="cpu").compile_net()
         rng = np.random.RandomState(len(layer))
         x = rng.randn(2, 2, 6, 6).astype(np.float32)
@@ -479,20 +490,29 @@ def test_unported_training_attributes_raise(case):
         g = rng.randn(2, out.c, out.h, out.w).astype(np.float32)
         leaves = {k: v.detach().requires_grad_() for k, v in
                   sess.params.items()}
-        y = execute(net, leaves, sess.state, {"input": torch.from_numpy(x)},
-                    Mode.TRAIN).values[net.nodes[0].dst[0]]
+        ex = execute(net, leaves, sess.state,
+                     {"input": torch.from_numpy(x)}, Mode.TRAIN)
+        y = ex.values[net.nodes[0].dst[0]]
         (y * torch.from_numpy(g)).sum().backward()
         p_np = bridge.params_to_numpy(net, sess.params)
+        s_np = {k: np.asarray(v) for k, v in sess.state.items()}
 
         def jfn(p):
-            v = jax_execute(jnet, p, {}, {"input": jnp.asarray(x)},
-                            JaxMode.TRAIN).values[jnet.nodes[0].dst[0]]
-            return v, jnp.sum(v * jnp.transpose(jnp.asarray(g), (0, 2, 3, 1)))
+            jex = jax_execute(jnet, p, {k: jnp.asarray(v)
+                                        for k, v in s_np.items()},
+                              {"input": jnp.asarray(x)}, JaxMode.TRAIN)
+            v = jex.values[jnet.nodes[0].dst[0]]
+            return v, jnp.sum(v * jnp.transpose(jnp.asarray(g),
+                                                (0, 2, 3, 1))), jex.state
 
         jp = {k: jnp.asarray(v) for k, v in p_np.items()}
         jg = jax.grad(lambda p: jfn(p)[1])(jp)
-        jy = np.transpose(np.asarray(jfn(jp)[0], np.float32), (0, 3, 1, 2))
-        np.testing.assert_allclose(y.detach().float().numpy(), jy, rtol=0,
+        jv, _, jstate = jfn(jp)
+        jy = np.asarray(jv, np.float32)
+        if jy.ndim == 4:
+            jy = np.transpose(jy, (0, 3, 1, 2))
+        np.testing.assert_allclose(y.detach().float().numpy(),
+                                   jy.reshape(y.shape), rtol=0,
                                    atol=1e-5 * np.abs(jy).max())
         got = bridge.params_to_numpy(
             net, {k: v.grad for k, v in leaves.items()})
@@ -500,9 +520,15 @@ def test_unported_training_attributes_raise(case):
             r = np.asarray(jg[k], np.float32)
             assert v.dtype == np.float32 and np.abs(r).max() > 0, k
             np.testing.assert_allclose(v, r, rtol=0,
-                                       atol=2.0**-7 * np.abs(r).max(),
+                                       atol=tol * np.abs(r).max(),
                                        err_msg=k)
-        # inference at bf16 runs
+        qat_keys = [k for k in jstate if k.startswith("qat_amax/")]
+        assert len(qat_keys) == (1 if case == "qat" else 0)
+        for k in qat_keys:
+            assert float(ex.state[k]) > 0
+            np.testing.assert_allclose(float(ex.state[k]),
+                                       float(jstate[k]), rtol=1e-6)
+        # inference runs
         with torch.no_grad():
             execute(net, sess.params, sess.state,
                     {"input": torch.zeros(2, 2, 6, 6)}, Mode.VALID)
@@ -517,50 +543,108 @@ def test_unported_training_attributes_raise(case):
 
 
 def test_qat_raises_in_valid_mode():
+    """net.qat in VALID, refused before, runs: YOLOv3-tiny at 64 px with
+    {"ema": 0.9} and no training yet (each range the batch's own
+    abs-max), the heads and the loss of predict_on_batch against
+    bcnn_tpu's (rtol 1e-4, HEAD_TOL of the largest head value: a
+    fake-quant code at a rounding boundary may land one apart)."""
+    jnet = jax_tiny(1, 64, 64, 2, mode=JaxMode.TRAIN)
     net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
-    net.qat = {"ema": 0.9}
-    sess = Session(net, 0, device="cpu").compile_net()
-    with pytest.raises(NotImplementedError, match="qat"):
-        sess.predict_on_batch(np.zeros((1, 3, 64, 64), np.float32))
+    for n in (jnet, net):
+        n.qat = {"ema": 0.9}
+    js = JaxSession(jnet, 0).compile_net()
+    sess = jax_to_port(js, net)
+    x = np.random.RandomState(2).rand(1, 3, 64, 64).astype(np.float32)
+    lab = np.zeros((1, 250), np.float32)
+    lab[:, :5] = [0.5, 0.5, 0.3, 0.4, 1]
+    names = ["lid16", "lid23"]
+    want, wloss = js.predict_on_batch(x, lab, outputs=names)
+    got, loss = sess.predict_on_batch(x, lab, outputs=names)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        assert np.abs(g.numpy() - w).max() <= HEAD_TOL * np.abs(w).max()
+    np.testing.assert_allclose(float(loss), float(wloss), rtol=1e-4)
+    assert all(float(v) == 0 for k, v in sess.state.items()
+               if k.startswith("qat_amax/"))  # VALID reads, never writes
+
+
+def _int8_pair(jnet, net, keep, x):
+    """bcnn_tpu's session and the port's on its weights (BN stats from a
+    numpy seed), the layers of type `keep` quantized by bcnn_tpu's
+    quantize_weights with act scale 0.1, the dict carried across."""
+    js = JaxSession(jnet, 0).compile_net()
+    js.state = {k: jnp.asarray(v)
+                for k, v in bn_stats(jnet.state_specs()).items()}
+    ts = jax_to_port(js, net)
+    keys = {net.tensors[n.src[1]].key: n.src[0] for n in net.nodes
+            if n.type in keep}
+    w = jq.quantize_weights(jnet, js.params)
+    jnet.quant = {"act_scales": {i: 0.1 for i in keys.values()},
+                  "weights": {k: w[k] for k in keys}}
+    net.quant = bridge.quant_from_numpy(net, jnet.quant)
+    return js, ts
+
+
+def _same_output(js, ts, x, name, tol=HEAD_TOL):
+    (want,), _ = js.predict_on_batch(x, outputs=[name])
+    (got,), _ = ts.predict_on_batch(x, outputs=[name])
+    want = np.asarray(want)
+    if want.ndim == 4 and got.dim() == 4 and want.shape[1:] != tuple(
+            got.shape[1:]):
+        want = nchw(want)
+    assert np.abs(want).max() > 0
+    assert np.abs(got.numpy() - want.reshape(got.shape)).max() <= (
+        tol * np.abs(want).max())
 
 
 @pytest.mark.parametrize("kind", ["depthwise", "fc"])
 def test_quantized_depthwise_and_fc_raise(kind):
+    """A quantized depthwise layer or FC, refused before, runs (K5, K4
+    on the card): MobileNet-v1 at width 0.25 with only that kind
+    quantized, its softmax against bcnn_tpu's within HEAD_TOL of the
+    largest."""
+    jnet = jax_mobilenet(1, 10, JaxMode.PREDICT, width_mult=0.25)
     net = mobilenet_v1(1, 10, Mode.PREDICT, width_mult=0.25)
-    sess = Session(net, 0, device="cpu").compile_net()
     want = {"depthwise": ttypes.LayerType.DEPTHWISE_CONV2D,
             "fc": ttypes.LayerType.FULL_CONNECTED}[kind]
-    keys = {net.tensors[n.src[1]].key: n.src[0] for n in net.nodes
-            if n.type == want}
-    w = tq.quantize_weights(net, sess.params)
-    net.quant = {"act_scales": {i: 0.1 for i in keys.values()},
-                 "weights": {k: w[k] for k in keys}}
-    with pytest.raises(NotImplementedError, match=want.name):
-        sess.predict_on_batch(np.zeros((1, 3, 224, 224), np.float32))
+    x = np.random.RandomState(4).rand(1, 3, 224, 224).astype(np.float32)
+    js, ts = _int8_pair(jnet, net, (want,), x)
+    assert len(net.quant["weights"]) == (13 if kind == "depthwise" else 1)
+    _same_output(js, ts, x, "softmax")
+
+
+def _one_layer(pkg, deconv=False, groups=1):
+    net = pkg.Net(pkg.Mode.PREDICT)
+    net.set_input_shape(8, 8, 4, 1)
+    A, F = pkg.Activation, pkg.FillerType
+    if deconv:
+        net.add_deconvolutional_layer(4, 3, 2, 1, F.XAVIER, A.NONE,
+                                      "input", "d")
+    else:
+        net.add_convolutional_layer(4, 3, 1, 1, groups, 0, F.XAVIER, A.NONE,
+                                    0, "input", "g")
+    return net
 
 
 def test_quantized_grouped_conv_raises():
-    net = tgraph.Net(Mode.PREDICT)
-    net.set_input_shape(8, 8, 4, 1)
-    net.add_convolutional_layer(4, 3, 1, 1, 2, 0, ttypes.FillerType.XAVIER,
-                                ttypes.Activation.NONE, 0, "input", "g")
-    sess = Session(net, 0, device="cpu").compile_net()
-    net.quant = {"act_scales": {0: 0.1},
-                 "weights": tq.quantize_weights(net, sess.params)}
-    with pytest.raises(NotImplementedError, match="grouped"):
-        sess.predict_on_batch(np.zeros((1, 4, 8, 8), np.float32))
+    """A quantized CONV2D with 2 groups, refused before, runs (K5 on
+    the card): its output against bcnn_tpu's within 1e-5 of the
+    largest (one int8 sum, the same rounding)."""
+    x = np.random.RandomState(5).rand(1, 4, 8, 8).astype(np.float32)
+    js, ts = _int8_pair(_one_layer(bt, groups=2),
+                        _one_layer(tgraph, groups=2),
+                        (ttypes.LayerType.CONV2D,), x)
+    assert ts.net.nodes[0].param["num_groups"] == 2
+    _same_output(js, ts, x, "g", 1e-5)
 
 
 def test_quantized_deconv_raises():
-    """The port runs TRANSPOSE_CONV2D in fp32 and bf16, but not int8: a
-    quantized one raises, never running at fp32."""
-    net = tgraph.Net(Mode.PREDICT)
-    net.set_input_shape(8, 8, 4, 1)
-    net.add_convolutional_layer(4, 3, 1, 1, 1, 0, ttypes.FillerType.XAVIER,
-                                ttypes.Activation.NONE, 0, "input", "d")
-    sess = Session(net, 0, device="cpu").compile_net()
-    net.quant = {"act_scales": {0: 0.1},
-                 "weights": tq.quantize_weights(net, sess.params)}
-    net.nodes[0].type = ttypes.LayerType.TRANSPOSE_CONV2D
-    with pytest.raises(NotImplementedError, match="int8 TRANSPOSE_CONV2D"):
-        sess.predict_on_batch(np.zeros((1, 4, 8, 8), np.float32))
+    """A quantized TRANSPOSE_CONV2D (stride 2, pad 1), refused before,
+    runs as the conv K4 computes for it: its output against bcnn_tpu's
+    within 1e-5 of the largest."""
+    x = np.random.RandomState(6).rand(1, 4, 8, 8).astype(np.float32)
+    js, ts = _int8_pair(_one_layer(bt, deconv=True),
+                        _one_layer(tgraph, deconv=True),
+                        (ttypes.LayerType.TRANSPOSE_CONV2D,), x)
+    _same_output(js, ts, x, "d", 1e-5)

@@ -197,3 +197,33 @@ def test_float64_replay_of_a_float32_run():
     for k, v in u64.items():
         scale = float(v.abs().max())
         assert float((u32[k] - v).abs().max()) <= 1e-3 * scale, k
+
+
+def test_imposed_codes_are_held_to_the_run_s_own_values():
+    """Under net.qat a float32 run's fake-quant codes imposed on a float64
+    run: `boundary` counts, per fake-quant call, the codes the float64
+    run rounds the other way (here none or a few, of some thousands). A
+    code moved one step off its value, or an inside mask flipped away
+    from 127 s, is refused with ValueError."""
+    net = small_net(Activation.LRELU)
+    net.qat = True
+    params, state, batch = seeded(net, seed=4)
+    made = replay.Choices()
+    replay.sgd_update(net, params, state, batch, choices=replay.record(made))
+    assert len(made.codes) == 6  # two convs and the FC, x then w each
+    replay.sgd_update(net, params, state, batch, torch.float64,
+                      choices=replay.impose(made))
+    total = sum(c.numel() for c in made.codes)
+    assert len(made.boundary) == 6 and sum(made.boundary) <= total // 1000
+    # a code one step from its value: the first conv's input, where a
+    # code of 0 sits inside (-127, 127)
+    j = int(made.codes[0].flatten().abs().argmin())
+    made.codes[0].view(-1)[j] += 1
+    with pytest.raises(ValueError, match="fake quant 0"):
+        replay.sgd_update(net, params, state, batch, torch.float64,
+                          choices=replay.impose(made))
+    made.codes[0].view(-1)[j] -= 1
+    made.inside[2].view(-1)[j % made.inside[2].numel()] = False
+    with pytest.raises(ValueError, match="fake quant 2"):
+        replay.sgd_update(net, params, state, batch, torch.float64,
+                          choices=replay.impose(made))

@@ -37,8 +37,8 @@ from bcnn_tpu.models import yolov3_tiny as jax_tiny
 from bcnn_tpu.types import Mode as JaxMode
 
 from bcnn_tpu_torch import Session, bridge, learner
+from bcnn_tpu_torch import compile as tcompile
 from bcnn_tpu_torch.compile import (
-    _UNPORTED,
     child_generators,
     execute,
     make_eval_step,
@@ -462,8 +462,20 @@ def test_split_phase_equals_train_on_batch(tiny):
 
 
 def test_only_qat_is_left_unported(tiny):
-    assert [a for a, _ in _UNPORTED] == ["qat"]
+    """net.qat, the last attribute the port refused, is ported: no list
+    of refused attributes is left, and a QAT net compiles with its
+    ranges in the state, one 0-d zero a watched tensor."""
+    assert not hasattr(tcompile, "_UNPORTED")
+    assert not hasattr(tcompile, "refuse_unported")
     assert Session(tiny[1], 0, device="cpu").last_yolo_stats is None
+    net = yolov3_tiny(1, 64, 64, 2, mode=Mode.TRAIN)
+    net.qat = True
+    sess = Session(net, 0, device="cpu").compile_net()
+    ranges = {k: v for k, v in sess.state.items()
+              if k.startswith("qat_amax/")}
+    # every conv's input and the route concat's two (bcnn_tpu's count)
+    assert len(ranges) == 15
+    assert all(v.shape == () and float(v) == 0 for v in ranges.values())
 
 
 # ------------------------------------------- the standalone BN layer #

@@ -309,16 +309,18 @@ def f64_update(net, p_np, s_np, x, lab):
         net, {k: v + update.get(k, 0) for k, v in params.items()})
 
 
-def assert_updates(net, p_np, s_np, x, lab, params, jparams):
+def assert_updates(net, p_np, s_np, x, lab, params, jparams, exact=None):
     """Every parameter's update in the port's step (`params`, after one
     step from p_np) within UPDATE_TOL of its largest entry of the float64
-    step's update (`f64_update`), and within UPDATE_TOL of bcnn_tpu's
-    (`jparams`), or twice bcnn_tpu's own distance to the float64 update
-    where that is wider. A float32 spacing of the parameter's largest
-    entry is the floor of both: an update may fall below the parameter's
-    own rounding (a layer whose gradient the routing has faded, whose
-    update is then its weight decay)."""
-    exact = f64_update(net, p_np, s_np, x, lab)
+    step's update (`f64_update`, or `exact`, the parameters after a
+    float64 step given by the caller), and within UPDATE_TOL of
+    bcnn_tpu's (`jparams`), or twice bcnn_tpu's own distance to the
+    float64 update where that is wider. A float32 spacing of the
+    parameter's largest entry is the floor of both: an update may fall
+    below the parameter's own rounding (a layer whose gradient the
+    routing has faded, whose update is then its weight decay)."""
+    if exact is None:
+        exact = f64_update(net, p_np, s_np, x, lab)
     for k, v in bridge.params_to_numpy(net, params).items():
         r0 = p_np[k]
         du, du_j, du_64 = v - r0, np.asarray(jparams[k]) - r0, exact[k] - r0

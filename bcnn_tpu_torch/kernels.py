@@ -142,7 +142,7 @@ def library() -> ctypes.CDLL:
         i, i, i, i,             # n, c, h, w
         i, i, i, i, i,          # o, k, stride, pad, groups
         i, i, i, f,             # bn, act, out_int8, s_out
-        i, i, i, i,             # plan: quads, rows, pix, staged
+        i, i, i, i, i,          # plan: branch, s, lanes, strips, rows
         p,                      # stream
     ]
     lib.bcnn_grouped_int8.restype = ctypes.c_int

@@ -28,7 +28,7 @@ over dim 0 (the last dim of HWIO in the JAX package); deconv weights
 weights are (in, out) in both, over dim 1. Each entry of the dict holds
 its weight in the layout its kernel reads, made once
 (`weight_entry`): a conv's (O, k, k, C) in memory (K4); a grouped or
-depthwise one's (k, k, C/G, O) (K5); a deconv's and an FC's the K4
+depthwise one's (k, k, O, C/G) (K5); a deconv's and an FC's the K4
 weight of the equivalent conv.
 `bridge.quant_from_numpy` carries a JAX `net.quant` across.
 """
@@ -92,7 +92,8 @@ def weight_entry(net, node, q: torch.Tensor, scale: torch.Tensor) -> Dict:
     """A node's quant entry from its int8 weight q (in the port's layout
     of the layer) and fp32 scale, q held in the layout its kernel reads:
     a conv's channels-last ((O, k, k, C) in memory, K4); a grouped
-    conv's and a depthwise layer's (k, k, C/G, O) (K5); a deconv's and
+    conv's and a depthwise layer's (k, k, O, C/G) (K5; for depthwise the
+    memory of (k, k, 1, O)); a deconv's and
     an FC's as the weight of the conv that K4 runs for them
     (`deconv_k4_weight`, `fc_k4_weight`)."""
     from .grouped_int8 import grouped_weight

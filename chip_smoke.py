@@ -3021,12 +3021,22 @@ K5_OTHER = [
     (1, 1400, 3, 3, 4, 3, 1, 1, 1, None, Activation.RELU),
     (70, 16, 7, 7, 16, 3, 1, 1, 16, None, Activation.LRELU),
 ]
+# the redesign's edges: a ragged strip end, stride 2 on odd widths, C =
+# 16 j + 8, groups of 4 and of 64 input channels, batch 1
+K5_EDGES = [
+    (2, 32, 14, 14, 32, 3, 1, 1, 32, None, Activation.RELU),
+    (2, 48, 13, 11, 48, 3, 2, 1, 48, None, Activation.LRELU),
+    (2, 24, 8, 8, 24, 3, 1, 1, 24, None, Activation.NONE),
+    (2, 16, 9, 9, 16, 3, 1, 1, 4, "unfolded", Activation.RELU),
+    (2, 128, 10, 10, 64, 3, 1, 1, 2, "folded", Activation.LRELU),
+    (1, 1024, 7, 7, 1024, 3, 1, 1, 1024, None, Activation.RELU),
+]
 # phase 11: int8 classification at batch 64, 224 px, 1000 classes
 I8_BATCH = 64
 
 
 def k5_args(shape, gen):
-    """Random int8 x (channels-last) and w (K5's (k, k, C/G, O) layout)
+    """Random int8 x (channels-last) and w (K5's (k, k, O, C/G) layout)
     on the card, d scaled so that y spreads over the codes of s_out =
     2/127, the BN vectors as `bn` says."""
     n, c, h, w, o, k, stride, pad, groups, bn, act = shape
@@ -3049,16 +3059,15 @@ def k5_args(shape, gen):
 def check_k5():
     """Phase 3e: K5 against grouped_int8_fused_ref on the card, bit for
     bit, int8 and fp32 out: MobileNet-v1's nine depthwise shapes at batch
-    64, then the other shapes. The MobileNet shapes and the grouped one
-    timed warm in turns (plain, kernel, library, library, kernel, plain),
-    the library being cuDNN's bf16 grouped conv of the same values,
-    channels-last (PyTorch has no int8 conv on CUDA), then cold. Returns
-    per-shape records, the MobileNet ones first."""
+    64, then the other shapes and the edges. The MobileNet shapes and
+    the grouped one timed warm in turns (plain, kernel, library, library,
+    kernel, plain), the library being cuDNN's bf16 grouped conv of the
+    same values, channels-last (PyTorch has no int8 conv on CUDA), then
+    cold. Returns per-shape records, the MobileNet ones first."""
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
     rows = []
-    sms = kernels.sm_count(torch.device("cuda"))
-    for i, shape in enumerate(K5_MOBILENET + K5_OTHER):
+    for i, shape in enumerate(K5_MOBILENET + K5_OTHER + K5_EDGES):
         args, kw = k5_args(shape, gen)
         err = 0.0
         for s_out in (kw["s_out"], None):
@@ -3079,10 +3088,9 @@ def check_k5():
             err = max(err, float((got.float() - want.float()).abs().max()))
             del got, want
         n, c, h, w, o, k, stride, pad, groups, bn, act = shape
-        plan = plan_grouped_int8(n, c, h, w, o, k, stride, pad, groups, sms)
-        plan_s = (f"plan {plan.quads} quads x {plan.rows} pixels a block, "
-                  f"{plan.pix} pixels a thread, {plan.blocks} blocks, "
-                  f"staged {plan.staged}, char4 {plan.vec}")
+        plan = plan_grouped_int8(n, c, h, w, o, k, stride, pad, groups)
+        plan_s = (f"plan {plan.describe()} (lanes x strips x rows), "
+                  f"{plan.blocks(n)} blocks")
         rows.append(dict(shape=shape[:9], max_abs_err=err))
         if i > len(K5_MOBILENET):
             print(f"K5 {shape[:9]} {bn or 'no BN'} {act.name}: bit-equal, "

@@ -995,6 +995,12 @@ K5_CASES = [
     (1, 16, 5, 5, 32, 3, 1, 1, 16, 0, Activation.LRELU),   # multiplier 2
     (1, 1400, 3, 3, 4, 3, 1, 1, 1, 0, Activation.RELU),    # unstaged
     (70, 16, 7, 7, 16, 3, 1, 1, 16, 0, Activation.RELU),   # many images
+    (2, 32, 14, 14, 32, 3, 1, 1, 32, 0, Activation.RELU),  # ragged strips
+    (2, 48, 13, 11, 48, 3, 2, 1, 48, 0, Activation.LRELU),  # stride 2, odd
+    (2, 24, 8, 8, 24, 3, 1, 1, 24, 0, Activation.NONE),    # C = 16 j + 8
+    (2, 16, 9, 9, 16, 3, 1, 1, 4, 2, Activation.RELU),     # cg = 4
+    (2, 128, 10, 10, 64, 3, 1, 1, 2, 1, Activation.LRELU),  # cg = 64
+    (1, 1024, 7, 7, 1024, 3, 1, 1, 1024, 0, Activation.RELU),  # batch 1
 ]
 
 
@@ -1018,7 +1024,7 @@ def _k5_args(n, c, h, w, o, k, groups, bn, gen):
 @pytest.mark.parametrize("n,c,h,w,o,k,stride,pad,groups,bn,act", K5_CASES)
 def test_k5_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad,
                                   groups, bn, act):
-    """K5 on channels-last x and the (k, k, C/G, O) weight, bit-equal to
+    """K5 on channels-last x and the (k, k, O, C/G) weight, bit-equal to
     its plain version, fp32 and requantized, one launch a call."""
     gen = torch.Generator().manual_seed(c * 7 + o + k)
     x, wt, d, b, kw = _k5_args(n, c, h, w, o, k, groups, bn, gen)
@@ -1035,6 +1041,43 @@ def test_k5_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad,
         torch.cuda.synchronize()
         assert grouped_int8_fused.launches == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+def test_k5_requantizes_ties_as_the_true_division(cuda):
+    """A depthwise layer whose outputs are the bias alone (x = 0), the
+    bias (q + 0.5) s_out and the floats next to it, q across the codes:
+    the requantize's shortcut must take the true division there
+    (bit-equal to the plain version), on the depthwise branch."""
+    s_out = 2.0 / 127
+    q = torch.arange(-130, 130, dtype=torch.float32)
+    ties = (q + 0.5) * torch.tensor(s_out, dtype=torch.float32)
+    y = torch.cat([ties, torch.nextafter(ties, ties + 1),
+                   torch.nextafter(ties, ties - 1)])
+    c = -(-y.numel() // 16) * 16
+    b = torch.cat([y, torch.zeros(c - y.numel())])
+    x = torch.zeros(1, c, 1, 1, dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.ones(c, 1, 3, 3, dtype=torch.int8)
+    d = torch.ones(c)
+    want = grouped_int8_fused_ref(x, w, d, b, 1, 1, c, s_out=s_out)
+    got = grouped_int8_fused(x.to(cuda), grouped_weight(w).to(cuda),
+                             d.to(cuda), b.to(cuda), 1, 1, c, s_out=s_out)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_k5_requantizes_where_the_shortcut_is_off(cuda):
+    """s_out whose inverse is no normal float32: the byte branch divides,
+    bit-equal to the plain version, and so does a large normal one."""
+    gen = torch.Generator().manual_seed(9)
+    x, wt, d, b, _ = _k5_args(2, 32, 9, 9, 32, 3, 32, 0, gen)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    for s_out, scale in ((2.0**127, 2.0**127), (1e-39, 1e-39), (1e30, 1e30)):
+        d_s = d * scale
+        want = grouped_int8_fused_ref(x, wt, d_s, b, 1, 1, 32, s_out=s_out)
+        got = grouped_int8_fused(xc.to(cuda), grouped_weight(wt).to(cuda),
+                                 d_s.to(cuda), b.to(cuda), 1, 1, 32,
+                                 s_out=s_out)
+        assert torch.equal(got.cpu(), want), s_out
 
 
 def test_k5_raises_on_an_nchw_x_or_a_conv_layout_w(cuda):

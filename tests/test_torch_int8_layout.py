@@ -118,7 +118,7 @@ def assert_no_layout_copy(net, sess, x, bf16, monkeypatch):
             mode.inside -= 1
 
     def counted_k5(x, w, *args, **kw):
-        # channels-last x and the (k, k, C/G, O) weight, as made once
+        # channels-last x and the (k, k, O, C/G) weight, as made once
         assert x.is_contiguous(memory_format=CL) and not x.is_contiguous()
         assert k5.is_grouped_weight(w)
         calls["K5"] += 1

@@ -240,7 +240,7 @@ def test_quant_from_numpy_carries_all_four_kinds():
             if node.type == LayerType.DEPTHWISE_CONV2D or (
                     node.type == LayerType.CONV2D
                     and node.param["num_groups"] > 1):
-                assert a["q"].permute(2, 3, 1, 0).is_contiguous()
+                assert a["q"].permute(2, 3, 0, 1).is_contiguous()
             elif node.type == LayerType.CONV2D:
                 assert a["q"].is_contiguous(
                     memory_format=torch.channels_last)

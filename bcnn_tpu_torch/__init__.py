@@ -17,16 +17,24 @@ and mirrors its module names. It imports torch and never JAX. It runs:
   `bcnn-cl` CLI (`cli`);
 - Darknet `.cfg` / `.conf` parsing (`config`), `.bcnnmodel` and Darknet
   `.weights` files (`serialization`), detection metrics (`metrics_det`).
+It deploys: `deploy` exports the serving programs with `torch.export`
+(`Session.export_serving`, `bcnn-cl export`); `checkpoint` writes and
+reads `bcnn_tpu`'s full-state `.npz` (`Session.save_checkpoint`); `log`,
+`debug`, `profiling` and `capi` (the reference's C-style names) are
+ported too.
 Its hand-written CUDA kernels, the YOLO decode (`csrc/yolo_decode.cu`),
 the shear shift along rows or columns (`csrc/row_shift.cu`), the fused
-depthwise conv (`csrc/depthwise.cu`) and the int8 conv
-(`csrc/conv_int8.cu`), are built with nvcc at first CUDA use into
-`_build/`, where the native host library (`native/*.cpp`, g++) goes
-too.
+depthwise conv (`csrc/depthwise.cu`), the int8 conv
+(`csrc/conv_int8.cu`) and the int8 grouped conv (`csrc/grouped_int8.cu`),
+are `torch.library` ops (`ops.library`), built with nvcc at first CUDA
+use into `_build/`, where the native host library (`native/*.cpp`, g++)
+goes too.
 """
 
 from .api import Session
-from .graph import Net, Node, TensorKind, TensorSpec
+from .config import load_net
+from .graph import Learner, Net, Node, TensorKind, TensorSpec
+from .serialization import load_weights, save_weights
 from .types import (
     Activation,
     FillerType,

@@ -2,8 +2,10 @@
 the data loader (`set_data_loader`), predict, detect and train on a batch
 (given, or the loader's next), the K-step scans over loader batches and
 over a record file held on the device, the split-phase forward /
-backward / update, weight files, the host-exact YOLO detections, and
-`freeze_qat` (a net trained with net.qat into its int8 dict).
+backward / update and `get_tensor_value`, weight files, full-state
+checkpoints (`save_checkpoint` / `load_checkpoint`), the serving export
+(`export_serving`), the host-exact YOLO detections, and `freeze_qat` (a
+net trained with net.qat into its int8 dict).
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
@@ -60,6 +62,10 @@ class Session:
         self.last_yolo_stats = None
         # the split-phase API: the last TRAIN forward's (surrogate, leaves)
         self._cur = None
+        # the last forward()'s tensor values by index (get_tensor_value)
+        self._cur_values: Dict[int, torch.Tensor] = {}
+        # training steps taken (bcnn_tpu/api.py:58), kept in checkpoints
+        self._step_count = 0
 
     def compile_net(self):
         """bcnn_compile_net analogue: materialize params/state (and, outside
@@ -173,6 +179,7 @@ class Session:
         if len(out) == 5:  # net.yolo_stats
             self.last_yolo_stats = [
                 {k: float(v) for k, v in st.items()} for st in out[4]]
+        self._step_count += 1
         return loss
 
     def _refuse_scan_forms(self, what: str):
@@ -193,6 +200,7 @@ class Session:
             self.last_yolo_stats = [
                 {kk: v.cpu().numpy() for kk, v in st.items()}
                 for st in out[4]]
+        self._step_count += losses.shape[0]
         return float(losses.sum())
 
     def train_scan_on_batches(self, k: int) -> float:
@@ -267,7 +275,9 @@ class Session:
         net's mode; in TRAIN its autograd record is kept for backward()
         and the new running stats are written. No augmentation runs
         here; a net with dropout draws its masks from a seed taken from
-        the session's generator. Returns the loss."""
+        the session's generator. Every tensor's value is kept for
+        get_tensor_value (int8-flow tensors dequantized). Returns the
+        loss."""
         if x is None:
             x, label = self._next_batch()
         batch = {"input": self._input(x)}
@@ -289,7 +299,18 @@ class Session:
         else:
             with torch.inference_mode():
                 ex = execute(self.net, self.params, self.state, batch, mode)
+        self._cur_values = {i: output_value(ex, i).detach()
+                            for i in ex.values}
         return get_loss(ex).detach()
+
+    def get_tensor_value(self, name: str) -> np.ndarray:
+        """bcnn_get_tensor_by_name for activations (`bcnn_tpu/api.py:
+        401-406`): the tensor's value from the last forward(), NCHW, on
+        the host (bf16 as fp32)."""
+        v = self._cur_values[self.net.get_tensor_index_by_name(name)]
+        if v.dtype == torch.bfloat16:
+            v = v.to(torch.float32)
+        return v.cpu().numpy()
 
     def backward(self) -> Dict[str, torch.Tensor]:
         """bcnn_backward: the gradients of the last TRAIN forward's
@@ -441,6 +462,68 @@ class Session:
 
         load_weights(self.net, self.params, self.state, path, self.device)
         return self
+
+    # -- checkpoint / resume (full state, beyond the reference's
+    #    weights-only bcnn_save_weights) ---------------------------------- #
+
+    def save_checkpoint(self, path: str):
+        """Params, state, optimizer state and the step count in
+        `bcnn_tpu`'s `.npz` checkpoint format (`checkpoint.py`), which
+        `bcnn_tpu.api.Session.load_checkpoint` reads too."""
+        from .checkpoint import save_checkpoint
+
+        save_checkpoint(self.net, path, self.params, self.state,
+                        self.opt_state, extra={"step_count":
+                                               self._step_count})
+
+    def load_checkpoint(self, path: str):
+        """A checkpoint of either package onto the session's device; the
+        optimizer state is taken where the file has one."""
+        from .checkpoint import load_checkpoint
+
+        self.params, self.state, opt, extra = load_checkpoint(
+            self.net, path, self.device)
+        if opt:
+            self.opt_state = opt
+        self._step_count = int(extra.get("step_count", 0))
+        return self
+
+    def export_serving(
+        self,
+        path: Optional[str],
+        detect: bool = False,
+        outputs=None,
+        thresh: float = 0.5,
+        max_dets: int = 100,
+        platforms=None,
+    ) -> bytes:
+        """Export the PREDICT forward (or, with detect=True, the detection
+        program: forward + top-k-first decode + on-device NMS) with the
+        weights baked in (`deploy.py`, on `torch.export`; the kernels are
+        the `bcnn_tpu_torch` ops in its graph). `platforms` defaults to
+        the session's device, where its weights lie. Load with
+        `deploy.load_exported`. Returns
+        the bytes, also written to `path` unless it is None."""
+        from . import deploy
+
+        if detect:
+            if outputs is not None:
+                raise ValueError(
+                    "outputs= applies to forward export only; the detect "
+                    "pipeline returns (boxes, scores, objectness)"
+                )
+            return deploy.export_detect(
+                self.net, self.params, self.state, path,
+                thresh=thresh, max_dets=max_dets, platforms=platforms,
+            )
+        if thresh != 0.5 or max_dets != 100:
+            raise ValueError(
+                "thresh/max_dets apply to detect=True export only"
+            )
+        return deploy.export_forward(
+            self.net, self.params, self.state, path,
+            outputs=outputs, platforms=platforms,
+        )
 
     def get_tensor(self, name: str) -> np.ndarray:
         """Host copy of a param/state tensor, in the port's layout."""

@@ -1,5 +1,5 @@
 """bcnn-cl for the port: `python -m bcnn_tpu_torch.cli
-<train|valid|predict> <conf> [model]`, the port of `bcnn_tpu.cli`
+<train|valid|predict|export> <conf> [model]`, the port of `bcnn_tpu.cli`
 (src/cli/bcnn_cl.c).
 
   - general params from the [net]/[network] section
@@ -14,9 +14,13 @@
     detection net; `valid` on a detection list also prints mAP
     (metrics_det.map_eval).
 
+  - export (beyond bcnn-cl, `bcnn_tpu/cli.py:293-342`): the PREDICT
+    forward, or with --detect the detection program, as a
+    `torch.export` artifact with the weights baked in (`deploy.py`), to
+    --out or <output_model>.pt2; `deploy.load_exported` serves it.
+
 It runs on the card unless the caller asks for the CPU
-(`main(argv, device="cpu")`). `export` (an AOT serving artifact in
-bcnn_tpu) raises: deploy.py is not ported yet.
+(`main(argv, device="cpu")`).
 """
 
 from __future__ import annotations
@@ -269,14 +273,18 @@ def main(argv=None, device="cuda") -> int:
     ap.add_argument("mode", choices=["train", "valid", "predict", "export"])
     ap.add_argument("config")
     ap.add_argument("model", nargs="?", default=None)
+    ap.add_argument(
+        "--out", default=None,
+        help="export: artifact path (default <output_model>.pt2)")
+    ap.add_argument(
+        "--detect", action="store_true",
+        help="export: the detection program instead of the forward")
     args = ap.parse_args(argv)
-    if args.mode == "export":
-        raise NotImplementedError(
-            "bcnn-cl export: the serving export (bcnn_tpu/deploy.py) is "
-            "not ported to bcnn_tpu_torch yet")
+    if args.mode != "export" and (args.out or args.detect):
+        ap.error("--out/--detect apply to export mode only")
 
     mode = {"train": Mode.TRAIN, "valid": Mode.VALID,
-            "predict": Mode.PREDICT}[args.mode]
+            "predict": Mode.PREDICT, "export": Mode.PREDICT}[args.mode]
     param = load_cli_param(args.config)
     net = Net(mode)
     load_net(net, args.config, args.model or param.input_model)
@@ -286,6 +294,17 @@ def main(argv=None, device="cuda") -> int:
         # training batch (bcnn_yolo.c:408-414)
         net.yolo_stats = True
     sess = Session(net, 0, device=device)
+
+    if args.mode == "export":
+        sess.compile_net()
+        out = args.out or (param.output_model or "model") + ".pt2"
+        try:
+            sess.export_serving(out, detect=args.detect)
+        except ValueError as e:
+            print(f"export failed: {e}", file=sys.stderr)
+            return 1
+        print(f"Exported serving artifact to {out}", file=sys.stderr)
+        return 0
     sess.set_data_loader(param.data_format, param.train_input,
                          param.path_train_label, param.test_input,
                          param.path_test_label)

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import ops
+from . import debug, ops
 from .graph import Net, Node, TensorKind
 from .types import Activation, LayerType, Loss, Mode
 
@@ -220,6 +220,8 @@ class _Executor:
             else {}
         )
         taps: Dict[Tuple[int, int], torch.Tensor] = {}
+        checks = debug.CHECKS
+        nan, inf = checks["nan"], checks["inf"]
         for i, node in enumerate(self.net.nodes):
             fn = getattr(self, f"_{node.type.name.lower()}", None)
             if fn is None:
@@ -238,6 +240,8 @@ class _Executor:
             for s, old in swapped.items():
                 if s not in node.dst:  # in-place nodes keep their write
                     self.values[s] = old
+            if nan or inf:
+                debug.check_node(i, node, self.net, self.values, nan, inf)
             for d in node.dst:
                 rec = route.get((d, i))
                 if rec:
@@ -797,6 +801,21 @@ def get_loss(ex: _Executor) -> torch.Tensor:
     if not ex.metrics:
         return torch.zeros((), device=ex.values[0].device)
     return sum(ex.metrics) / len(ex.metrics)
+
+
+def make_forward(net: Net, output_names, mode: Mode):
+    """The forward of `bcnn_tpu/compile.py:781-790`: forward(params,
+    state, inputs, seed=None) -> (the requested tensors, NCHW, int8-flow
+    ones dequantized; the new state). Nothing is traced: it runs the
+    executor eagerly under the caller's grad mode (`deploy.export_forward`
+    traces it)."""
+    out_idx = [net.get_tensor_index_by_name(n) for n in output_names]
+
+    def forward(params, state, inputs, seed=None):
+        ex = execute(net, params, state, inputs, mode, seed)
+        return tuple(output_value(ex, i) for i in out_idx), ex.state
+
+    return forward
 
 
 def make_detect_fn(

@@ -31,10 +31,11 @@ another). It
 writes an int8 output channels-last and an fp32 output (the linear
 heads) NCHW-contiguous, as the heads' readers take them.
 
-The wrapper runs the plain version only for tensors on the CPU, and
-returns the same layouts there. For CUDA tensors it launches the kernel
-or raises, also on an x or w that is not channels-last; nothing falls
-back and nothing is copied. `plan_conv_int8` chooses the kernel's tile
+The wrapper calls the op `bcnn_tpu_torch::conv_int8` (`ops.library`),
+one graph node whatever the device: its CPU implementation is the plain
+version, returning the same layouts; its CUDA implementation,
+`conv_int8_cuda`, launches the kernel or raises, also on an x or w that
+is not channels-last; nothing falls back and nothing is copied. `plan_conv_int8` chooses the kernel's tile
 and its split of K here, where the CPU tests reach it; the kernel checks
 the plan. `conv_int8_fused.launches` counts the kernel's launches: one
 a call, split or not (a split launch first zeroes its tiles' counters
@@ -50,6 +51,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..types import Activation
+from . import library
 
 # the kernel's tile shapes (csrc/conv_int8.cu kCfgs): output pixels and
 # output channels a block, warps along each; the reduction depth of one
@@ -229,6 +231,22 @@ def int8_epilogue_ref(
     return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
 
 
+def out_format(s_out):
+    """K4's and K5's output layout: int8 channels-last, fp32 NCHW."""
+    return torch.contiguous_format if s_out is None else torch.channels_last
+
+
+def check_epilogue(what: str, act, scale, mean, inv) -> Activation:
+    """The epilogue arguments both kernels take: a fused activation, and
+    BN as mean, inv and scale together."""
+    act = Activation(act)
+    if mean is not None and (inv is None or scale is None):
+        raise ValueError(f"{what}: BN needs mean, inv and scale")
+    if act not in FUSED_ACT:
+        raise ValueError(f"{what}: activation {act!r} is not fused")
+    return act
+
+
 def conv_int8_fused(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -242,21 +260,34 @@ def conv_int8_fused(
     inv: Optional[torch.Tensor] = None,
     s_out: Optional[float] = None,
 ) -> torch.Tensor:
-    """K4: `conv_int8_fused_ref` as one CUDA kernel for CUDA tensors. x
-    int8 (N,C,H,W) and w int8 (O,C,k,k), groups 1, on the card both
+    """K4: `conv_int8_fused_ref` as one CUDA kernel for CUDA tensors,
+    through the op `bcnn_tpu_torch::conv_int8` on either device. x int8
+    (N,C,H,W) and w int8 (O,C,k,k), groups 1, on the card both
     channels-last in memory (x NHWC, w (O,k,k,C)); d, bias and the BN
     vectors fp32 (O,). Returns int8 channels-last when s_out is given,
     else fp32 NCHW-contiguous, on either device."""
+    act = check_epilogue("conv_int8_fused", act, scale, mean, inv)
+    library.check_devices("conv_int8_fused", x, w, d, bias, scale, mean,
+                          inv)
+    return _K4(x, w, d, bias, stride, pad, int(act), scale, mean, inv,
+               None if s_out is None else float(s_out))
+
+
+def _conv_int8_cpu(x, w, d, bias, stride, pad, act, scale=None,
+                   mean=None, inv=None, s_out=None):
+    return conv_int8_fused_ref(x, w, d, bias, stride, pad, act, scale, mean,
+                               inv, s_out).contiguous(memory_format=out_format(
+                                   s_out))
+
+
+def conv_int8_cuda(x, w, d, bias, stride, pad, act, scale=None,
+                   mean=None, inv=None, s_out=None):
+    """The op's CUDA implementation, K4's launcher: checks what the
+    kernel takes (raises otherwise), plans, allocates the output and a
+    split's workspace, launches, checks the launch and counts it."""
     act = Activation(act)
-    if mean is not None and (inv is None or scale is None):
-        raise ValueError("conv_int8_fused: BN needs mean, inv and scale")
     vecs = [v for v in (d, bias, scale, mean, inv) if v is not None]
     ts = [x, w, *vecs]
-    fmt = torch.contiguous_format if s_out is None else torch.channels_last
-    if all(t.device.type == "cpu" for t in ts):
-        return conv_int8_fused_ref(x, w, d, bias, stride, pad, act, scale,
-                                   mean, inv, s_out).contiguous(
-                                       memory_format=fmt)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(
             "conv_int8_fused: unsupported devices "
@@ -300,7 +331,7 @@ def conv_int8_fused(
     out = torch.empty(
         (n, o, oh, ow),
         dtype=torch.float32 if s_out is None else torch.int8,
-        device=x.device, memory_format=fmt,
+        device=x.device, memory_format=out_format(s_out),
     )
     if out.numel():
         plan = plan_conv_int8(n, c, h, wd, o, k, stride, pad,
@@ -330,4 +361,38 @@ def conv_int8_fused(
     return out
 
 
+def int8_conv_fake(x, w, stride, pad, s_out):
+    """The output K4 or K5 writes for x (N, C, H, W) and w (O, ., k, k):
+    its shape, dtype and layout, empty."""
+    oh, ow = out_size(x.shape[2], x.shape[3], w.shape[2], stride, pad)
+    return torch.empty(
+        (x.shape[0], w.shape[0], oh, ow),
+        dtype=torch.float32 if s_out is None else torch.int8,
+        device=x.device, memory_format=out_format(s_out))
+
+
+def int8_conv_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    """Operations of K4 or K5 (a multiply and an add a tap), as
+    `torch.utils.flop_counter` counts a convolution."""
+    return 2 * _numel(out_shape) * w_shape[1] * w_shape[2] * w_shape[3]
+
+
+def _numel(shape) -> int:
+    n = 1
+    for v in shape:
+        n *= int(v)
+    return n
+
+
 conv_int8_fused.launches = 0
+_K4 = library.register(
+    "conv_int8",
+    "(Tensor x, Tensor w, Tensor d, Tensor bias, int stride, int pad, "
+    "int act, Tensor? scale=None, Tensor? mean=None, Tensor? inv=None, "
+    "float? s_out=None) -> Tensor",
+    cpu=_conv_int8_cpu,
+    cuda=conv_int8_cuda,
+    fake=lambda x, w, d, bias, stride, pad, act, scale=None, mean=None,
+    inv=None, s_out=None: int8_conv_fake(x, w, stride, pad, s_out),
+    flops=int8_conv_flops,
+)

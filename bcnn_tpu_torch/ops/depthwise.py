@@ -9,12 +9,13 @@ executor, the port runs every depthwise layer through it on the card.
 (the grouped conv), then + b, then `apply_activation`, as
 `bcnn_tpu.compile._depthwise_conv2d` computes the layer.
 
-The wrapper runs the plain version only when every tensor is on the CPU.
-For CUDA tensors it launches the kernel or raises; nothing falls back.
-It takes fp32 only. An activation the kernel does not fuse (TANH,
-SOFTPLUS, ...) runs the kernel with NONE and then `apply_activation`.
-The kernel has no backward yet, so it refuses tensors that autograd
-records. `depthwise_fused.launches` counts the kernel's launches.
+The wrapper calls the op `bcnn_tpu_torch::depthwise` (`ops.library`):
+its CPU implementation is the plain version (and its gradient there the
+plain version's); its CUDA implementation, `depthwise_cuda`, launches
+the kernel or raises; nothing falls back. The kernel takes fp32 only.
+An activation the kernel does not fuse (TANH, SOFTPLUS, ...) runs the op
+with NONE and then `apply_activation`. The kernel has no backward yet,
+so on the card the wrapper refuses tensors that autograd records. `depthwise_fused.launches` counts the kernel's launches.
 
 `plan_tiles` chooses the kernel's tiles here, where the CPU tests reach
 it: g whole planes, or a band of output rows of one plane, a tile; the
@@ -31,6 +32,7 @@ import torch
 
 from .. import kernels
 from ..types import Activation
+from . import library
 from .activations import apply_activation
 from .conv import depthwise_conv2d
 
@@ -154,11 +156,29 @@ def depthwise_fused(
     pad: int, act: Activation = Activation.NONE,
 ) -> torch.Tensor:
     """K3: `depthwise_fused_ref` as one CUDA kernel for CUDA tensors (fp32,
-    contiguous)."""
+    contiguous), through the op `bcnn_tpu_torch::depthwise` on either
+    device; an activation the kernel does not fuse runs after the op."""
+    act = Activation(act)
+    library.check_devices("depthwise_fused", x, w, b)
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, w, b))):
+        raise NotImplementedError(
+            "depthwise_fused: the CUDA kernel has no backward yet"
+        )
+    y = _K3(x, w, b, stride, pad, int(act) if act in _FUSED else 0)
+    return y if act in _FUSED else apply_activation(y, act)
+
+
+def _depthwise_cpu(x, w, b, stride, pad, act):
+    return depthwise_fused_ref(x, w, b, stride, pad, act).contiguous()
+
+
+def depthwise_cuda(x, w, b, stride, pad, act):
+    """The op's CUDA implementation, K3's launcher (`act` a fused one):
+    checks what the kernel takes (raises otherwise), plans, allocates
+    the output, launches, checks the launch and counts it."""
     act = Activation(act)
     ts = (x, w, b)
-    if all(t.device.type == "cpu" for t in ts):
-        return depthwise_fused_ref(x, w, b, stride, pad, act)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(
             "depthwise_fused: unsupported devices "
@@ -183,15 +203,12 @@ def depthwise_fused(
         raise ValueError("depthwise_fused: x, w and b must be contiguous")
     if stride < 1 or pad < 0:
         raise ValueError(f"depthwise_fused: stride {stride}, pad {pad}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "depthwise_fused: the CUDA kernel has no backward yet"
-        )
+    if act not in _FUSED:
+        raise ValueError(f"depthwise_fused: activation {act!r} is not fused")
     n, c, h, wd = x.shape
     k = w.shape[2]
-    oh = max(0, (h + 2 * pad - k) // stride + 1)
-    ow = max(0, (wd + 2 * pad - k) // stride + 1)
-    y = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
+    y = torch.empty((n, c) + _out_hw(h, wd, k, stride, pad),
+                    dtype=torch.float32, device=x.device)
     if y.numel():
         lib = kernels.library()
         plan = plan_tiles(n, c, h, wd, k, stride, pad,
@@ -199,12 +216,63 @@ def depthwise_fused(
         with torch.cuda.device(x.device):
             rc = lib.bcnn_depthwise(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, c,
-                h, wd, k, stride, pad, _FUSED.get(act, 0), *plan,
+                h, wd, k, stride, pad, _FUSED[act], *plan,
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         kernels.check(rc, "depthwise_fused")
         depthwise_fused.launches += 1
-    return y if act in _FUSED else apply_activation(y, act)
+    return y
+
+
+def _out_hw(h, w, k, stride, pad):
+    return (max(0, (h + 2 * pad - k) // stride + 1),
+            max(0, (w + 2 * pad - k) // stride + 1))
+
+
+def _depthwise_fake(x, w, b, stride, pad, act):
+    return x.new_empty((x.shape[0], x.shape[1])
+                       + _out_hw(x.shape[2], x.shape[3], w.shape[2], stride,
+                                 pad))
+
+
+def _depthwise_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    """A multiply and an add a tap of each output, as
+    `torch.utils.flop_counter` counts a convolution."""
+    n, c, oh, ow = out_shape
+    return 2 * n * c * oh * ow * w_shape[2] * w_shape[3]
+
+
+def _setup_backward(ctx, inputs, output):
+    x, w, b, stride, pad, act = inputs
+    ctx.save_for_backward(x, w, b)
+    ctx.conf = (stride, pad, act)
+
+
+def _backward(ctx, gy):
+    """The plain version's gradient, on the CPU; the kernel has none."""
+    x, w, b = ctx.saved_tensors
+    if gy.device.type != "cpu":
+        raise NotImplementedError(
+            "depthwise_fused: the CUDA kernel has no backward yet")
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, w, b), ctx.needs_input_grad)]
+        y = depthwise_fused_ref(*leaves, *ctx.conf)
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(y, want, gy))
+    return tuple(next(got) if t.requires_grad else None
+                 for t in leaves) + (None, None, None)
 
 
 depthwise_fused.launches = 0
+_K3 = library.register(
+    "depthwise",
+    "(Tensor x, Tensor w, Tensor b, int stride, int pad, int act) -> Tensor",
+    cpu=_depthwise_cpu,
+    cuda=depthwise_cuda,
+    fake=_depthwise_fake,
+    flops=_depthwise_flops,
+)
+torch.library.register_autograd(
+    f"{library.NAMESPACE}::depthwise", _backward,
+    setup_context=_setup_backward, lib=library._LIB)

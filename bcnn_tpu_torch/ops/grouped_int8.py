@@ -35,9 +35,10 @@ and decides exactly (without dividing) only within 2^-15 of a
 half-integer (`requant_bits_ref` is its numpy twin), so every code
 equals rint(y / s)'s.
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises, also on an x that is not
-channels-last or a w not in K5's layout. `plan_grouped_int8` chooses
+The wrapper calls the op `bcnn_tpu_torch::grouped_int8` (`ops.library`):
+its CPU implementation is the plain version; its CUDA implementation,
+`grouped_int8_cuda`, launches the kernel or raises, also on an x that is
+not channels-last or a w not in K5's layout. `plan_grouped_int8` chooses
 the branch and the launch geometry here, where the CPU tests reach it
 (`tests/test_torch_grouped_int8_plan.py` emulates the kernel's words and
 byte operations with it). `grouped_int8_fused.launches` counts the
@@ -53,7 +54,10 @@ import torch
 
 from .. import kernels
 from ..types import Activation
-from .conv_int8 import FUSED_ACT, conv2d_int32, int8_epilogue_ref, out_size
+from . import library
+from .conv_int8 import (FUSED_ACT, check_epilogue, conv2d_int32,
+                        int8_conv_fake, int8_conv_flops, int8_epilogue_ref,
+                        out_format, out_size)
 
 # csrc/grouped_int8.cu's branches: depthwise 3x3 on 16-channel lanes,
 # grouped __dp4a on 16 or 4 of a group's channels at a time, bytes
@@ -258,21 +262,34 @@ def grouped_int8_fused(
     inv: Optional[torch.Tensor] = None,
     s_out: Optional[float] = None,
 ) -> torch.Tensor:
-    """K5: `grouped_int8_fused_ref` as one CUDA kernel for CUDA tensors.
-    x int8 (N,C,H,W), w int8 (O,C/groups,k,k), on the card x
-    channels-last and w in `grouped_weight`'s layout; d, bias and the BN
-    vectors fp32 (O,). Returns int8 channels-last when s_out is given,
-    else fp32 NCHW-contiguous, on either device."""
+    """K5: `grouped_int8_fused_ref` as one CUDA kernel for CUDA tensors,
+    through the op `bcnn_tpu_torch::grouped_int8` on either device. x
+    int8 (N,C,H,W), w int8 (O,C/groups,k,k), on the card x channels-last
+    and w in `grouped_weight`'s layout; d, bias and the BN vectors fp32
+    (O,). Returns int8 channels-last when s_out is given, else fp32
+    NCHW-contiguous, on either device."""
+    act = check_epilogue("grouped_int8_fused", act, scale, mean, inv)
+    library.check_devices("grouped_int8_fused", x, w, d, bias, scale,
+                          mean, inv)
+    return _K5(x, w, d, bias, stride, pad, groups, int(act), scale, mean,
+               inv, None if s_out is None else float(s_out))
+
+
+def _grouped_int8_cpu(x, w, d, bias, stride, pad, groups, act, scale=None,
+                      mean=None, inv=None, s_out=None):
+    return grouped_int8_fused_ref(
+        x, w, d, bias, stride, pad, groups, act, scale, mean, inv,
+        s_out).contiguous(memory_format=out_format(s_out))
+
+
+def grouped_int8_cuda(x, w, d, bias, stride, pad, groups, act, scale=None,
+                      mean=None, inv=None, s_out=None):
+    """The op's CUDA implementation, K5's launcher: checks what the
+    kernel takes (raises otherwise), plans, allocates the output,
+    launches (`launch`) and counts the launch."""
     act = Activation(act)
-    if mean is not None and (inv is None or scale is None):
-        raise ValueError("grouped_int8_fused: BN needs mean, inv and scale")
     vecs = [v for v in (d, bias, scale, mean, inv) if v is not None]
     ts = [x, w, *vecs]
-    fmt = torch.contiguous_format if s_out is None else torch.channels_last
-    if all(t.device.type == "cpu" for t in ts):
-        return grouped_int8_fused_ref(
-            x, w, d, bias, stride, pad, groups, act, scale, mean, inv,
-            s_out).contiguous(memory_format=fmt)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(
             "grouped_int8_fused: unsupported devices "
@@ -319,7 +336,7 @@ def grouped_int8_fused(
     out = torch.empty(
         (n, o, oh, ow),
         dtype=torch.float32 if s_out is None else torch.int8,
-        device=x.device, memory_format=fmt,
+        device=x.device, memory_format=out_format(s_out),
     )
     if out.numel():
         plan = plan_grouped_int8(
@@ -356,3 +373,15 @@ def launch(plan: GroupedPlan, x, w, d, bias, stride, pad, groups, act,
 
 
 grouped_int8_fused.launches = 0
+_K5 = library.register(
+    "grouped_int8",
+    "(Tensor x, Tensor w, Tensor d, Tensor bias, int stride, int pad, "
+    "int groups, int act, Tensor? scale=None, Tensor? mean=None, "
+    "Tensor? inv=None, float? s_out=None) -> Tensor",
+    cpu=_grouped_int8_cpu,
+    cuda=grouped_int8_cuda,
+    fake=lambda x, w, d, bias, stride, pad, groups, act, scale=None,
+    mean=None, inv=None, s_out=None: int8_conv_fake(x, w, stride, pad,
+                                                    s_out),
+    flops=int8_conv_flops,
+)

@@ -1,0 +1,69 @@
+"""The hand-written kernels K1-K5 as `torch.library` custom ops, in the
+`bcnn_tpu_torch` namespace: `yolo_decode` (K1), `row_shift` (K2, both
+modes), `depthwise` (K3), `conv_int8` (K4), `grouped_int8` (K5).
+
+Each op is one node of a traced or exported graph (`torch.export`,
+`deploy.py`) and dispatches on its tensors' device: the CUDA
+implementation launches the kernel (the launcher of its module: the
+plan, the workspace, `kernels.check`, the launch counter) and raises on
+what the kernel does not take; the CPU implementation is the plain
+version; the fake implementation gives the real op's shape, dtype and
+strides, so a program traced with fake tensors lays its tensors out as
+the kernel does (K4 and K5 write int8 channels-last). A program traced
+on the CPU therefore holds the op where the kernel runs, and replaying
+it on the card launches the kernel.
+
+The ops are registered through `torch.library.Library.impl`, which puts
+a Python function straight into the dispatcher, when the kernel modules
+are imported (`bcnn_tpu_torch.ops` imports them all); nothing is built
+then (`kernels.py` builds at the first CUDA launch). The public wrappers
+(`decode_fused`, `row_shift`, `col_shift`, `depthwise_fused`,
+`conv_int8_fused`, `grouped_int8_fused`) call the ops on both devices.
+K3's, K4's and K5's flop formulas are registered with
+`torch.utils.flop_counter`, so that `FlopCounterMode`
+(`profiling.memory_report`) counts their work as it counts aten's convs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+NAMESPACE = "bcnn_tpu_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def register(
+    name: str,
+    schema: str,
+    cpu: Callable,
+    cuda: Callable,
+    fake: Callable,
+    flops: Optional[Callable] = None,
+) -> torch._ops.OpOverload:
+    """Define `bcnn_tpu_torch::<name>` with `schema` (the arguments and
+    results, e.g. "(Tensor x, int k) -> Tensor"), its CPU, CUDA and fake
+    implementations and, where given, its flop formula (called with the
+    tensors' shapes and `out_shape`); returns the op's overload."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    packet = getattr(getattr(torch.ops, NAMESPACE), name)
+    if flops is not None:
+        register_flop_formula(packet)(flops)
+    return packet.default
+
+
+def check_devices(what: str, *ts: Optional[torch.Tensor]) -> None:
+    """A wrapper's tensors (None skipped) all on the CPU or all on one CUDA
+    device, else ValueError: the op would dispatch another device's
+    tensors (meta, or a CPU tensor beside CUDA ones) where no kernel of
+    the port runs."""
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) > 1 or any(d.type not in ("cpu", "cuda") for d in devs):
+        raise ValueError(f"{what}: unsupported devices "
+                         + ", ".join(str(t.device) for t in ts
+                                     if t is not None))

@@ -12,8 +12,10 @@ either transposing copy. `row_shift_ref` and `col_shift_ref` are their
 plain versions: `_row_shift`'s sweep over the 2*kmax + 1 integer shifts,
 on the padded rows or columns.
 
-A wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; nothing falls back. Both
+Both wrappers call the op `bcnn_tpu_torch::row_shift` (`ops.library`;
+`columns` picks the mode): its CPU implementation is the plain version;
+its CUDA implementation, `shift_cuda`, launches the kernel or raises;
+nothing falls back. Both
 modes count on K2's one counter, `row_shift.launches`.
 """
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from . import library
 
 
 def _shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill, axis):
@@ -96,41 +99,15 @@ def _check(what, img, d):
                          f"{tuple(d.shape)} must be contiguous, 4-D and 2-D")
 
 
-def _launch(what, entry, img, d, out, dims, kmax, out_x0, out_w, in_x0,
-            fill):
-    if kmax < 0 or out_w < 0:
-        raise ValueError(f"{what}: kmax {kmax}, out_w {out_w}")
-    if out.numel() == 0:
-        return out
-    lib = kernels.library()
-    with torch.cuda.device(img.device):
-        rc = getattr(lib, entry)(
-            img.data_ptr(), d.data_ptr(), out.data_ptr(), *dims, kmax,
-            out_x0, out_w, in_x0, float(fill),
-            torch.cuda.current_stream(img.device).cuda_stream,
-        )
-    kernels.check(rc, what)
-    row_shift.launches += 1
-    return out
-
-
 def row_shift(
     img: torch.Tensor, d: torch.Tensor, kmax: int, out_x0: int, out_w: int,
     in_x0: int, fill: float,
 ) -> torch.Tensor:
     """K2, row mode: `row_shift_ref` as one CUDA kernel for CUDA tensors
-    (img fp32 contiguous (N, R, win, C), d fp32 contiguous (N, R))."""
-    if img.device.type == "cpu" and d.device.type == "cpu":
-        return row_shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill)
-    _check("row_shift", img, d)
-    if tuple(d.shape) != tuple(img.shape[:2]):
-        raise ValueError(f"row_shift: d {tuple(d.shape)} is not (N, R) of "
-                         f"img {tuple(img.shape)}")
-    n, rows, win, chans = img.shape
-    out = torch.empty((n, rows, out_w, chans), dtype=torch.float32,
-                      device=img.device)
-    return _launch("row_shift", "bcnn_row_shift", img, d, out,
-                   (n, rows, win, chans), kmax, out_x0, out_w, in_x0, fill)
+    (img fp32 contiguous (N, R, win, C), d fp32 contiguous (N, R)),
+    through the op `bcnn_tpu_torch::row_shift` on either device."""
+    library.check_devices("row_shift", img, d)
+    return _K2(img, d, kmax, out_x0, out_w, in_x0, float(fill), False)
 
 
 def col_shift(
@@ -139,18 +116,57 @@ def col_shift(
 ) -> torch.Tensor:
     """K2, column mode: `col_shift_ref` as one CUDA kernel for CUDA
     tensors (img fp32 contiguous (N, win, R, C), d fp32 contiguous
-    (N, R)); returns (N, out_w, R, C), contiguous."""
-    if img.device.type == "cpu" and d.device.type == "cpu":
-        return col_shift_ref(img, d, kmax, out_x0, out_w, in_x0, fill)
-    _check("col_shift", img, d)
-    if tuple(d.shape) != (img.shape[0], img.shape[2]):
-        raise ValueError(f"col_shift: d {tuple(d.shape)} is not (N, R) of "
+    (N, R)), through the op `bcnn_tpu_torch::row_shift` (columns set) on
+    either device; returns (N, out_w, R, C), contiguous."""
+    library.check_devices("col_shift", img, d)
+    return _K2(img, d, kmax, out_x0, out_w, in_x0, float(fill), True)
+
+
+def _shift_cpu(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
+    ref = col_shift_ref if columns else row_shift_ref
+    return ref(img, d, kmax, out_x0, out_w, in_x0, fill).contiguous()
+
+
+def shift_cuda(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
+    """The op's CUDA implementation, K2's launcher in row or column mode:
+    checks what the kernel takes (raises otherwise), allocates the
+    output, launches, checks the launch and counts it (both modes on
+    `row_shift.launches`)."""
+    what = "col_shift" if columns else "row_shift"
+    _check(what, img, d)
+    lines = (img.shape[0], img.shape[2] if columns else img.shape[1])
+    if tuple(d.shape) != lines:
+        raise ValueError(f"{what}: d {tuple(d.shape)} is not (N, R) of "
                          f"img {tuple(img.shape)}")
-    n, win, cols, chans = img.shape
-    out = torch.empty((n, out_w, cols, chans), dtype=torch.float32,
-                      device=img.device)
-    return _launch("col_shift", "bcnn_col_shift", img, d, out,
-                   (n, win, cols, chans), kmax, out_x0, out_w, in_x0, fill)
+    if kmax < 0 or out_w < 0:
+        raise ValueError(f"{what}: kmax {kmax}, out_w {out_w}")
+    out = _shift_fake(img, d, kmax, out_x0, out_w, in_x0, fill, columns)
+    if out.numel() == 0:
+        return out
+    lib = kernels.library()
+    entry = lib.bcnn_col_shift if columns else lib.bcnn_row_shift
+    with torch.cuda.device(img.device):
+        rc = entry(
+            img.data_ptr(), d.data_ptr(), out.data_ptr(), *img.shape, kmax,
+            out_x0, out_w, in_x0, float(fill),
+            torch.cuda.current_stream(img.device).cuda_stream,
+        )
+    kernels.check(rc, what)
+    row_shift.launches += 1
+    return out
+
+
+def _shift_fake(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
+    n, a, b, c = img.shape
+    return img.new_empty((n, out_w, b, c) if columns else (n, a, out_w, c))
 
 
 row_shift.launches = 0
+_K2 = library.register(
+    "row_shift",
+    "(Tensor img, Tensor d, int kmax, int out_x0, int out_w, int in_x0, "
+    "float fill, bool columns) -> Tensor",
+    cpu=_shift_cpu,
+    cuda=shift_cuda,
+    fake=_shift_fake,
+)

@@ -7,8 +7,10 @@ writes decoded boxes, objectness and objectness-weighted class
 probabilities, ready for `ops.yolo.device_decode_nms`. `decode_grid_ref`
 is its plain version, the counterpart of `decode_grid_jnp`.
 
-The wrapper runs the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises; nothing falls back.
+The wrapper calls the op `bcnn_tpu_torch::yolo_decode` (`ops.library`;
+the head's anchors go in as (w, h) pairs): its CPU implementation is
+the plain version; its CUDA implementation, `decode_cuda`, launches the
+kernel or raises; nothing falls back.
 `decode_fused.launches` counts the kernel's launches.
 """
 
@@ -20,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import kernels
+from . import library
 from .yolo import _decode_grid, yolo_head
 
 # the kernel passes the anchors of a head in its launch parameters
@@ -49,12 +52,33 @@ def decode_fused(
     x: torch.Tensor, param: Dict, net_w: int, net_h: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: the decode of `decode_grid_ref`, as one CUDA kernel for a
-    CUDA tensor x (fp32, contiguous)."""
-    if x.device.type == "cpu":
-        return decode_grid_ref(x, param, net_w, net_h)
+    CUDA tensor x (fp32, contiguous), through the op
+    `bcnn_tpu_torch::yolo_decode` on either device. The op takes the
+    head's anchors as (w, h) pairs in mask order."""
+    library.check_devices("decode_fused", x)
+    anchors, mask = param["anchors"], param["mask"]
+    awh = [float(anchors[2 * mi + j]) for mi in mask for j in (0, 1)]
+    return _K1(x, awh, param["classes"], float(net_w), float(net_h))
+
+
+def _anchor_param(anchors, classes):
+    num = len(anchors) // 2
+    return dict(num=num, classes=classes, anchors=list(anchors),
+                mask=list(range(num)))
+
+
+def _decode_cpu(x, anchors, classes, net_w, net_h):
+    return tuple(t.contiguous() for t in decode_grid_ref(
+        x, _anchor_param(anchors, classes), net_w, net_h))
+
+
+def decode_cuda(x, anchors, classes, net_w, net_h):
+    """The op's CUDA implementation, K1's launcher: checks what the
+    kernel takes (raises otherwise), allocates the outputs, launches,
+    checks the launch and counts it."""
     if x.device.type != "cuda":
         raise ValueError(f"decode_fused: unsupported device {x.device}")
-    num, classes = param["num"], param["classes"]
+    num = len(anchors) // 2
     if x.dtype != torch.float32:
         raise TypeError(f"decode_fused: needs float32, got {x.dtype}")
     if x.dim() != 4 or x.shape[1] != num * (5 + classes):
@@ -66,18 +90,11 @@ def decode_fused(
         raise ValueError("decode_fused: x must be contiguous")
     if not 1 <= num <= MAX_ANCHORS:
         raise ValueError(f"decode_fused: {num} anchors, at most {MAX_ANCHORS}")
-    n, _, h, w = x.shape
-    m = h * w * num
-    opts = dict(dtype=torch.float32, device=x.device)
-    boxes = torch.empty((n, m, 4), **opts)
-    obj = torch.empty((n, m), **opts)
-    probs = torch.empty((n, m, classes), **opts)
+    boxes, obj, probs = _decode_fake(x, anchors, classes, net_w, net_h)
     if obj.numel() == 0:
         return boxes, obj, probs
-    anchors, mask = param["anchors"], param["mask"]
-    awh = (ctypes.c_float * (2 * num))(
-        *[float(anchors[2 * mi + j]) for mi in mask for j in (0, 1)]
-    )
+    n, _, h, w = x.shape
+    awh = (ctypes.c_float * (2 * num))(*anchors)
     lib = kernels.library()
     with torch.cuda.device(x.device):
         rc = lib.bcnn_yolo_decode(
@@ -91,4 +108,21 @@ def decode_fused(
     return boxes, obj, probs
 
 
+def _decode_fake(x, anchors, classes, net_w, net_h):
+    """The three outputs, empty: boxes (N, M, 4), obj (N, M), probs (N,
+    M, K), M = H W A, contiguous in x's dtype."""
+    n, _, h, w = x.shape
+    m = h * w * (len(anchors) // 2)
+    return (x.new_empty((n, m, 4)), x.new_empty((n, m)),
+            x.new_empty((n, m, classes)))
+
+
 decode_fused.launches = 0
+_K1 = library.register(
+    "yolo_decode",
+    "(Tensor x, float[] anchors, int classes, float net_w, float net_h) "
+    "-> (Tensor, Tensor, Tensor)",
+    cpu=_decode_cpu,
+    cuda=decode_cuda,
+    fake=_decode_fake,
+)

@@ -177,10 +177,13 @@ def _read(fp: BinaryIO, n: int, what: str) -> np.ndarray:
 
 
 def load_weights(net: Net, params: Dict, state: Dict, filename: str,
-                 device="cpu"):
+                 device=None):
     """Read `filename` into params / state (in place, float32 tensors on
     `device`); returns (params, state). Folds BN when net.mode is
-    PREDICT and sets net.bn_folded."""
+    PREDICT and sets net.bn_folded. Without `device` the tensors land
+    where the tensors of `params` (or `state`) lie, a Session's device,
+    and on "cuda" where there are none: a CPU caller passes
+    device="cpu"."""
     fmt = model_find_format(filename)
     if fmt == 2:
         raise NotImplementedError("onnx weights not supported (as reference)")
@@ -215,12 +218,28 @@ def load_weights(net: Net, params: Dict, state: Dict, filename: str,
                 _load_batchnorm(net, node, fp, fmt, out_p, out_s, fold, old_b)
             elif node.type == LayerType.FULL_CONNECTED:
                 _load_fullc(net, node, fp, out_p, need_transpose)
+    device = _device_of(params, state, device)
     for src, dst in ((out_p, params), (out_s, state)):
         for k, v in src.items():
             dst[k] = torch.from_numpy(np.array(v, np.float32)).to(device)
     if fold:
         net.bn_folded = True
     return params, state
+
+
+def _device_of(params: Dict, state: Dict, device) -> torch.device:
+    """`device`, else that of the first tensor of params or state, else
+    "cuda", which must then be there."""
+    if device is None:
+        have = [*params.values(), *state.values()]
+        device = have[0].device if have else torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "load_weights: the weights go to the card (no device given and "
+            "no params to follow), but CUDA is not available; pass "
+            'device="cpu" to load them on the CPU')
+    return device
 
 
 def _fold_bn(b: np.ndarray, s: np.ndarray, m: np.ndarray, v: np.ndarray):

@@ -65,9 +65,21 @@ paths (full width and depth, random weights from a seed):
     the reference's padded quirk), LRN, dropout (the card's masks handed
     to the CPU), PReLU and the lifted-structure loss, one step card vs
     CPU; MobileNet-v1 bf16 + act16 training at batch 32 (FC and depthwise
-    in bf16); bcnn-cl train on the lifted-structure recipe at batch 128.
+    in bf16); bcnn-cl train on the lifted-structure recipe at batch 128;
+  - deploy and resume (phase 13): YOLOv3-tiny's detect program (416,
+    batch 8) at fp32 and int8 and MobileNet-v1's forward (224, batch 64)
+    at fp32 and int8 exported with Session.export_serving (torch.export,
+    the kernels as bcnn_tpu_torch ops in the graph), loaded from the
+    .pt2 file and served against the live path (bit-equal, the same
+    launches a call) and a CPU export; the int8 YOLOv3-tiny file served
+    by a fresh process; bcnn-cl export of yolov3-tiny.cfg --detect over
+    a seeded .weights; a checkpoint of YOLOv3-tiny training (batch 32,
+    rotation 10) resumed bit for bit; profile_forward and memory_report;
+    the host time of one K4 call through its wrapper, its op and its
+    launcher.
 Each path runs with the launch counts set to 0 just before it and read
-just after. Any failure exits nonzero. The last line of stdout is
+just after; each phase prints its seconds. Every kernel is reached
+through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, its error against the plain version, its time
 warm and cold, the plain version's, its bound (the bytes it must move at
@@ -3342,6 +3354,439 @@ def qat_phase(gpu):
             launches[True]["K4"] + launches[False]["K4"])
 
 
+# ------------------------------------------------------------------------
+# phase 13: deploy and resume (torch.export artifacts, checkpoints)
+# ------------------------------------------------------------------------
+
+# each exported program serves P13_REQUESTS requests after a warm-up, and
+# its live counterpart as many, in turns; an fp32 export that is not
+# bit-equal to live is held within P13_RTOL (counted entries apart)
+P13_REQUESTS, P13_RTOL = 20, 1e-5
+# the checkpoint phase: YOLOv3-tiny at 416, batch 32, rotation 10: steps
+# before the checkpoint, and the steps replayed after it
+P13_STEPS = 3
+# the op's dispatch against a direct call of its launcher: host time of
+# one K4 call, each call timed alone, in turns, median of P13_HOST_CALLS
+P13_HOST_CALLS = 200
+
+
+def exported_check(label, served, live, x, want_counts, gpu, t_export,
+                   t_load, exact_only):
+    """Serve x through the loaded program (`served`) and the live path
+    (`live`): a warm-up and P13_REQUESTS requests each, in turns, with
+    the launch counts set to 0 before the program's: its counts a call
+    must be `want_counts`. Its outputs bit-equal to live (`exact_only`),
+    or else the count of entries apart printed and each within
+    P13_RTOL. Prints the latencies; returns the counts and the outputs
+    of the last request."""
+    zero_counts()
+    outs, lat_exp = serve(served, [x] * (1 + P13_REQUESTS))
+    got = counts()
+    calls = len(lat_exp)
+    want = {k: want_counts.get(k, 0) * calls for k in got}
+    if got != want:
+        raise RuntimeError(f"{label}: exported program launched {got}, "
+                           f"wanted {want} in {calls} calls")
+    live_outs, lat_live = serve(live, [x] * (1 + P13_REQUESTS))
+    apart = 0
+    for g, w in zip(outs[-1], live_outs[-1]):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{label}: exported {g.shape} {g.dtype}, "
+                               f"live {w.shape} {w.dtype}")
+        if torch.equal(g, w):
+            continue
+        if exact_only:
+            raise RuntimeError(f"{label}: exported output is not bit-equal "
+                               "to live")
+        apart += int((g != w).sum())
+        torch.testing.assert_close(g, w, rtol=P13_RTOL, atol=0)
+    if any(not all(torch.equal(a, b) for a, b in zip(o, outs[-1]))
+           for o in outs[1:]):
+        raise RuntimeError(f"{label}: the exported program's requests "
+                           "differ from one another")
+    e, l_ = lat_exp[1:], lat_live[1:]
+    print(f"{label} on {gpu}: export {t_export:.2f} s, load {t_load:.2f} s;"
+          f" {P13_REQUESTS} requests after a warm-up: exported median "
+          f"{statistics.median(e):.2f} ms, min {min(e):.2f} ms; live median "
+          f"{statistics.median(l_):.2f} ms, min {min(l_):.2f} ms; launches "
+          f"a call {want_counts}; "
+          + ("bit-equal to live" if not apart else
+             f"{apart} entries apart from live, within rtol {P13_RTOL}"),
+          flush=True)
+    return got, outs[-1]
+
+
+def export_and_load(sess, path, **kw):
+    """sess.export_serving to `path`, then deploy.load_exported of the
+    file: (the loaded call, export seconds, load seconds)."""
+    from bcnn_tpu_torch import deploy
+
+    t0 = time.perf_counter()
+    sess.export_serving(path, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    served = deploy.load_exported(path)
+    t2 = time.perf_counter()
+    if served.platforms != (sess.device.type,):
+        raise RuntimeError(f"artifact platforms {served.platforms}")
+    return served, t1 - t0, t2 - t1
+
+
+def cpu_twin(net, params, state, quant=None, bf16=False):
+    """A CPU session of `net` (the card's graph at batch 2) on copies of
+    the card's weights, with `quant` (the CPU quant dict) where given and
+    bf16 compute and activations with `bf16`."""
+    net.quant = quant
+    if bf16:
+        net.compute_dtype = net.act_dtype = torch.bfloat16
+    cpu = Session(net, SEED, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in params.items()}
+    cpu.state = {k: v.cpu() for k, v in state.items()}
+    return cpu.compile_net()
+
+
+def int8_sessions(net, params, state):
+    """ptq_synthetic on the CPU (one quant dict for both devices, as phase
+    6b and 11 make it), then the card's session on the CPU's weights with
+    the quant weights moved over: (card session, CPU quant dict)."""
+    cpu = Session(net, SEED, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in params.items()}
+    cpu.state = {k: v.cpu() for k, v in state.items()}
+    cpu.compile_net()
+    quant_cpu = ptq_synthetic(net, cpu)
+    sess = Session(net, SEED, device="cuda")
+    sess.params = {k: v.cuda() for k, v in cpu.params.items()}
+    sess.state = {k: v.cuda() for k, v in cpu.state.items()}
+    sess.compile_net()
+    net.quant = dict(quant_cpu, weights={
+        k: {kk: vv.cuda() for kk, vv in e.items()}
+        for k, e in quant_cpu["weights"].items()})
+    return sess, quant_cpu
+
+
+def served_on_cpu(cpu, path, x, **kw):
+    """The CPU export of the twin session, served on x (two images)."""
+    from bcnn_tpu_torch import deploy
+
+    cpu.export_serving(path, **kw)
+    return deploy.load_exported(path)(torch.from_numpy(x))
+
+
+def fresh_process_check(path, x, want, tmp):
+    """A new Python process that imports only bcnn_tpu_torch.deploy loads
+    the artifact and serves x on the card; its outputs must equal
+    `want`."""
+    xin, out = os.path.join(tmp, "x.npy"), os.path.join(tmp, "out.pt")
+    np.save(xin, x)
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from bcnn_tpu_torch import deploy\n"
+        "call = deploy.load_exported(sys.argv[1])\n"
+        "y = call(torch.from_numpy(np.load(sys.argv[2])).cuda())\n"
+        "torch.cuda.synchronize()\n"
+        "torch.save([t.cpu() for t in y], sys.argv[3])\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, path, xin, out],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise RuntimeError(f"fresh process failed:\n{res.stderr[-3000:]}")
+    got = torch.load(out)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("the fresh process's outputs differ")
+    print(f"a fresh process (imports bcnn_tpu_torch.deploy only) loaded "
+          f"{os.path.basename(path)} and served it on the card, bit-equal, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def op_host_cost(gpu):
+    """Host time of one K4 call (the 13x13 conv of YOLOv3-tiny 416 at batch
+    8, int8 out) through the public wrapper, through the op
+    (`torch.ops.bcnn_tpu_torch.conv_int8`) and through its launcher
+    called directly (`conv_int8_cuda`), each call timed alone on the host
+    clock, in turns, median and min of P13_HOST_CALLS."""
+    from bcnn_tpu_torch.ops import conv_int8 as k4
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    x = torch.randint(-127, 128, (BATCH, 256, 13, 13), generator=gen,
+                      dtype=torch.int8).cuda().contiguous(
+                          memory_format=torch.channels_last)
+    w = channels_last_weight(torch.randint(
+        -127, 128, (512, 256, 3, 3), generator=gen, dtype=torch.int8)).cuda()
+    d = torch.full((512,), 1e-4).cuda()
+    b = torch.zeros(512).cuda()
+    args = (x, w, d, b, 1, 1, int(Activation.LRELU), None, None, None, 0.05)
+    op = torch.ops.bcnn_tpu_torch.conv_int8.default
+    fns = {
+        "wrapper": lambda: conv_int8_fused(x, w, d, b, 1, 1,
+                                           Activation.LRELU, s_out=0.05),
+        "op": lambda: op(*args),
+        "launcher": lambda: k4.conv_int8_cuda(*args),
+    }
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for i in range(P13_HOST_CALLS):
+        for k in (fns if i % 2 == 0 else reversed(list(fns))):
+            t0 = time.perf_counter()
+            fns[k]()
+            times[k].append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    out = {k: (statistics.median(v), min(v)) for k, v in times.items()}
+    print(f"host time of one K4 call on {gpu}, median / min of "
+          f"{P13_HOST_CALLS} (us): "
+          + ", ".join(f"{k} {m:.1f} / {lo:.1f}" for k, (m, lo) in out.items())
+          + f"; the op's dispatch adds {out['op'][0] - out['launcher'][0]:.1f}"
+          " us a call", flush=True)
+    return out
+
+
+def resume_phase(gpu, tmp):
+    """YOLOv3-tiny TRAIN at 416, batch 32, rotation 10 (K2), cuDNN's
+    deterministic algorithms: P13_STEPS steps, save_checkpoint, P13_STEPS
+    more; a fresh Session loads the checkpoint, takes the
+    session generator's state at the save (the augmentation's draws) and
+    the same steps: params, state, optimizer state and seen bit-equal.
+    Returns K2's launches."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sess = train_session(TRAIN_BATCH, "cuda")
+        sess.state = {k: v.cuda() for k, v in bn_stats(sess.net).items()}
+        rng = np.random.RandomState(SEED + 33)
+        batches = [(rng.randint(0, 256, (TRAIN_BATCH, 3, SIZE, SIZE)).astype(
+            np.uint8), det_labels(rng, TRAIN_BATCH))
+            for _ in range(2 * P13_STEPS)]
+        zero_counts()
+        for x, lab in batches[:P13_STEPS]:
+            sess.train_on_batch(x, lab)
+        path = os.path.join(tmp, "tiny_ckpt.npz")
+        t0 = time.perf_counter()
+        sess.save_checkpoint(path)
+        t1 = time.perf_counter()
+        rng_state = sess._rng.get_state()
+        for x, lab in batches[P13_STEPS:]:
+            sess.train_on_batch(x, lab)
+        fresh = train_session(TRAIN_BATCH, "cuda")
+        t2 = time.perf_counter()
+        fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fresh._rng.set_state(rng_state)
+        for x, lab in batches[P13_STEPS:]:
+            fresh.train_on_batch(x, lab)
+        torch.cuda.synchronize()
+        k2 = row_shift.launches
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if k2 != 3 * 3 * P13_STEPS:
+        raise RuntimeError(f"K2 launched {k2} times in {3 * P13_STEPS} "
+                           "steps")
+    for name, a, b in (("params", sess.params, fresh.params),
+                       ("state", sess.state, fresh.state),
+                       ("velocity", sess.opt_state["velocity"],
+                        fresh.opt_state["velocity"])):
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise RuntimeError(f"resumed training: {name} differ")
+    if sess.opt_state["seen"] != fresh.opt_state["seen"] or \
+            fresh._step_count != 2 * P13_STEPS:
+        raise RuntimeError("resumed training: seen or the step count differ")
+    print(f"checkpoint and resume, YOLOv3-tiny {SIZE} px, batch "
+          f"{TRAIN_BATCH}, rotation 10, cudnn.deterministic, on {gpu}: "
+          f"save {t1 - t0:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+          f"load {t3 - t2:.2f} s; after {P13_STEPS} more steps the resumed "
+          f"session's params, running stats, velocity and seen "
+          f"({fresh.opt_state['seen']}) are bit-equal to the uninterrupted "
+          f"one's", flush=True)
+    return k2
+
+
+def profile_phase(gpu):
+    """profiling.profile_forward and memory_report on YOLOv3-tiny 416 at
+    batch 8 (fp32) on the card."""
+    from bcnn_tpu_torch import profiling
+
+    net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
+    sess = Session(net, SEED, device="cuda")
+    sess.state = bn_stats(net)
+    sess.compile_net()
+    x = np.random.RandomState(SEED + 35).rand(BATCH, 3, SIZE, SIZE).astype(
+        np.float32)
+    timings = profiling.profile_forward(sess, x, runs=3)
+    if len(timings) != len(net.nodes):
+        raise RuntimeError("profile_forward missed nodes")
+    total = sum(t for _, _, t in timings)
+    print(f"profile_forward YOLOv3-tiny {SIZE} px, batch {BATCH}, fp32, on "
+          f"{gpu}: {total:.2f} ms over {len(timings)} nodes (best of 3, "
+          "synchronized a node); top 5:")
+    for typ, name, ms in sorted(timings, key=lambda t: -t[2])[:5]:
+        print(f"    {ms:8.3f} ms  {typ} {name}")
+    xt = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        rep = profiling.memory_report(
+            lambda v: sess.detect_on_batch(v), xt)
+    print(f"memory_report detect_on_batch: peak {rep['peak_bytes'] / 2**20:.1f}"
+          f" MiB, arguments {rep['argument_size_in_bytes'] / 2**20:.1f} MiB, "
+          f"outputs {rep['output_size_in_bytes'] / 2**10:.1f} KiB, "
+          f"{rep['flops'] / 1e9:.2f} GFLOP", flush=True)
+    if not rep["flops"] > 0:
+        raise RuntimeError(f"memory_report counted {rep['flops']} flops")
+
+
+def deploy_phase(gpu):
+    """Phase 13: YOLOv3-tiny (416, batch 8) and MobileNet-v1 (224, batch 64)
+    exported at fp32 and int8 through Session.export_serving, loaded
+    from the .pt2 file and served against the live path and a CPU export
+    (batch 2); a fresh process loads the int8 YOLOv3-tiny file; the CLI
+    exports yolov3-tiny.cfg with --detect over a seeded .weights; a
+    checkpoint resumes training bit for bit; profile_forward and
+    memory_report; the op's host cost. Returns the launches of K2-K5."""
+    t_phase = time.perf_counter()
+    launched = dict(K2=0, K3=0, K4=0, K5=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # YOLOv3-tiny fp32: the detect program
+        net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
+        sess = Session(net, SEED, device="cuda")
+        sess.state = bn_stats(net)
+        sess.compile_net()
+        x = np.random.RandomState(SEED + 41).rand(
+            BATCH, 3, SIZE, SIZE).astype(np.float32)
+        served, te, tl = export_and_load(
+            sess, os.path.join(tmp, "tiny.pt2"), detect=True)
+        _, out = exported_check(
+            f"exported YOLOv3-tiny detect fp32, batch {BATCH}, {SIZE} px",
+            served, lambda v: sess.detect_on_batch(v), x, {}, gpu, te, tl,
+            exact_only=False)
+        check_detections(out, BATCH)
+        cpu = cpu_twin(yolov3_tiny(2, SIZE, SIZE, CLASSES), sess.params,
+                       sess.state)
+        same_detections(tuple(o[:2] for o in out), served_on_cpu(
+            cpu, os.path.join(tmp, "tiny_cpu.pt2"), x[:2], detect=True))
+        print(f"    its detections agree with a CPU export's "
+              f"({int((out[2][:2] > 0).sum())} kept in two images)")
+
+        # YOLOv3-tiny int8 (phase 6b's net): 13 K4 launches a call
+        net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
+        net.compute_dtype = net.act_dtype = torch.bfloat16
+        sess8, quant_cpu = int8_sessions(net, sess.params, bn_stats(net))
+        path8 = os.path.join(tmp, "tiny_int8.pt2")
+        served, te, tl = export_and_load(sess8, path8, detect=True)
+        got, out8 = exported_check(
+            f"exported YOLOv3-tiny detect int8, batch {BATCH}, {SIZE} px",
+            served, lambda v: sess8.detect_on_batch(v), x, {"K4": 13}, gpu,
+            te, tl, exact_only=True)
+        launched["K4"] += got["K4"]
+        check_detections(out8, BATCH)
+        c8 = served_on_cpu(
+            cpu_twin(yolov3_tiny(2, SIZE, SIZE, CLASSES), sess8.params,
+                     sess8.state, quant_cpu, bf16=True),
+            os.path.join(tmp, "tiny_int8_cpu.pt2"), x[:2], detect=True)
+        if not torch.equal(out8[2][:2] > 0, c8[2] > 0):
+            raise RuntimeError("int8 export: card and CPU keep other slots")
+        for g, c in zip(out8, c8):
+            torch.testing.assert_close(g[:2].float(), c.float(),
+                                       rtol=2.0**-7, atol=1e-6)
+        print(f"    its detections agree with a CPU export's "
+              f"({int((c8[2] > 0).sum())} kept in two images)")
+        fresh_process_check(path8, x, out8, tmp)
+
+        # MobileNet-v1 fp32 (K3 x 13) and int8 (K5 x 13, K4 x 15)
+        net = mobilenet_v1(MB_BATCH, MB_CLASSES)
+        p_np, s_np = bridge.he_numpy_weights(net, SEED)
+        sess = Session(net, SEED, device="cuda")
+        sess.params, sess.state = bridge.params_from_numpy(
+            net, p_np, s_np, device="cuda")
+        sess.compile_net()
+        xm = np.random.RandomState(SEED + 43).rand(
+            MB_BATCH, 3, MB_SIZE, MB_SIZE).astype(np.float32)
+        served, te, tl = export_and_load(
+            sess, os.path.join(tmp, "mb.pt2"), outputs=MB_OUTPUTS)
+        got, outm = exported_check(
+            f"exported MobileNet-v1 forward fp32, batch {MB_BATCH}, "
+            f"{MB_SIZE} px", served,
+            lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0], xm,
+            {"K3": 13}, gpu, te, tl, exact_only=False)
+        launched["K3"] += got["K3"]
+        cm = served_on_cpu(
+            cpu_twin(mobilenet_v1(2, MB_CLASSES), sess.params, sess.state),
+            os.path.join(tmp, "mb_cpu.pt2"), xm[:2],
+            outputs=MB_OUTPUTS)
+        for g, c in zip(outm, cm):
+            torch.testing.assert_close(g[:2], c, rtol=HEAD_RTOL,
+                                       atol=HEAD_ATOL)
+        print(f"    fc and softmax of two images within rtol {HEAD_RTOL} of "
+              "a CPU export's")
+
+        net = mobilenet_v1(MB_BATCH, MB_CLASSES)
+        sess8, quant_cpu = int8_sessions(net, sess.params, sess.state)
+        n_k4 = sum(n.type.name in ("CONV2D", "FULL_CONNECTED")
+                   for n in net.nodes)
+        served, te, tl = export_and_load(
+            sess8, os.path.join(tmp, "mb_int8.pt2"), outputs=MB_OUTPUTS)
+        got, outm8 = exported_check(
+            f"exported MobileNet-v1 forward int8, batch {MB_BATCH}, "
+            f"{MB_SIZE} px", served,
+            lambda v: sess8.predict_on_batch(v, outputs=MB_OUTPUTS)[0], xm,
+            {"K4": n_k4, "K5": 13}, gpu, te, tl, exact_only=True)
+        launched["K4"] += got["K4"]
+        launched["K5"] += got["K5"]
+        cm8 = served_on_cpu(
+            cpu_twin(mobilenet_v1(2, MB_CLASSES), sess8.params, sess8.state,
+                     quant_cpu), os.path.join(tmp, "mb_int8_cpu.pt2"),
+            xm[:2], outputs=MB_OUTPUTS)
+        fc = next(n for n in net.nodes if n.type.name == "FULL_CONNECTED")
+        wfc = quant_cpu["weights"][net.tensors[fc.src[1]].key]
+        one = quant_cpu["act_scales"][fc.src[0]] * float(
+            (wfc["q"].float().flatten(1).abs()
+             * wfc["scale"][:, None]).max())
+        err = float((outm8[0][:2] - cm8[0]).abs().max())
+        if not err <= one + 1e-5 * float(cm8[0].abs().max()):
+            raise RuntimeError(f"int8 MobileNet export: logits card vs CPU "
+                               f"export {err:.3g}, one FC code {one:.3g}")
+        print(f"    logits of two images within one FC input code's effect "
+              f"({err:.3g} <= {one:.3g}) of a CPU export's")
+
+        # bcnn-cl export of the cfg over a seeded .weights, with --detect
+        from bcnn_tpu_torch import cli, config, deploy
+        from bcnn_tpu_torch.graph import Net
+
+        cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "yolo", "yolov3-tiny.cfg")
+        ref = yolov3_tiny(1, 416, 416, 80)  # the cfg's net: batch 1
+        weights = os.path.join(tmp, "tiny.weights")
+        save_weights_darknet(ref, *bridge.params_from_numpy(
+            ref, *bridge.he_numpy_weights(ref, SEED)), weights)
+        out_cli = os.path.join(tmp, "cli_tiny.pt2")
+        t0 = time.perf_counter()
+        if cli.main(["export", cfg, weights, "--detect", "--out", out_cli],
+                    device="cuda") != 0:
+            raise RuntimeError("bcnn-cl export failed")
+        t_cli = time.perf_counter() - t0
+        live = Session(config.load_net(Net(Mode.PREDICT), cfg, weights),
+                       SEED, device="cuda").compile_net()
+        served = deploy.load_exported(out_cli)
+        t0 = ref.tensors[0]
+        x1 = np.random.RandomState(SEED + 45).rand(
+            t0.n, t0.c, t0.h, t0.w).astype(np.float32)
+        zero_counts()
+        got_cli = served(torch.from_numpy(x1).cuda())
+        want_cli = live.detect_on_batch(x1)
+        if not all(torch.equal(g, w) for g, w in zip(got_cli, want_cli)):
+            raise RuntimeError("the CLI's artifact differs from the live "
+                               "session of the cfg and weights")
+        print(f"bcnn-cl export {os.path.basename(cfg)} --detect over a "
+              f"seeded .weights: {t_cli:.2f} s "
+              f"({os.path.getsize(out_cli) / 1e6:.1f} MB); served on the "
+              "card, bit-equal to the live session of the cfg", flush=True)
+
+        launched["K2"] += resume_phase(gpu, tmp)
+    profile_phase(gpu)
+    op_host_cost(gpu)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3354,10 +3799,19 @@ def main() -> int:
           "turns it off), matmul allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
+    marks = [time.perf_counter()]
+
+    def stamp(phase):
+        """Print the seconds since the last stamp (one phase's)."""
+        now = time.perf_counter()
+        print(f"[phase {phase}: {now - marks[0]:.1f} s]", flush=True)
+        marks[0] = now
+
     # -- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     kernels.library()
     print(f"build + load: {time.perf_counter() - t0:.2f} s")
+    stamp("2")
 
     # -- phase 3: K1 against its plain version on the card ---------------
     k1 = check_k1([
@@ -3379,6 +3833,7 @@ def main() -> int:
 
     # -- phase 3e: K5 against its plain version on the card ---------------
     k5 = check_k5()
+    stamp("3")
 
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
@@ -3449,33 +3904,42 @@ def main() -> int:
         for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
             print(f"    {us / 5 / 1e3:8.3f} ms  {k[:90]}")
 
+    stamp("4-6")
+
     # -- phase 6b: serve YOLOv3-tiny at bf16, then int8 -------------------
     yolo_bf16_phase(gpu)
     k4_launches = yolo_int8_phase(gpu)
+    stamp("6b")
 
     # -- phase 6c: serve MobileNet-v1 at 224, batch 64, fp32 and bf16 ------
     k3_launches = mobilenet_phase(gpu)
     mobilenet_phase(gpu, bf16=True)
+    stamp("6c")
 
     # -- phase 6d: serve full YOLOv3 from its cfg and a .weights file -----
     k1_v3, k4_v3 = yolov3_phase(gpu)
     k1_launches += k1_v3
     k4_launches += k4_v3
+    stamp("6d")
 
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
     k2_launches, prebuilt_ms = train_phase(gpu)
     cross_device_step()
+    stamp("7")
 
     # -- phase 8: bench.py's training program at bf16, the step forms ------
     k2_launches += bf16_training_phase(gpu)
+    stamp("8")
 
     # -- phase 9: train from files: the CLI, the feeds, MNIST --------------
     k2_launches += files_phase(gpu, prebuilt_ms)
+    stamp("9")
 
     # -- phase 10: train full YOLOv3; 10b ResNet-18; 10c the layers left ---
     k2_launches += yolov3_train_phase(gpu)
     resnet18_phase(gpu)
     layers_left_phase(gpu)
+    stamp("10")
 
     # -- phase 11: int8 MobileNet-v1 and ResNet-18; 12: QAT ---------------
     mb_net = mobilenet_v1(I8_BATCH, 1000)
@@ -3484,10 +3948,20 @@ def main() -> int:
     r18_net = resnet18(I8_BATCH, 1000)
     k4_r18, _ = int8_classifier_phase(
         gpu, "ResNet-18", r18_net, *bridge.he_numpy_weights(r18_net, SEED))
+    stamp("11")
     k1_q, k2_q, k4_q = qat_phase(gpu)
     k1_launches += k1_q
     k2_launches += k2_q
     k4_launches += k4_mb + k4_r18 + k4_q
+    stamp("12")
+
+    # -- phase 13: deploy (torch.export) and resume (checkpoints) ---------
+    p13 = deploy_phase(gpu)
+    k2_launches += p13["K2"]
+    k3_launches += p13["K3"]
+    k4_launches += p13["K4"]
+    k5_launches += p13["K5"]
+    stamp("13")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

@@ -194,10 +194,55 @@ def test_cli_detection_predict_and_scan_steps(tmp_path, monkeypatch,
 
 
 def test_cli_export_raises(tmp_path):
+    """--out and --detect belong to export: another mode refuses them,
+    as bcnn_tpu's CLI does (`ap.error`)."""
     text = det_files(tmp_path).replace("{dir}", str(tmp_path))
     (tmp_path / "x.conf").write_text(text)
-    with pytest.raises(NotImplementedError, match="deploy.py"):
-        main(["export", str(tmp_path / "x.conf")], device="cpu")
+    for argv in (["train", "--detect"], ["predict", "--out", "a.pt2"]):
+        with pytest.raises(SystemExit):
+            main([argv[0], str(tmp_path / "x.conf"), *argv[1:]],
+                 device="cpu")
+
+
+@pytest.mark.parametrize("detect", [False, True], ids=["forward", "detect"])
+def test_cli_export_serves(tmp_path, monkeypatch, detect):
+    """bcnn-cl export writes <output_model>.pt2 (or --out); the loaded
+    file equals the live Session of the same conf bit for bit: the heads
+    of the forward, or the detect program's three outputs."""
+    from bcnn_tpu_torch import Session, deploy
+
+    text = det_files(tmp_path).replace("{dir}", str(tmp_path))
+    conf = tmp_path / "x.conf"
+    conf.write_text(text)  # its input_model is bcnn_tpu's init weights
+    monkeypatch.chdir(tmp_path)
+    argv = ["export", str(conf)] + (["--detect", "--out", "d.pt2"]
+                                    if detect else [])
+    assert main(argv, device="cpu") == 0
+    path = tmp_path / ("d.pt2" if detect else "out.bcnnmodel.pt2")
+    served = deploy.load_exported(str(path))
+    net = Net(Mode.PREDICT)
+    load_net(net, str(conf), str(tmp_path / "init.bcnnmodel"))
+    sess = Session(net, 0, device="cpu").compile_net()
+    x = np.random.RandomState(0).rand(2, 3, 64, 64).astype(np.float32)
+    if detect:
+        live = sess.detect_on_batch(x)
+    else:
+        live, _ = sess.predict_on_batch(x, outputs=deploy.default_outputs(
+            net))
+    got = served(x)
+    assert len(got) == len(live)
+    for g, w in zip(got, live):
+        assert torch.equal(g, w)
+
+
+def test_cli_export_failed_returns_1(tmp_path, capsys):
+    """--detect on a net without YOLO layers: "export failed", exit 1."""
+    text = mnist_recipe(tmp_path)
+    (tmp_path / "m.conf").write_text(text.replace("{dir}", str(tmp_path)))
+    assert main(["export", str(tmp_path / "m.conf"), "--detect", "--out",
+                 str(tmp_path / "m.pt2")], device="cpu") == 1
+    assert "export failed" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "m.pt2")
 
 
 # -------------------------------------------------------------- MNIST #

@@ -1228,3 +1228,121 @@ def test_qat_step_on_the_card(cuda):
         tol = max(1e-3 * float(du64.abs().max()),
                   float(np.spacing(np.float32(p0[k].abs().max()))))
         assert float((du - du64).abs().max()) <= tol, k
+
+
+# ------------------------------------------- the kernels as torch.library ops #
+
+
+def _op_cases(gen):
+    """(name, op, launcher, args on the CPU, plain-version tolerance)
+    for each of the five ops at a small shape: None is bit for bit, else
+    (rtol, atol, atol relative to the largest output?), those of the
+    tests of K1 and K3 above."""
+    from bcnn_tpu_torch.ops import conv_int8 as k4
+    from bcnn_tpu_torch.ops import depthwise as k3
+    from bcnn_tpu_torch.ops import grouped_int8 as k5
+    from bcnn_tpu_torch.ops import row_shift as k2
+    from bcnn_tpu_torch.ops import yolo_decode as k1
+
+    ops_ = torch.ops.bcnn_tpu_torch
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=gen,  # noqa: E731
+                                  dtype=torch.int8)
+    vec = lambda o: torch.rand(o, generator=gen) + 0.5  # noqa: E731
+    cl = torch.channels_last
+    x4 = i8(2, 32, 13, 13).contiguous(memory_format=cl)
+    w4 = k4.channels_last_weight(i8(48, 32, 3, 3))
+    x5 = i8(2, 32, 14, 14).contiguous(memory_format=cl)
+    w5 = k5.grouped_weight(i8(32, 1, 3, 3))
+    anchors = [float(a) for a in ANCHORS[:6]]
+    return [
+        ("yolo_decode", ops_.yolo_decode.default, k1.decode_cuda,
+         (4 * torch.randn(2, 3 * 85, 13, 13, generator=gen), anchors, 80,
+          416.0, 416.0), (1e-5, 1e-6, False)),
+        ("row_shift", ops_.row_shift.default, k2.shift_cuda,
+         (255 * torch.rand(2, 21, 40, 3, generator=gen),
+          torch.rand(2, 21, generator=gen) * 8 - 4, 6, 3, 30, 0, 128.0,
+          False), None),
+        ("col_shift", ops_.row_shift.default, k2.shift_cuda,
+         (255 * torch.rand(2, 40, 21, 3, generator=gen),
+          torch.rand(2, 21, generator=gen) * 8 - 4, 6, 3, 30, 0, 128.0,
+          True), None),
+        ("depthwise", ops_.depthwise.default, k3.depthwise_cuda,
+         (torch.randn(2, 32, 16, 16, generator=gen),
+          torch.randn(32, 1, 3, 3, generator=gen) * 0.4, torch.rand(
+              32, generator=gen) - 0.5, 2, 1, int(Activation.LRELU)),
+         (0, 1e-4, True)),
+        ("conv_int8", ops_.conv_int8.default, k4.conv_int8_cuda,
+         (x4, w4, vec(48) * 1e-4, vec(48), 1, 1, int(Activation.LRELU),
+          vec(48), None, None, 0.05), None),
+        ("grouped_int8", ops_.grouped_int8.default, k5.grouped_int8_cuda,
+         (x5, w5, vec(32) * 1e-3, vec(32), 2, 1, 32, int(Activation.RELU),
+          None, None, None, 0.05), None),
+    ]
+
+
+def test_ops_on_the_card_equal_their_plain_versions_and_launchers(cuda):
+    """Each op through torch.ops launches its kernel (its counter moves
+    by one), equals its plain version (the op's CPU implementation) on
+    the same values, and equals its launcher called directly, bit for
+    bit."""
+    from bcnn_tpu_torch.ops import (conv_int8, depthwise, grouped_int8,
+                                    row_shift, yolo_decode)
+
+    counters = {"yolo_decode": yolo_decode.decode_fused,
+                "row_shift": row_shift.row_shift,
+                "col_shift": row_shift.row_shift,
+                "depthwise": depthwise.depthwise_fused,
+                "conv_int8": conv_int8.conv_int8_fused,
+                "grouped_int8": grouped_int8.grouped_int8_fused}
+    for name, op, launcher, args, tol in _op_cases(
+            torch.Generator().manual_seed(11)):
+        dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+               for a in args]
+        plain = op(*args)
+        before = counters[name].launches
+        got = op(*dev)
+        torch.cuda.synchronize()
+        assert counters[name].launches == before + 1, name
+        direct = launcher(*dev)
+        outs = (got, direct, plain)
+        if isinstance(got, torch.Tensor):
+            outs = ((got,), (direct,), (plain,))
+        for g, d, p in zip(*outs):
+            assert g.stride() == p.stride(), name
+            assert torch.equal(g, d), name
+            if tol is None:
+                assert torch.equal(g.cpu(), p), name
+            else:
+                rtol, atol, rel = tol
+                torch.testing.assert_close(
+                    g.cpu(), p, rtol=rtol,
+                    atol=atol * (float(p.abs().max()) if rel else 1.0))
+
+
+def test_exported_int8_detect_launches_k4_per_conv(cuda, tmp_path):
+    """YOLOv3-tiny int8 (96 px, batch 2), exported on the card: a call
+    of the loaded program launches K4 13 times and equals the live
+    detect_on_batch bit for bit."""
+    from bcnn_tpu_torch import deploy
+    from bcnn_tpu_torch.ops.conv_int8 import conv_int8_fused
+
+    net = yolov3_tiny(2, 96, 96, 4)
+    sess = Session(net, 0, device=cuda)
+    sess.params, sess.state = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0), device=cuda)
+    sess.compile_net()
+    ptq_synthetic(net, sess)
+    path = str(tmp_path / "tiny_int8.pt2")
+    sess.export_serving(path, detect=True, thresh=0.3, max_dets=20)
+    served = deploy.load_exported(path)
+    assert served.platforms == ("cuda",)
+    x = torch.rand(2, 3, 96, 96, generator=torch.Generator().manual_seed(2))
+    live = sess.detect_on_batch(x, 0.3, 20)
+    before = conv_int8_fused.launches
+    got = served(x.to(cuda))
+    torch.cuda.synchronize()
+    assert conv_int8_fused.launches == before + 13
+    for g, w in zip(got, live):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="cpu"):
+        served(x)  # a CPU tensor is not copied over

@@ -308,3 +308,29 @@ def test_session_round_trip_in_train_mode(tmp_path):
         assert torch.equal(a.params[k], b.params[k]), k
     for k in a.state:
         assert torch.equal(a.state[k], b.state[k]), k
+
+
+def test_load_weights_lands_on_the_params_device_or_the_card(tmp_path):
+    """Without `device`, the weights land where the params given lie (a
+    Session's device: the CPU here); with no params to follow they go to
+    the card, and where there is none that raises rather than loading to
+    the CPU. device="cpu" asks for the CPU."""
+    jnet, net, p_np, s_np = setup("zoo", Mode.TRAIN)
+    path = str(tmp_path / "m.bcnnmodel")
+    jser.save_weights(jnet, p_np, s_np, path)
+    tp, ts = to_port(net, p_np), to_port(net, s_np)
+    tser.load_weights(net, tp, ts, path)
+    assert all(v.device.type == "cpu" for v in (*tp.values(), *ts.values()))
+    # a net without a standalone BN (the one layer that reads a param it
+    # is not given) loads from nothing: onto the CPU when asked
+    jnet2, net2 = jax_tiny(2, 64, 64, 4), yolov3_tiny(2, 64, 64, 4)
+    p2, s2 = random_numpy(jnet2)
+    path2 = str(tmp_path / "t.bcnnmodel")
+    jser.save_weights(jnet2, p2, s2, path2)
+    p, s = tser.load_weights(net2, {}, {}, path2, device="cpu")
+    assert set(p) == {t.key for t in net2.param_specs()}
+    assert all(v.device.type == "cpu" for v in (*p.values(), *s.values()))
+    if torch.cuda.is_available():
+        return  # the no-params load below goes to the card
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tser.load_weights(net2, {}, {}, path2)

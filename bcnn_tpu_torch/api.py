@@ -9,6 +9,16 @@ net trained with net.qat into its int8 dict).
 
 The device is explicit: `Session(net, seed, device="cuda")` raises when
 CUDA is asked for and absent; nothing moves to the CPU on its own.
+
+`Session(net, seed, mesh=mesh)` (a `parallel.Mesh`, `bcnn_tpu/api.py:
+31-41`) trains data-parallel, every rank of the mesh making the same
+calls with the same global batches: `compile_net` replicates rank 0's
+values onto each rank's device (the mesh's), `train_on_batch` and the
+scans run this rank's stripe of each batch (`parallel.make_dp_*`); with
+zero=1 the optimizer slots are sharded over the ranks (ZeRO-1), with
+zero=3 the parameters too (FSDP). `save_checkpoint` gathers the shards
+and rank 0 writes the single-device file; `load_checkpoint` resumes at
+any world size.
 Forwards outside training run under `torch.inference_mode()`. Inputs and
 outputs are NCHW. Inputs are uploaded as fp32; the executor honours the
 net's compute_dtype, act_dtype and quant (`compile._Executor`).
@@ -35,8 +45,22 @@ from .types import LayerType, Mode
 
 
 class Session:
-    def __init__(self, net: Net, seed: int = 0, device="cuda"):
-        self.device = torch.device(device)
+    def __init__(self, net: Net, seed: int = 0, device=None, mesh=None,
+                 zero: int = 0):
+        if zero not in (0, 1, 3):
+            raise ValueError(f"zero={zero}: 0 (replicated), 1 (ZeRO-1) or "
+                             "3 (FSDP)")
+        if zero and mesh is None:
+            raise ValueError("Session(zero=...) shards over a mesh: pass "
+                             "mesh=")
+        if mesh is not None:
+            if device is not None and torch.device(device) not in (
+                    mesh.device, torch.device(mesh.device.type)):
+                raise ValueError(f"Session(device={device!r}) is not the "
+                                 f"mesh's rank device {mesh.device}")
+            device = mesh.device
+        self.mesh, self.zero = mesh, zero
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Session(device={device!r}): CUDA is not available"
@@ -87,10 +111,69 @@ class Session:
             from .learner import init_opt_state
 
             self.opt_state = init_opt_state(self.net, self.params)
+        self._place()
         self._train_step = None
         self._train_scan = None
         self._resident = None
         return self
+
+    def _place(self):
+        """Under a mesh: rank 0's params, state and optimizer state on
+        every rank, the ZeRO ones sharded (`bcnn_tpu/api.py:82-88`)."""
+        if self.mesh is None:
+            return
+        from .parallel import replicate, shard_zero_state
+
+        if self.zero and self.opt_state is not None:
+            self.params, self.state, self.opt_state = shard_zero_state(
+                self.net, self.mesh, self.params, self.state,
+                self.opt_state, params_too=self.zero == 3)
+            return
+        self.params, self.state = replicate(self.mesh,
+                                            (self.params, self.state))
+        if self.opt_state is not None:
+            self.opt_state = replicate(self.mesh, self.opt_state)
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters (FSDP's gathered: a collective)."""
+        if self.zero != 3 or self.opt_state is None:
+            return self.params
+        from .parallel import gather_zero_state
+
+        return gather_zero_state(self.net, self.mesh, self.params, {},
+                                 None)[0]
+
+    def _refuse_sharded(self, what: str):
+        if self.zero:
+            raise ValueError(f"{what} runs on replicated state; "
+                             f"Session(zero={self.zero}) trains with "
+                             "train_on_batch")
+
+    def _stripe(self, tree):
+        """Under a mesh, this rank's stripe of each global-batch array
+        on its device (a batch of batch_size / D rows already on the
+        device, a sharded pipeline's, is the stripe); else the arrays on
+        the device."""
+        if self.mesh is None:
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in tree.items()}
+        from .parallel import shard_batch
+
+        n = tree["input"].shape[0]
+        if n * self.mesh.size == self.net.batch_size and n != \
+                self.net.batch_size:
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in tree.items()}
+        return shard_batch(self.mesh, tree)
+
+    def _make_train_step(self):
+        if self.mesh is None:
+            return make_train_step(self.net)
+        from .parallel import (make_dp_train_step, make_fsdp_train_step,
+                               make_zero1_train_step)
+
+        return {0: make_dp_train_step, 1: make_zero1_train_step,
+                3: make_fsdp_train_step}[self.zero](self.net, self.mesh)
 
     # -- data loader + mode plumbing -------------------------------------- #
 
@@ -168,9 +251,10 @@ class Session:
         if x is None:
             x, label = self._next_batch()
         if self._train_step is None:
-            self._train_step = make_train_step(self.net)
-        x = torch.as_tensor(x, device=self.device)
-        batch = {"input": x, "label": self._input(label)}
+            self._train_step = self._make_train_step()
+        lab = (label.to(torch.float32) if torch.is_tensor(label)
+               else np.asarray(label, np.float32))
+        batch = self._stripe({"input": x, "label": lab})
         (gen,) = child_generators(self._rng, 1)
         out = self._train_step(
             self.params, self.state, self.opt_state, batch, gen
@@ -208,16 +292,37 @@ class Session:
         (compile.make_train_scan, `bcnn_tpu/api.py:171-235`); returns the
         SUM of the k steps' reported losses, so a caller accumulates it
         as it would k train_on_batch calls. With net.device_augment the
-        raw batches are staged as uint8."""
+        raw batches are staged as uint8. Under a mesh each rank stages
+        its stripe of the k batches (`parallel.make_dp_train_scan`), and
+        a net with device_augment is refused, as bcnn_tpu refuses it
+        (`bcnn_tpu/api.py:183-193`)."""
         self._refuse_scan_forms("train_scan_on_batches")
+        if self.mesh is not None:
+            self._refuse_sharded("train_scan_on_batches")
+            if getattr(self.net, "device_augment", None) is not None:
+                raise ValueError(
+                    "train_scan_on_batches does not support device_augment "
+                    "under a mesh (make_dp_train_scan runs the bare step); "
+                    "use train_on_batch or the resident scan")
         xs, ys = zip(*(self._next_batch() for _ in range(k)))
-        staged = {"input": torch.as_tensor(np.stack(xs), device=self.device),
-                  "label": self._input(np.stack(ys))}
+        staged = {"input": np.stack(xs),
+                  "label": np.stack(ys).astype(np.float32)}
+        (gen,) = child_generators(self._rng, 1)
+        if self.mesh is not None:
+            from .parallel import make_dp_train_scan, shard_batch
+
+            if self._train_scan is None:
+                self._train_scan = make_dp_train_scan(self.net, self.mesh)
+            staged = shard_batch(self.mesh, staged, axis=1)
+            return self._take_scan(self._train_scan(
+                self.params, self.state, self.opt_state, staged["input"],
+                staged["label"], gen))
+        staged = {k: torch.as_tensor(v, device=self.device)
+                  for k, v in staged.items()}
         if self._train_scan is None:
             from .compile import make_train_scan
 
             self._train_scan = make_train_scan(self.net)
-        (gen,) = child_generators(self._rng, 1)
         return self._take_scan(self._train_scan(
             self.params, self.state, self.opt_state, staged, gen))
 
@@ -232,7 +337,10 @@ class Session:
         uint8; {} normalizes only). shuffle=False walks the records in
         the loader's sequential mod-n order; shuffle=True draws a
         per-epoch permutation (EpochIndexStream), fixed at the first
-        call. Returns the sum of the k losses."""
+        call. Returns the sum of the k losses. Under a mesh every rank
+        uploads the whole record set (each reads the same file) and
+        gathers its stripe of each batch
+        (`parallel.make_dp_train_scan_resident`)."""
         from .data.records import EpochIndexStream, RawRecordLoader
 
         if getattr(self.net, "device_augment", None) is None:
@@ -246,24 +354,35 @@ class Session:
                 "(records_from_loader writes one); got "
                 f"{type(self.loader).__name__}")
         self._refuse_scan_forms("train_scan_resident_on_batches")
+        if self.mesh is not None:
+            self._refuse_sharded("train_scan_resident_on_batches")
         if self._resident is None:
-            from .compile import make_train_scan_resident
+            if self.mesh is not None:
+                from .parallel import make_dp_train_scan_resident
 
+                scan = make_dp_train_scan_resident(self.net, self.mesh)
+            else:
+                from .compile import make_train_scan_resident
+
+                scan = make_train_scan_resident(self.net)
             xa, ya = self.loader.read_all()
             ds = {"input": torch.as_tensor(xa, device=self.device),
                   "label": self._input(ya)}
             stream = EpochIndexStream(self.loader.n, self.net.batch_size,
                                       seed=self.seed, shuffle=shuffle)
-            self._resident = (make_train_scan_resident(self.net), ds,
-                              stream)
+            self._resident = (scan, ds, stream)
         scan, ds, stream = self._resident
         if stream.shuffle != shuffle:
             raise ValueError(
                 "shuffle is fixed at the first "
                 f"train_scan_resident_on_batches call ({stream.shuffle}); "
                 "compile_net() resets the resident state")
-        idx = torch.as_tensor(stream.next(k), dtype=torch.int64,
-                              device=self.device)
+        idx = torch.as_tensor(stream.next(k), dtype=torch.int64)
+        if self.mesh is not None:
+            from .parallel import shard_batch
+
+            idx = shard_batch(self.mesh, idx, axis=1)
+        idx = idx.to(self.device)
         (gen,) = child_generators(self._rng, 1)
         return self._take_scan(scan(
             self.params, self.state, self.opt_state, ds, idx, gen))
@@ -277,7 +396,9 @@ class Session:
         here; a net with dropout draws its masks from a seed taken from
         the session's generator. Every tensor's value is kept for
         get_tensor_value (int8-flow tensors dequantized). Returns the
-        loss."""
+        loss. Under a mesh each rank runs the whole batch, as the JAX
+        package's replicated forward does; not with sharded state."""
+        self._refuse_sharded("forward")
         if x is None:
             x, label = self._next_batch()
         batch = {"input": self._input(x)}
@@ -359,8 +480,9 @@ class Session:
         batch = {"input": self._input(x)}
         if label is not None:
             batch["label"] = self._input(label)
+        params = self._full_params()
         with torch.inference_mode():
-            ex = execute(self.net, self.params, self.state, batch, mode)
+            ex = execute(self.net, params, self.state, batch, mode)
             outs = tuple(output_value(ex, i) for i in idx)
             loss = get_loss(ex)
         return outs, loss
@@ -388,8 +510,9 @@ class Session:
             self.net, thresh, max_dets,
             use_pallas=use_pallas, topk_first=topk_first,
         )
+        params = self._full_params()
         with torch.inference_mode():
-            return detect(self.params, self.state, {"input": self._input(x)})
+            return detect(params, self.state, {"input": self._input(x)})
 
     def yolo_get_detections(
         self,
@@ -442,7 +565,8 @@ class Session:
         PREDICT then take the int8 path unchanged. Returns net.quant."""
         from .ops.quant import qat_export
 
-        self.net.quant = qat_export(self.net, self.params, self.state)
+        self.net.quant = qat_export(self.net, self._full_params(),
+                                    self.state)
         self._train_step = None
         self._train_scan = None
         self._resident = None
@@ -452,7 +576,7 @@ class Session:
         """bcnn_save_weights: the bit-compatible .bcnnmodel format."""
         from .serialization import save_weights
 
-        save_weights(self.net, self.params, self.state, path)
+        save_weights(self.net, self._full_params(), self.state, path)
 
     def load_weights(self, path: str):
         """bcnn_load_weights: .bcnnmodel or Darknet .weights, by the
@@ -469,22 +593,36 @@ class Session:
     def save_checkpoint(self, path: str):
         """Params, state, optimizer state and the step count in
         `bcnn_tpu`'s `.npz` checkpoint format (`checkpoint.py`), which
-        `bcnn_tpu.api.Session.load_checkpoint` reads too."""
+        `bcnn_tpu.api.Session.load_checkpoint` reads too. Under a mesh
+        every rank calls it: the ZeRO shards are gathered, rank 0 writes
+        the single-device file, and the ranks wait for it."""
         from .checkpoint import save_checkpoint
 
-        save_checkpoint(self.net, path, self.params, self.state,
-                        self.opt_state, extra={"step_count":
-                                               self._step_count})
+        params, state, opt = self.params, self.state, self.opt_state
+        if self.zero:
+            from .parallel import gather_zero_state
+
+            params, state, opt = gather_zero_state(self.net, self.mesh,
+                                                   params, state, opt)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(self.net, path, params, state, opt,
+                            extra={"step_count": self._step_count})
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load_checkpoint(self, path: str):
         """A checkpoint of either package onto the session's device; the
-        optimizer state is taken where the file has one."""
+        optimizer state is taken where the file has one. Under a mesh,
+        at any world size: rank 0's file is replicated (and sharded
+        for ZeRO) as compile_net places the state."""
         from .checkpoint import load_checkpoint
 
         self.params, self.state, opt, extra = load_checkpoint(
             self.net, path, self.device)
         if opt:
             self.opt_state = opt
+        self._place()
+        self._train_step = None
         self._step_count = int(extra.get("step_count", 0))
         return self
 
@@ -513,7 +651,7 @@ class Session:
                     "pipeline returns (boxes, scores, objectness)"
                 )
             return deploy.export_detect(
-                self.net, self.params, self.state, path,
+                self.net, self._full_params(), self.state, path,
                 thresh=thresh, max_dets=max_dets, platforms=platforms,
             )
         if thresh != 0.5 or max_dets != 100:
@@ -521,14 +659,14 @@ class Session:
                 "thresh/max_dets apply to detect=True export only"
             )
         return deploy.export_forward(
-            self.net, self.params, self.state, path,
+            self.net, self._full_params(), self.state, path,
             outputs=outputs, platforms=platforms,
         )
 
     def get_tensor(self, name: str) -> np.ndarray:
         """Host copy of a param/state tensor, in the port's layout."""
         t = self.net.tensor(name)
-        for table in (self.params, self.state):
+        for table in (self._full_params(), self.state):
             if t.key in table:
                 return table[t.key].cpu().numpy()
         raise KeyError(name)

@@ -147,8 +147,15 @@ class _Executor:
         mode: Mode,
         seed: Optional[int] = None,
         dropout_masks: Optional[Dict[int, torch.Tensor]] = None,
+        mesh=None,
     ):
         self.net = net
+        # data parallel (`parallel.Mesh`): the values are this rank's
+        # stripe of the batch; BN's statistics, the metrics, QAT's ranges
+        # and the lifted loss's pairs are the global batch's, and dropout
+        # masks are drawn for the global batch (`parallel/mesh.py`)
+        self.mesh = mesh
+        self._reduce = mesh.all_reduce if mesh is not None else None
         self.params = params
         # TRAIN writes the new running stats here, not into the caller's
         self.state = dict(state)
@@ -276,7 +283,7 @@ class _Executor:
             if self.mode == Mode.TRAIN:
                 y, nm, nv = ops.batch_norm_train(
                     y, scales, biases, self.state[mean_k], self.state[var_k],
-                    frozen=self.bn_frozen,
+                    frozen=self.bn_frozen, reduce=self._reduce,
                 )
                 self.state[mean_k], self.state[var_k] = nm, nv
             else:
@@ -317,6 +324,10 @@ class _Executor:
         division a true one on either device."""
         k = f"qat_amax/{idx}"
         obs = x.detach().to(torch.float32).abs().max()
+        if self.mesh is not None:  # the global batch's abs-max
+            obs = obs.reshape(1)
+            self.mesh.all_reduce(obs, "max")
+            obs = obs.reshape(())
         old = self.state.get(k)
         if old is None:
             old = torch.zeros((), dtype=torch.float32, device=obs.device)
@@ -577,7 +588,7 @@ class _Executor:
         if self.mode == Mode.TRAIN:
             y, nm, nv = ops.batch_norm_train(
                 x, scales, biases, self.state[mean_k], self.state[var_k],
-                frozen=self.bn_frozen,
+                frozen=self.bn_frozen, reduce=self._reduce,
             )
             self.state[mean_k], self.state[var_k] = nm, nv
         else:
@@ -601,7 +612,9 @@ class _Executor:
         from a generator seeded with seed + the node's position, as
         bcnn_tpu folds the node index into the step's key (the step's seed
         is a random 62-bit draw); with no seed, from torch's default
-        generator. Either way it is kept in `dropout_masks`."""
+        generator. Either way it is kept in `dropout_masks`. Under a mesh
+        the mask, given or drawn, is the global batch's, and the rank
+        takes its stripe of it."""
         p = node.param
         x = self.values[node.src[0]]
         if self.mode != Mode.TRAIN or p["rate"] <= 0.0:
@@ -613,8 +626,12 @@ class _Executor:
             if self.seed is not None:
                 gen = torch.Generator(device=x.device).manual_seed(
                     self.seed + self.pos)
-            keep = ops.dropout_mask(x.shape, p["rate"], x.device, gen)
+            d = self.mesh.size if self.mesh is not None else 1
+            keep = ops.dropout_mask((x.shape[0] * d,) + tuple(x.shape[1:]),
+                                    p["rate"], x.device, gen)
             self.dropout_masks[self.pos] = keep
+        if self.mesh is not None:
+            keep = self.mesh.stripe(keep.to(x.device))
         self.values[node.dst[0]] = ops.dropout(x, p["scale"], keep)
 
     def _maxpool(self, node: Node):
@@ -705,7 +722,16 @@ class _Executor:
         outside PREDICT, the reported metric; nothing without a label
         (forward only). For the lifted loss the reference reports 0 under
         SSE, MSE and CRPS (it reads a never-written buffer); bcnn_tpu
-        reports the loss itself there, and so does the port."""
+        reports the loss itself there, and so does the port.
+
+        Under a mesh the euclidean surrogate is the rank's share of the
+        batch sum (the gradient all-reduce adds the shares) and the
+        metric, a batch sum, is all-reduced; the lifted loss is pairwise
+        over the global batch: the embeddings and labels are gathered,
+        every rank computes the whole surrogate and metric, and each
+        rank's gradient is that of its own rows
+        (`parallel.mesh.gather_rows`), so that the all-reduce counts it
+        once."""
         from .ops.losses import compute_metric, euclidean_surrogate
         from .ops.lifted_struct import lifted_struct_surrogate
         from .types import Metric
@@ -718,6 +744,11 @@ class _Executor:
         x = x.reshape(x.shape[0], -1)
         label = label.reshape(label.shape[0], -1)
         lifted = p["loss"] == Loss.LIFTED_STRUCT
+        if lifted and self.mesh is not None:
+            from .parallel.mesh import gather_rows
+
+            x = gather_rows(self.mesh, x)
+            label = self.mesh.all_gather(label.contiguous())
         sur = (lifted_struct_surrogate if lifted else euclidean_surrogate)(
             x, label, p["scale"])
         self.surrogate = sur if self.surrogate is None else (
@@ -728,8 +759,20 @@ class _Executor:
         if lifted and p["loss_metric"] in (Metric.SSE, Metric.MSE,
                                            Metric.CRPS):
             self.metrics.append(sur / max(p["scale"], 1e-12))
-        else:
+        elif lifted:
             self.metrics.append(compute_metric(x, label, p["loss_metric"]))
+        else:
+            self.metrics.append(self._global_sum(
+                compute_metric(x, label, p["loss_metric"])))
+
+    def _global_sum(self, v: torch.Tensor) -> torch.Tensor:
+        """A batch sum of the rank's stripe -> the global batch's (as is
+        without a mesh); outside autograd."""
+        if self.mesh is None:
+            return v
+        v = v.detach().reshape(1).clone()
+        self.mesh.all_reduce(v)
+        return v.reshape(())
 
     def _upsample(self, node: Node):
         self.values[node.dst[0]] = ops.upsample_nn(
@@ -756,7 +799,7 @@ class _Executor:
             self.surrogate = sur if self.surrogate is None else (
                 self.surrogate + sur
             )
-            self.metrics.append(cost)
+            self.metrics.append(self._global_sum(cost))
             if self.want_stats:
                 self.yolo_stats.append(aux[2])
 
@@ -769,11 +812,14 @@ def execute(
     mode: Mode,
     seed: Optional[int] = None,
     dropout_masks: Optional[Dict[int, torch.Tensor]] = None,
+    mesh=None,
 ) -> _Executor:
     """inputs: name -> NCHW tensor ('input' required, 'label' optional).
     seed and dropout_masks: TRAIN dropout's draws (`_Executor._dropout`);
-    the executor's `dropout_masks` holds every mask the pass used."""
-    ex = _Executor(net, params, state, mode, seed, dropout_masks)
+    the executor's `dropout_masks` holds every mask the pass used.
+    mesh: a `parallel.Mesh`; the inputs are then this rank's stripe of
+    the global batch (`parallel.make_dp_train_step` and its kin)."""
+    ex = _Executor(net, params, state, mode, seed, dropout_masks, mesh)
     for name, arr in inputs.items():
         if name == "input":
             idx = 0
@@ -888,7 +934,7 @@ def child_generators(generator: Optional[torch.Generator], n: int):
 
 
 def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
-                        remat: bool = False):
+                        remat: bool = False, mesh=None):
     """The TRAIN-mode loss closure: optional on-device augmentation of a
     uint8 batch (and, on a detection net, of its boxes; the transform is
     `data.device_augment`), then the TRAIN forward. Returns
@@ -907,7 +953,12 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
 
     A net with dropout draws one seed for the pass from the generator,
     after the augmentation's draws: the masks come from it
-    (`_Executor._dropout`), so a recompute draws the same ones."""
+    (`_Executor._dropout`), so a recompute draws the same ones.
+
+    mesh (`parallel.Mesh`): the batch is this rank's stripe; the
+    augmentation draws each image's parameters for the global batch and
+    takes the rank's stripe of them, so every rank's generator moves as
+    one device's would, and the forward runs under the mesh."""
     is_detection = any(n.type == LayerType.YOLOV3 for n in net.nodes)
     has_dropout = any(n.type == LayerType.DROPOUT for n in net.nodes)
     if device_augment is not None and is_detection:
@@ -917,24 +968,27 @@ def _make_train_loss_fn(net: Net, device_augment: Optional[dict],
                 "detection training (no box transform represents it)"
             )
 
+    stripe = (mesh.rank, mesh.size) if mesh is not None else None
+
     def prepare(batch, generator):
         if device_augment is not None:
             from .data import device_augment as da
 
             if is_detection:
                 x, lab = da.augment_batch_with_boxes_nchw(
-                    batch["input"], batch["label"], generator, device_augment
+                    batch["input"], batch["label"], generator, device_augment,
+                    stripe=stripe,
                 )
                 return dict(batch, input=x, label=lab)
             return dict(batch, input=da.augment_batch_nchw(
-                batch["input"], generator, device_augment
+                batch["input"], generator, device_augment, stripe=stripe,
             ))
         if batch["input"].dtype != torch.float32:
             return dict(batch, input=batch["input"].to(torch.float32))
         return batch
 
     def forward(params, state, batch, seed):
-        ex = execute(net, params, state, batch, Mode.TRAIN, seed)
+        ex = execute(net, params, state, batch, Mode.TRAIN, seed, mesh=mesh)
         return ex.surrogate, (ex.state, get_loss(ex), ex.yolo_stats)
 
     def loss_fn(params, state, batch, generator):

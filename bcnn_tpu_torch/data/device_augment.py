@@ -418,12 +418,25 @@ def apply_augment(x, params, cfg, norm_coeff=1 / 127.5, mean=127.5):
     return (out - mean) * norm_coeff
 
 
+def _stripe_params(generator, n, cfg, hw, stripe):
+    """sample_params for n images, or, with stripe = (rank, ranks), for
+    the ranks' n * ranks images of a data-parallel batch, of which the
+    rank keeps its stripe: each rank's generator moves as one device's
+    would, and the ranks' stripes together are its draws."""
+    if stripe is None:
+        return sample_params(generator, n, cfg, hw)
+    r, d = stripe
+    params = sample_params(generator, n * d, cfg, hw)
+    return {k: v[r * n:(r + 1) * n] for k, v in params.items()}
+
+
 def augment_batch(batch_u8, generator, cfg, norm_coeff=1 / 127.5,
-                  mean=127.5):
+                  mean=127.5, stripe=None):
     """batch (N, H, W, C) uint8/float on the device -> augmented,
-    normalized (N, H, W, C) float32 in [-1, 1]."""
+    normalized (N, H, W, C) float32 in [-1, 1]. stripe: (rank, ranks)
+    under a mesh (`_stripe_params`)."""
     x = batch_u8.to(f32)
-    params = sample_params(generator, x.shape[0], cfg, x.shape[1:3])
+    params = _stripe_params(generator, x.shape[0], cfg, x.shape[1:3], stripe)
     return apply_augment(x, params, cfg, norm_coeff, mean)
 
 
@@ -506,12 +519,13 @@ def apply_augment_with_boxes(x, labels, params, cfg,
 
 
 def augment_batch_with_boxes(batch_u8, labels, generator, cfg,
-                             norm_coeff=1 / 127.5, mean=127.5):
+                             norm_coeff=1 / 127.5, mean=127.5, stripe=None):
     """Detection-safe device augmentation: images through the device
-    pipeline, box labels through the SAME per-image affine map."""
+    pipeline, box labels through the SAME per-image affine map. stripe:
+    as in `augment_batch`."""
     _check_boxes_cfg(cfg)
     x = batch_u8.to(f32)
-    params = sample_params(generator, x.shape[0], cfg, x.shape[1:3])
+    params = _stripe_params(generator, x.shape[0], cfg, x.shape[1:3], stripe)
     return apply_augment_with_boxes(x, labels, params, cfg, norm_coeff,
                                     mean)
 

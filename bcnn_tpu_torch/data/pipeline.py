@@ -22,6 +22,11 @@ A batch moves as uint8 when the loader is in raw mode (`net.
 device_augment` set: DataLoader.raw_mode, or a RawRecordLoader), its
 values being whole pixel levels; the training step normalizes on the
 device.
+
+Data parallel (`sharding=`, a `parallel.Mesh`, where `bcnn_tpu/data/
+pipeline.py:21-40` takes a jax sharding): each rank's loader yields the
+global batch, and only the rank's stripe of it (`Mesh.stripe`) is copied
+to the rank's device, the mesh's: the batch the DP step takes.
 """
 
 from __future__ import annotations
@@ -38,16 +43,20 @@ from .. import bip
 
 
 class BatchPipeline:
-    def __init__(self, loader, depth: int = 2, device="cuda", sharding=None):
+    def __init__(self, loader, depth: int = 2, device=None, sharding=None):
         """loader: anything with next_batch() -> (x, y) host arrays;
         depth: batches prefetched; device: where the batches go (the
-        card unless the caller asks for the CPU)."""
+        card unless the caller asks for the CPU); sharding: a
+        `parallel.Mesh`, whose rank's stripe of each batch goes to its
+        device."""
         if sharding is not None:
-            raise NotImplementedError(
-                "BatchPipeline(sharding=...): device meshes "
-                "(bcnn_tpu.parallel) are not ported to bcnn_tpu_torch yet"
-            )
-        self.device = torch.device(device)
+            if device is not None and torch.device(device) not in (
+                    sharding.device, torch.device(sharding.device.type)):
+                raise ValueError(f"BatchPipeline(device={device!r}) is not "
+                                 f"the mesh's rank device {sharding.device}")
+            device = sharding.device
+        self.sharding = sharding
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"BatchPipeline(device={device!r}): CUDA is not available")
@@ -65,6 +74,8 @@ class BatchPipeline:
         if self._raw and x.dtype != np.uint8:
             x = x.astype(np.uint8)  # whole levels in [0, 255]: exact
         xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+        if self.sharding is not None:
+            xt, yt = self.sharding.stripe(xt), self.sharding.stripe(yt)
         if self.device.type != "cuda":
             return xt.to(self.device), yt.to(self.device), None
         with torch.cuda.stream(self._stream):
@@ -149,7 +160,7 @@ class ShardedBatchPipeline:
     worker is capped at cpu_count / W threads."""
 
     def __init__(self, loader_factory, workers: int = 2, depth: int = 2,
-                 device="cuda", sharding=None):
+                 device=None, sharding=None):
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
         self.loaders = []

@@ -22,11 +22,22 @@ Frozen stats (`frozen=True`, net.bn_frozen_stats; bcnn_tpu/ops/norm.py:
 80-116): TRAIN normalizes with the step-start running stats, detached,
 as constants (eps 1e-6), and autograd takes the plain gradient of that;
 the running stats are still updated from the batch stats.
+
+Data parallel (`reduce`, `parallel.Mesh.all_reduce`): each rank holds a
+stripe of the batch, and the statistics are those of the global batch,
+as GSPMD makes them under a mesh (`bcnn_tpu/parallel/mesh.py:11-13`).
+The forward sums (sum x, sum x^2, count) per channel over the rank's
+stripe in fp32 and all-reduces them in one buffer, keeping the
+mean(x^2) - mean^2 form (the count rides in fp32: exact up to 2^24
+elements a channel, and a power-of-two multiple beyond); the backward
+all-reduces (sum dyh, sum dyh * xc) the same way and divides by the
+global count. Every rank makes the same calls in the same order. This
+is not `nn.SyncBatchNorm`, whose eps and backward are not bcnn's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -65,10 +76,30 @@ def batch_norm(
     return x_norm * _per_channel(scales) + _per_channel(biases)
 
 
-def _batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    mean = torch.mean(x, dim=_AXES)
-    var = torch.mean(torch.square(x), dim=_AXES) - torch.square(mean)
-    return mean, var
+Reduce = Optional[Callable[[torch.Tensor], None]]
+
+
+def _batch_stats(x: torch.Tensor, reduce: Reduce = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """(mean, var, count) over (N, H, W); with `reduce` (an in-place SUM
+    all-reduce over the ranks) those of the global batch, each sum taken
+    in fp32 (float64 for a float64 x) and the mean and mean of squares
+    rounded to x's dtype, as torch.mean rounds them."""
+    if reduce is None:
+        mean = torch.mean(x, dim=_AXES)
+        var = torch.mean(torch.square(x), dim=_AXES) - torch.square(mean)
+        return mean, var, float(x.shape[0] * x.shape[2] * x.shape[3])
+    acc = torch.promote_types(x.dtype, torch.float32)
+    n = torch.full((1,), x.shape[0] * x.shape[2] * x.shape[3], dtype=acc,
+                   device=x.device)
+    buf = torch.cat([torch.sum(x, dim=_AXES, dtype=acc),
+                     torch.sum(torch.square(x), dim=_AXES, dtype=acc), n])
+    reduce(buf)
+    c = x.shape[1]
+    count = buf[2 * c:]
+    mean = (buf[:c] / count).to(x.dtype)
+    var = (buf[c:2 * c] / count).to(x.dtype) - torch.square(mean)
+    return mean, var, count
 
 
 class _BnTrainRef(torch.autograd.Function):
@@ -76,10 +107,11 @@ class _BnTrainRef(torch.autograd.Function):
     Returns (y, batch mean, batch var); the stats carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scales, biases):
-        mean, var = _batch_stats(x)
+    def forward(ctx, x, scales, biases, reduce=None):
+        mean, var, count = _batch_stats(x, reduce)
         x_norm = (x - _per_channel(mean)) * torch.rsqrt(_per_channel(var) + EPS)
         ctx.save_for_backward(x, mean, var, x_norm, scales)
+        ctx.reduce, ctx.count = reduce, count
         ctx.mark_non_differentiable(mean, var)
         y = x_norm * _per_channel(scales) + _per_channel(biases)
         return y, mean, var
@@ -87,7 +119,7 @@ class _BnTrainRef(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, mean, var, x_norm, scales = ctx.saved_tensors
-        n = x.shape[0] * x.shape[2] * x.shape[3]  # b * wxh
+        n = ctx.count  # b * wxh, of the global batch under a mesh
         dbias = torch.sum(g, dim=_AXES)
         dscale = (
             torch.sum(g * x_norm, dim=_AXES)
@@ -96,16 +128,23 @@ class _BnTrainRef(torch.autograd.Function):
         dyh = g * _per_channel(scales)
         inv = 1.0 / torch.sqrt(var + EPS_BWD)  # NOT the forward's eps
         xc = x - _per_channel(mean)
-        mean_diff = torch.sum(dyh, dim=_AXES) * (-inv)
-        var_diff = torch.sum(dyh * xc, dim=_AXES) * (
+        s_dyh, s_dyh_xc = torch.sum(dyh, dim=_AXES), torch.sum(dyh * xc,
+                                                               dim=_AXES)
+        if ctx.reduce is not None:
+            c = s_dyh.shape[0]
+            buf = torch.cat([s_dyh, s_dyh_xc])
+            ctx.reduce(buf)
+            s_dyh, s_dyh_xc = buf[:c], buf[c:]
+        mean_diff = s_dyh * (-inv)
+        var_diff = s_dyh_xc * (
             -0.5 / (var * torch.sqrt(var) + EPS_BWD)  # bcnn_varnorm
         )
         dx = (
             dyh * _per_channel(inv)
             + _per_channel(var_diff) * 2.0 * xc / n
             + _per_channel(mean_diff) / n
-        )
-        return dx, dscale, dbias
+        ).to(x.dtype)  # a mesh's count is an fp32 tensor
+        return dx, dscale, dbias, None
 
 
 def batch_norm_train(
@@ -115,17 +154,19 @@ def batch_norm_train(
     run_mean: torch.Tensor,
     run_var: torch.Tensor,
     frozen: bool = False,
+    reduce: Reduce = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: NCHW. Returns (y, new_run_mean, new_run_var); the new stats
-    carry no gradient."""
+    carry no gradient. reduce: the mesh's in-place SUM all-reduce, for
+    the global batch's statistics (module docstring)."""
     if frozen:
         with torch.no_grad():
-            mean, var = _batch_stats(x)
+            mean, var, _ = _batch_stats(x, reduce)
         rm, rv = _per_channel(run_mean.detach()), _per_channel(run_var.detach())
         y = ((x - rm) * torch.rsqrt(rv + EPS) * _per_channel(scales)
              + _per_channel(biases))
     else:
-        y, mean, var = _BnTrainRef.apply(x, scales, biases)
+        y, mean, var = _BnTrainRef.apply(x, scales, biases, reduce)
     new_mean = RUN_MOMENTUM * run_mean + (1.0 - RUN_MOMENTUM) * mean
     new_var = RUN_MOMENTUM * run_var + (1.0 - RUN_MOMENTUM) * var
     return y, new_mean, new_var

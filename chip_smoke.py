@@ -76,7 +76,18 @@ paths (full width and depth, random weights from a seed):
     a seeded .weights; a checkpoint of YOLOv3-tiny training (batch 32,
     rotation 10) resumed bit for bit; profile_forward and memory_report;
     the host time of one K4 call through its wrapper, its op and its
-    launcher.
+    launcher;
+  - data parallel (phase 14, `bcnn_tpu_torch.parallel`): one NCCL rank
+    runs every DP form at full width, YOLOv3-tiny 416 at batch 32 (the
+    DP step, ZeRO-1, FSDP, Session(mesh=, zero=3) fed by
+    BatchPipeline(sharding=), the DP scan, the replicated and sharded
+    resident scans with rotation 10: K2) and MobileNet-v1's DP forward
+    at batch 64, fp32 (K3) and int8 (K4 + K5), bit-equal to
+    predict_on_batch; each training form held to the single-device run
+    that takes its own kink sides and max-pool picks; an FSDP checkpoint
+    resumed on ZeRO-1 and on one device; then two gloo ranks share the
+    card for the DP step and the replicated resident scan, held to one
+    rank's run of the global batch and to each other bit for bit.
 Each path runs with the launch counts set to 0 just before it and read
 just after; each phase prints its seconds. Every kernel is reached
 through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
@@ -3787,6 +3798,529 @@ def deploy_phase(gpu):
     return launched
 
 
+# ------------------------------------------------------------------------
+# phase 14: data parallel on torch.distributed (bcnn_tpu_torch.parallel)
+# ------------------------------------------------------------------------
+
+# (a) one rank under NCCL runs every DP form at full width: YOLOv3-tiny
+# 416 at batch P14_BATCH (the DP step, ZeRO-1, FSDP, Session(mesh=, zero=3)
+# fed by BatchPipeline(sharding=), the DP scan of P14_K steps, and the
+# replicated and sharded resident scans over P14_RECORDS raw records
+# with AUGMENT's rotation 10: K2), and MobileNet-v1's DP forward (224,
+# batch MB_BATCH) fp32 (K3) and int8 (K4 + K5). Each form is held to the
+# single-device path on the same inputs and seeds: a forward bit for bit;
+# a training form by a replay, the single-device run taking the DP run's
+# own kink sides and max-pool picks (`bcnn_tpu_torch.replay.impose`) so
+# that only rounding parts them (BN's global sums are taken as sum / n,
+# torch.mean's otherwise), each update within BN_UPDATE_TOL of its
+# largest entry (phase 9's bound for batch-32 steps of these seeded
+# weights, whose gradients cancel) and the losses within STEP_LOSS_RTOL,
+# under cuDNN's deterministic algorithms. (b) Two gloo ranks share the
+# card (NCCL refuses two ranks on one GPU; gloo runs broadcast and
+# all_reduce on CUDA tensors), P14_BATCH / 2 rows each: the DP step and
+# the replicated resident scan, held the same way to one rank's run of
+# the global batch, and to each other bit for bit.
+P14_BATCH, P14_K, P14_RECORDS, P14_RANKS = 32, 2, 64, 2
+# the rank device and (a)'s backend (a rehearsal on the CPU sets "cpu"
+# and "gloo"); the gloo ranks take the settings below from (a)
+P14_DEV, P14_BACKEND = "cuda:0", "nccl"
+P14_SETTINGS = ("SIZE", "CLASSES", "MB_BATCH", "MB_SIZE", "P14_BATCH",
+                "P14_K", "P14_RECORDS", "P14_DEV")
+
+
+def on_card() -> bool:
+    return torch.device(P14_DEV).type == "cuda"
+
+
+def p14_sync():
+    if on_card():
+        torch.cuda.synchronize()
+
+
+def p14_reset_peak():
+    if on_card():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def p14_peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if on_card() else 0.0
+
+
+def compact(choices):
+    """A Choices' kink sides packed 8 to a byte and its picks as uint8
+    (a window holds at most size^2 <= 16 inputs), for another process."""
+    return {"kinks": [(tuple(k.shape), np.packbits(k.numpy().ravel()))
+                      for k in choices.kinks],
+            "picks": [p.to(torch.uint8).numpy() for p in choices.picks]}
+
+
+def expand(parts):
+    """replay.Choices of the ranks' compacted choices, each rank's stripe
+    in rank order (the global batch's)."""
+    def kinks(i):
+        return torch.cat([torch.from_numpy(np.unpackbits(
+            bits, count=int(np.prod(shape))).reshape(shape).astype(bool))
+            for shape, bits in (p["kinks"][i] for p in parts)])
+
+    return replay.Choices(
+        kinks=[kinks(i) for i in range(len(parts[0]["kinks"]))],
+        picks=[torch.cat([torch.from_numpy(p["picks"][i]).long()
+                          for p in parts])
+               for i in range(len(parts[0]["picks"]))])
+
+
+def recorded(fn):
+    choices = replay.Choices()
+    with replay.record(choices):
+        out = fn()
+    return out, choices
+
+
+def p14_net(batch, augment=False):
+    net = yolov3_tiny(batch, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+    if augment:
+        net.device_augment = AUGMENT
+    return net
+
+
+def p14_start(net, device):
+    """Phase 7's start: the session's seeded weights, seeded BN stats,
+    a fresh optimizer state; CPU copies to hand on."""
+    from bcnn_tpu_torch.compile import init_params
+
+    params, _ = init_params(net, SEED)
+    state = bn_stats(net)
+    return ({k: v.to(device) for k, v in params.items()},
+            {k: v.to(device) for k, v in state.items()},
+            init_opt_state(net, {k: v.to(device) for k, v in params.items()}))
+
+
+def p14_inputs():
+    rng = np.random.RandomState(SEED + 41)
+    x = (rng.rand(P14_BATCH, 3, SIZE, SIZE) * 2 - 1).astype(np.float32)
+    lab = det_labels(rng, P14_BATCH)
+    xs = (rng.rand(P14_K, P14_BATCH, 3, SIZE, SIZE) * 2 - 1).astype(
+        np.float32)
+    ys = np.stack([det_labels(rng, P14_BATCH) for _ in range(P14_K)])
+    data = rng.randint(0, 256, (P14_RECORDS, 3, SIZE, SIZE)).astype(np.uint8)
+    dlab = det_labels(rng, P14_RECORDS)
+    idx = rng.randint(0, P14_RECORDS, (P14_K, P14_BATCH)).astype(np.int64)
+    return dict(x=x, lab=lab, xs=xs, ys=ys, data=data, dlab=dlab, idx=idx)
+
+
+def floats(a):
+    if torch.is_tensor(a):
+        return a.detach().float().cpu().reshape(-1).tolist()
+    return np.asarray(a, np.float64).reshape(-1).tolist()
+
+
+def held(label, p0, got, ref, loss, ref_loss):
+    """Each trainable update of `got` (dict of tensors) within
+    BN_UPDATE_TOL of its largest entry of `ref`'s; the losses within
+    STEP_LOSS_RTOL. Returns the worst share."""
+    worst = (0.0, "")
+    for k in ref:
+        du, dr = got[k].cpu() - p0[k].cpu(), ref[k].cpu() - p0[k].cpu()
+        scale = float(dr.abs().max())
+        if scale == 0:
+            if float(du.abs().max()):
+                raise RuntimeError(f"{label}: {k} moved where the "
+                                   "single-device step left it")
+            continue
+        worst = max(worst, (float((du - dr).abs().max()) / scale, k))
+    loss, ref_loss = np.asarray(floats(loss)), np.asarray(floats(ref_loss))
+    if worst[0] > BN_UPDATE_TOL or not np.allclose(
+            loss, ref_loss, rtol=STEP_LOSS_RTOL, atol=0):
+        raise RuntimeError(f"{label}: update {worst[0]:.3g} of its largest "
+                           f"entry from the single-device one ({worst[1]}; "
+                           f"limit {BN_UPDATE_TOL}), losses {loss} vs "
+                           f"{ref_loss}")
+    return worst
+
+
+def single_device(net, p0, s0, fn, choices):
+    """fn(params, state, opt) on clones of the start, under `choices`
+    imposed: the single-device run the DP run is held to."""
+    params = {k: v.clone() for k, v in p0.items()}
+    state = {k: v.clone() for k, v in s0.items()}
+    with replay.impose(choices):
+        return fn(params, state, init_opt_state(net, params))
+
+
+def p14_gloo_rank(rank, tmp, out):
+    """(b): one of P14_RANKS gloo ranks on cuda:0, its rows of the global
+    batch: the DP step, then the replicated resident scan with rotation;
+    writes its params, losses, compacted choices, step time, K2 launches
+    and peak memory to `out`."""
+    import datetime
+
+    from bcnn_tpu_torch.parallel import (make_dp_train_scan_resident,
+                                         make_dp_train_step, multihost,
+                                         replicate, shard_batch)
+
+    inp = torch.load(os.path.join(tmp, "p14_inputs.pt"), weights_only=False)
+    globals().update(inp["settings"])
+    multihost.initialize(f"file://{tmp}/gloo_store", P14_RANKS, rank,
+                         backend="gloo",
+                         timeout=datetime.timedelta(seconds=120))
+    torch.backends.cudnn.deterministic = True
+    if on_card():
+        kernels.library()
+    mesh = multihost.global_mesh(device=P14_DEV)
+    res = {}
+    for form in ("step", "resident"):
+        net = p14_net(P14_BATCH, augment=form == "resident")
+        p, s, o = replicate(mesh, p14_start(net, "cpu"))
+        if form == "step":
+            step = make_dp_train_step(net, mesh)
+            batch = shard_batch(mesh, {"input": inp["x"], "label": inp["lab"]})
+            run = lambda: step(p, s, o, batch)  # noqa: E731
+        else:
+            scan = make_dp_train_scan_resident(net, mesh)
+            ds = {"input": torch.from_numpy(inp["data"]).to(mesh.device),
+                  "label": torch.from_numpy(inp["dlab"]).to(mesh.device)}
+            idx = shard_batch(mesh, torch.from_numpy(inp["idx"]), axis=1)
+            gen = torch.Generator().manual_seed(SEED + 42)
+            run = lambda: scan(p, s, o, ds, idx, gen)  # noqa: E731
+        p14_reset_peak()
+        zero_counts()
+        t0 = time.perf_counter()
+        (params, _, _, loss), choices = recorded(run)
+        p14_sync()
+        res[form] = dict(
+            ms=1e3 * (time.perf_counter() - t0), launches=counts(),
+            peak=p14_peak(), loss=floats(loss),
+            params={k: v.cpu() for k, v in params.items()},
+            choices=compact(choices))
+    # the step's time without recording: two warm calls, then the median
+    # of three, the ranks in step with each other
+    net = p14_net(P14_BATCH)
+    step = make_dp_train_step(net, mesh)
+    batch = shard_batch(mesh, {"input": inp["x"], "label": inp["lab"]})
+    times = []
+    for i in range(5):
+        p, s, o = replicate(mesh, p14_start(net, "cpu"))
+        mesh.barrier()
+        p14_sync()
+        t0 = time.perf_counter()
+        float(step(p, s, o, batch)[3])
+        if i >= 2:
+            times.append(1e3 * (time.perf_counter() - t0))
+    res["step_ms"] = statistics.median(times)
+    torch.save(res, out)
+    torch.distributed.destroy_process_group()
+
+
+def p14_gloo_main(rank, tmp):
+    try:
+        p14_gloo_rank(rank, tmp, os.path.join(tmp, f"p14_rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"p14_error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def parallel_phase(gpu):
+    """Phase 14 (see the constants above). Returns the launches of K2-K5
+    on its paths (the gloo ranks' included)."""
+    import torch.distributed as dist
+
+    from bcnn_tpu_torch.compile import make_train_scan_resident
+    from bcnn_tpu_torch.data.pipeline import BatchPipeline
+    from bcnn_tpu_torch.data.records import ShardedEpochIndexStream
+    from bcnn_tpu_torch.parallel import (make_dp_forward, make_dp_train_scan,
+                                         make_dp_train_scan_resident,
+                                         make_dp_train_scan_resident_sharded,
+                                         make_dp_train_step,
+                                         make_fsdp_train_step, make_mesh,
+                                         make_zero1_train_step, replicate,
+                                         shard_batch, shard_resident_dataset,
+                                         shard_zero_state)
+
+    t_phase = time.perf_counter()
+    launched = dict(K2=0, K3=0, K4=0, K5=0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp()
+    try:
+        dist.init_process_group(P14_BACKEND,
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        mesh = make_mesh(device=P14_DEV)
+        inp = p14_inputs()
+        inp["settings"] = {k: globals()[k] for k in P14_SETTINGS}
+        torch.save(inp, os.path.join(tmp, "p14_inputs.pt"))
+        d = lambda a: torch.from_numpy(a).to(P14_DEV)  # noqa: E731
+        worst, peaks, results = {}, {}, {}
+
+        # -- the DP step, ZeRO-1 and FSDP against the single-device step --
+        net = p14_net(P14_BATCH)
+        p0, s0, _ = p14_start(net, P14_DEV)
+        batch = {"input": d(inp["x"]), "label": d(inp["lab"])}
+        ref_step = make_train_step(net)
+        for form, make, zero in (("DP step", make_dp_train_step, 0),
+                                 ("ZeRO-1 step", make_zero1_train_step, 1),
+                                 ("FSDP step", make_fsdp_train_step, 3)):
+            step = make(net, mesh)
+            start = (p0, s0, init_opt_state(net, p0))
+            p, s, o = (shard_zero_state(net, mesh, *start,
+                                        params_too=zero == 3)
+                       if zero else replicate(mesh, start))
+            p14_reset_peak()
+            zero_counts()
+            (p, s, o, loss), ch = recorded(lambda: step(
+                p, s, o, shard_batch(mesh, batch)))
+            if any(counts().values()):
+                raise RuntimeError(f"{form} launched {counts()}")
+            peaks[form] = p14_peak()
+            if zero:
+                from bcnn_tpu_torch.parallel import gather_zero_state
+
+                p, s, o = gather_zero_state(net, mesh, p, s, o)
+            rp, _, _, rl = single_device(net, p0, s0, lambda *a: ref_step(
+                *a, batch), ch)
+            worst[form] = held(form, p0, p, rp, loss, rl)
+            results[form] = (p, loss)
+
+        # the step's cost at world size 1: DP step against the single-device
+        # step, in turns, each from the start (no recording)
+        t_dp, t_one = [], []
+        step = make_dp_train_step(net, mesh)
+        stripe = shard_batch(mesh, batch)
+        for i in range(5):
+            for times, fn in ((t_dp, lambda a: step(*a, stripe)),
+                              (t_one, lambda a: ref_step(*a, batch))):
+                start = replicate(mesh, (p0, s0, init_opt_state(net, p0)))
+                p14_sync()
+                t0 = time.perf_counter()
+                float(fn(start)[3])
+                if i >= 2:
+                    times.append(1e3 * (time.perf_counter() - t0))
+
+        # -- the DP scan over staged batches --------------------------------
+        scan = make_dp_train_scan(net, mesh)
+        xs = shard_batch(mesh, {"input": inp["xs"], "label": inp["ys"]},
+                         axis=1)
+        zero_counts()
+        (p, _, _, losses), ch = recorded(lambda: scan(
+            *replicate(mesh, (p0, s0, init_opt_state(net, p0))),
+            xs["input"], xs["label"], torch.Generator().manual_seed(SEED)))
+        rp, _, _, rl = single_device(net, p0, s0, lambda *a: make_train_scan(
+            net)(*a, {"input": d(inp["xs"]), "label": d(inp["ys"])},
+                 torch.Generator().manual_seed(SEED)), ch)
+        worst["DP scan"] = held("DP scan", p0, p, rp, losses, rl)
+
+        # -- the resident scans with rotation (K2) --------------------------
+        anet = p14_net(P14_BATCH, augment=True)
+        ds = {"input": d(inp["data"]), "label": d(inp["dlab"])}
+        local = ShardedEpochIndexStream(P14_RECORDS, P14_BATCH, 1,
+                                        seed=SEED).next(P14_K)
+        for form in ("resident scan", "sharded resident scan"):
+            if form == "resident scan":
+                scan = make_dp_train_scan_resident(anet, mesh)
+                dsm = replicate(mesh, ds)
+                idx = shard_batch(mesh, torch.from_numpy(inp["idx"]), axis=1)
+                gidx = d(inp["idx"])
+            else:
+                scan = make_dp_train_scan_resident_sharded(anet, mesh)
+                dsm = shard_resident_dataset(mesh, ds)
+                idx = shard_batch(mesh, torch.from_numpy(local).long(),
+                                  axis=1)
+                gidx = d(local[:, 0].astype(np.int64))
+            p14_reset_peak()
+            zero_counts()
+            (p, _, _, losses), ch = recorded(lambda: scan(
+                *replicate(mesh, (p0, s0, init_opt_state(anet, p0))), dsm,
+                idx, torch.Generator().manual_seed(SEED + 42)))
+            got = counts()
+            peaks[form] = p14_peak()
+            if got != dict(K1=0, K2=3 * P14_K * on_card(), K3=0, K4=0,
+                           K5=0):
+                raise RuntimeError(f"{form}: launches {got}")
+            launched["K2"] += got["K2"]
+            rp, _, _, rl = single_device(
+                anet, p0, s0, lambda *a: make_train_scan_resident(anet)(
+                    *a, ds, gidx, torch.Generator().manual_seed(SEED + 42)),
+                ch)
+            worst[form] = held(form, p0, p, rp, losses, rl)
+            results[form] = (p, losses)
+
+        # -- Session(mesh=, zero=3) fed by BatchPipeline(sharding=) --------
+        class Feed:
+            def next_batch(self):
+                return inp["x"], inp["lab"]
+
+        pipe = BatchPipeline(Feed(), depth=1, sharding=mesh).start()
+        try:
+            xb, yb = next(iter(pipe))
+        finally:
+            pipe.stop()
+        sess = Session(net, SEED, mesh=mesh, zero=3)
+        sess.params = {k: v.clone() for k, v in p0.items()}
+        sess.state = {k: v.clone() for k, v in s0.items()}
+        sess.compile_net()
+        (loss,), ch = recorded(lambda: (sess.train_on_batch(xb, yb),))
+        rp, _, _, rl = single_device(net, p0, s0, lambda *a: ref_step(
+            *a, batch), ch)
+        worst["Session(mesh, zero=3)"] = held(
+            "Session(mesh, zero=3)", p0, sess._full_params(), rp, loss, rl)
+        path = os.path.join(tmp, "p14.npz")
+        sess.save_checkpoint(path)
+        back = Session(p14_net(P14_BATCH), SEED, mesh=mesh, zero=1)
+        back.compile_net().load_checkpoint(path)
+        one = Session(p14_net(P14_BATCH), SEED, device=P14_DEV).compile_net()
+        one.load_checkpoint(path)
+        full = sess._full_params()
+        for label, table in (("ZeRO-1", back.params), ("one device",
+                                                       one.params)):
+            if not all(torch.equal(table[k], full[k]) for k in full):
+                raise RuntimeError(f"the FSDP checkpoint resumed on "
+                                   f"{label} differs")
+
+        # -- the DP forward of MobileNet-v1, fp32 (K3) and int8 (K4 + K5) --
+        mnet = mobilenet_v1(MB_BATCH, 1000)
+        if MB_SIZE != 224:  # a rehearsal's
+            mnet.resize(MB_SIZE, MB_SIZE)
+        mp, ms = bridge.params_from_numpy(
+            mnet, *bridge.he_numpy_weights(mnet, SEED), P14_DEV)
+        msess = Session(mnet, SEED, device=P14_DEV)
+        msess.params, msess.state = mp, ms
+        msess.compile_net()
+        mx = np.random.RandomState(SEED + 43).rand(
+            MB_BATCH, 3, MB_SIZE, MB_SIZE).astype(np.float32)
+        fwd = make_dp_forward(mnet, mesh, MB_OUTPUTS, Mode.PREDICT)
+        n_dw = sum(n.type.name == "DEPTHWISE_CONV2D" for n in mnet.nodes)
+        n_k4 = sum(n.type.name in ("CONV2D", "FULL_CONNECTED")
+                   for n in mnet.nodes)
+        fwd_ms = {}
+        for prec, want in (("fp32", dict(K3=n_dw)),
+                           ("int8", dict(K4=n_k4, K5=n_dw))):
+            if prec == "int8":
+                ptq_synthetic(mnet, msess)
+            rp_, rs_ = replicate(mesh, (msess.params, msess.state))
+            xb_ = shard_batch(mesh, {"input": mx})
+            fwd(rp_, rs_, xb_)  # warm
+            p14_sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            outs = fwd(rp_, rs_, xb_)
+            p14_sync()
+            fwd_ms[prec] = 1e3 * (time.perf_counter() - t0)
+            got = {k: v for k, v in counts().items() if v}
+            if not on_card():
+                want = {}
+            if got != want:
+                raise RuntimeError(f"DP forward {prec}: launches {got}, "
+                                   f"wanted {want}")
+            for k, v in got.items():
+                launched[k] += v
+            ref, _ = msess.predict_on_batch(mx, outputs=MB_OUTPUTS)
+            for o, r in zip(outs, ref):
+                if not torch.equal(o, r):
+                    raise RuntimeError(f"DP forward {prec}: not bit-equal "
+                                       "to predict_on_batch")
+        mnet.quant = None
+
+        # -- (b): two gloo ranks on the card ---------------------------------
+        if on_card():
+            torch.cuda.empty_cache()  # the cached blocks, for the ranks
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=p14_gloo_main, args=(r, tmp))
+                 for r in range(P14_RANKS)]
+        t_b = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(240)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errs = [open(os.path.join(tmp, f"p14_error{r}.txt")).read()
+                for r in range(P14_RANKS)
+                if os.path.exists(os.path.join(tmp, f"p14_error{r}.txt"))]
+        if errs or any(pr.exitcode for pr in procs):
+            raise RuntimeError("gloo ranks failed: "
+                               f"{[pr.exitcode for pr in procs]}\n"
+                               + "\n".join(errs))
+        t_b = time.perf_counter() - t_b
+        ranks = [torch.load(os.path.join(tmp, f"p14_rank{r}.pt"),
+                            weights_only=False) for r in range(P14_RANKS)]
+        for form, ref_form, fn in (
+                ("step", "DP step", lambda *a: ref_step(*a, batch)),
+                ("resident", "resident scan",
+                 lambda *a: make_train_scan_resident(anet)(
+                     *a, ds, d(inp["idx"]),
+                     torch.Generator().manual_seed(SEED + 42)))):
+            for r in ranks[1:]:
+                if not all(torch.equal(r[form]["params"][k],
+                                       ranks[0][form]["params"][k])
+                           for k in r[form]["params"]):
+                    raise RuntimeError(f"gloo {form}: the ranks' params "
+                                       "differ")
+            fnet = anet if form == "resident" else net
+            rp, _, _, rl = single_device(fnet, p0, s0, fn,
+                                         expand([r[form]["choices"]
+                                                 for r in ranks]))
+            worst[f"2 gloo ranks, {form}"] = held(
+                f"2 gloo ranks, {form}", p0, ranks[0][form]["params"], rp,
+                ranks[0][form]["loss"], rl)
+            # and against (a)'s one-rank run of the global batch
+            a_p, a_l = results[ref_form]
+            np.testing.assert_allclose(
+                ranks[0][form]["loss"], [float(v) for v in
+                                         torch.atleast_1d(a_l)],
+                rtol=STEP_LOSS_RTOL)
+        for r, res in enumerate(ranks):
+            want = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+            if res["step"]["launches"] != want:
+                raise RuntimeError(f"gloo rank {r} step: "
+                                   f"{res['step']['launches']}")
+            want["K2"] = 3 * P14_K * on_card()
+            if res["resident"]["launches"] != want:
+                raise RuntimeError(f"gloo rank {r} resident scan: "
+                                   f"{res['resident']['launches']}")
+            launched["K2"] += want["K2"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"data parallel (phase 14), YOLOv3-tiny {SIZE} px, batch "
+          f"{P14_BATCH}, on {gpu}: one {P14_BACKEND} rank, each form "
+          "against the single-device run of its own choices, the worst "
+          "update share of its largest entry: " + "; ".join(
+              f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+          + f"; the DP step {statistics.median(t_dp):.2f} ms ("
+          + ", ".join(f"{v:.2f}" for v in t_dp) + ") against the "
+          f"single-device step {statistics.median(t_one):.2f} ms ("
+          + ", ".join(f"{v:.2f}" for v in t_one) + "; the collectives "
+          "at world size 1, median of 3 in turns, host clock); peak "
+          "memory " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
+          + f"; MobileNet-v1's DP forward, batch {MB_BATCH}, bit-equal to "
+          f"predict_on_batch: fp32 {fwd_ms['fp32']:.2f} ms ({n_dw} K3), "
+          f"int8 {fwd_ms['int8']:.2f} ms ({n_k4} K4 + {n_dw} K5); the FSDP "
+          "checkpoint resumed bit for bit on ZeRO-1 and on one device. "
+          f"{P14_RANKS} gloo ranks on the one card, {P14_BATCH // P14_RANKS}"
+          " rows each: the DP step "
+          + ", ".join(f"{r['step_ms']:.1f}" for r in ranks)
+          + " ms a rank (no scaling figure: two processes share one card "
+          "and gloo stages its all-reduces through the host), bit-identical"
+          " params, K2 " + ", ".join(str(r["resident"]["launches"]["K2"])
+                                     for r in ranks)
+          + f" a rank in the {P14_K}-step resident scan, peak memory "
+          + ", ".join(f"{max(r['step']['peak'], r['resident']['peak']):.2f}"
+                      for r in ranks)
+          + f" GiB a rank; the ranks took {t_b:.1f} s with start-up; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3962,6 +4496,14 @@ def main() -> int:
     k4_launches += p13["K4"]
     k5_launches += p13["K5"]
     stamp("13")
+
+    # -- phase 14: data parallel (one NCCL rank; two gloo ranks) ----------
+    p14 = parallel_phase(gpu)
+    k2_launches += p14["K2"]
+    k3_launches += p14["K3"]
+    k4_launches += p14["K4"]
+    k5_launches += p14["K5"]
+    stamp("14")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

@@ -232,9 +232,40 @@ def test_stop_ends_the_worker_and_closes_loaders(clf_list):
     assert closed == [1, 1]
 
 
+class _Batches:
+    def __init__(self, n=2):
+        self.x = np.arange(n * 8 * 3, dtype=np.float32).reshape(n, 8, 3)
+        self.y = np.arange(n * 8, dtype=np.float32).reshape(n, 8)
+        self.i = 0
+
+    def next_batch(self):
+        self.i += 1
+        return self.x[self.i % 2], self.y[self.i % 2]
+
+
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        BatchPipeline(FailingLoader(), sharding=object(), device="cpu")
+    """BatchPipeline(sharding=) hands out a mesh rank's stripe of every
+    batch on the mesh's device (rank 1 of 2 on the CPU, `parallel.Mesh`
+    built without a process group), and refuses another device; the
+    card is the default device, refused where CUDA is missing."""
+    from bcnn_tpu_torch.parallel import Mesh
+
+    mesh = Mesh.__new__(Mesh)
+    mesh.size, mesh.rank, mesh.device = 2, 1, torch.device("cpu")
+    src = _Batches()
+    pipe = BatchPipeline(_Batches(), depth=1, sharding=mesh).start()
+    try:
+        it = iter(pipe)
+        for _ in range(3):
+            x, y = next(it)
+            want_x, want_y = src.next_batch()
+            assert x.device == mesh.device
+            np.testing.assert_array_equal(x.numpy(), want_x[4:])
+            np.testing.assert_array_equal(y.numpy(), want_y[4:])
+    finally:
+        assert pipe.stop()
+    with pytest.raises(ValueError, match="rank device"):
+        BatchPipeline(FailingLoader(), sharding=mesh, device="cuda")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             BatchPipeline(FailingLoader())  # the card, unless asked

@@ -143,10 +143,11 @@ def test_positional_label_matches_bcnn_tpu():
                                atol=ATOL)
 
 
-def test_no_jax_in_the_port():
+def test_no_jax_in_the_port(tmp_path):
     """A 64-px slice through the port in a fresh interpreter loads no
-    JAX module: serving, and a training step with rotation
-    augmentation."""
+    JAX module: serving, a training step with rotation augmentation,
+    and `bcnn_tpu_torch.parallel` and `multihost` with one data-parallel
+    step of a world of one gloo rank on the CPU."""
     code = textwrap.dedent(
         """
         import sys
@@ -172,6 +173,18 @@ def test_no_jax_in_the_port():
         xu8 = np.random.RandomState(1).randint(0, 256, (2, 3, 64, 64))
         loss = train.train_on_batch(xu8.astype(np.uint8), lab)
         assert bool(torch.isfinite(loss)) and float(loss) > 0
+        from bcnn_tpu_torch.parallel import (make_dp_train_step, multihost,
+                                             replicate, shard_batch)
+        multihost.initialize("file://" + sys.argv[1], 1, 0, backend="gloo")
+        mesh = multihost.global_mesh(device="cpu")
+        net = yolov3_tiny(2, 64, 64, 4, mode=Mode.TRAIN)
+        dp = Session(net, 0, device="cpu").compile_net()
+        p, s, o = replicate(mesh, (dp.params, dp.state, dp.opt_state))
+        x = np.random.RandomState(2).rand(2, 3, 64, 64).astype(np.float32)
+        p, s, o, loss = make_dp_train_step(net, mesh)(
+            p, s, o, shard_batch(mesh, {"input": x, "label": lab}))
+        assert bool(torch.isfinite(loss)) and o["seen"] == 2
+        torch.distributed.destroy_process_group()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "bcnn_tpu.")))
         assert not bad, bad
@@ -181,8 +194,8 @@ def test_no_jax_in_the_port():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     res = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        env=env, cwd=root, timeout=120,
+        [sys.executable, "-c", code, str(tmp_path / "store")],
+        capture_output=True, text=True, env=env, cwd=root, timeout=120,
     )
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
 

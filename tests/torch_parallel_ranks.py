@@ -1,0 +1,526 @@
+"""The rank side of tests/test_torch_parallel.py and
+tests/test_torch_multihost.py: D gloo ranks on the CPU, started with
+torch.multiprocessing (spawn), each running a list of cases through
+`bcnn_tpu_torch.parallel` and writing its results for the test process
+to hold against bcnn_tpu and the port's one-rank run. Not a pytest
+module (no test_ prefix); it imports no JAX, and the test modules import
+it for the nets and the launcher.
+
+A cluster: `launch(world, cases, workdir)` writes the cases (plain
+numpy inputs) to workdir, starts `world` ranks that join one process
+group through a file store there, and returns a `Cluster` whose
+`results()` waits for them and gives each rank's {case name: outputs}.
+Collectives time out after TIMEOUT_S, and a rank that fails writes its
+traceback, so a broken case ends the cluster instead of hanging it.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import traceback
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 120
+LENET_BATCH = 16
+TINY_BATCH, TINY_SIZE, TINY_CLASSES = 4, 64, 4
+LIFTED_BATCH = 8
+MB_BATCH, MB_SIZE, MB_CLASSES = 4, 64, 10
+# the device augmentation of the resident scans: rotation (K2's shear
+# chain; its plain version on the CPU), a flip, contrast and brightness
+AUG = dict(rotation_range=10.0, random_fliph=1, min_contrast=0.8,
+           max_contrast=1.2, min_brightness=-20, max_brightness=20)
+
+
+def lifted_net(pkg, batch=LIFTED_BATCH):
+    """A conv with BN and an FC embedding of 6 under the lifted-structure
+    loss: its pairs couple the whole batch."""
+    A, F = pkg.Activation, pkg.FillerType
+    net = pkg.Net(pkg.Mode.TRAIN)
+    net.set_input_shape(8, 8, 3, batch)
+    net.set_sgd_optimizer(0.01, 0.9)
+    net.add_convolutional_layer(8, 3, 1, 1, 1, 1, F.XAVIER, A.RELU, 0,
+                                "input", "c1")
+    net.add_fullc_layer(6, F.XAVIER, A.NONE, 0, "c1", "emb")
+    net.add_cost_layer(pkg.Loss.LIFTED_STRUCT, pkg.Metric.SSE, 1.0, "emb")
+    return net
+
+
+def dropout_net(pkg, batch=LIFTED_BATCH):
+    """A conv with BN, dropout at rate 0.3, an FC of 10 under softmax and
+    the euclidean cost: each rank's mask is its stripe of the global
+    batch's."""
+    A, F = pkg.Activation, pkg.FillerType
+    net = pkg.Net(pkg.Mode.TRAIN)
+    net.set_input_shape(8, 8, 3, batch)
+    net.set_sgd_optimizer(0.01, 0.9)
+    net.add_convolutional_layer(8, 3, 1, 1, 1, 1, F.XAVIER, A.RELU, 0,
+                                "input", "c1")
+    net.add_dropout_layer(0.3, "c1")
+    net.add_fullc_layer(10, F.XAVIER, A.NONE, 0, "c1", "fc")
+    net.add_softmax_layer("fc", "softmax")
+    net.add_cost_layer(pkg.Loss.EUCLIDEAN, pkg.Metric.ERROR_RATE, 1.0,
+                       "softmax")
+    return net
+
+
+def build_net(pkg, models, name):
+    """The test nets in either package (`pkg`, its `models`)."""
+    if name == "lenet":
+        return models.lenet_mnist(LENET_BATCH)
+    if name == "tiny":
+        return models.yolov3_tiny(TINY_BATCH, TINY_SIZE, TINY_SIZE,
+                                  TINY_CLASSES, mode=pkg.Mode.TRAIN)
+    if name == "lifted":
+        return lifted_net(pkg)
+    if name == "dropout":
+        return dropout_net(pkg)
+    if name == "mobilenet":
+        net = models.mobilenet_v1(MB_BATCH, MB_CLASSES, pkg.Mode.PREDICT,
+                                  width_mult=0.25)
+        net.resize(MB_SIZE, MB_SIZE)
+        return net
+    raise ValueError(name)
+
+
+# -------------------------------------------------------------- launcher #
+
+
+class Cluster:
+    def __init__(self, procs, workdir, world):
+        self.procs, self.workdir, self.world = procs, workdir, world
+        self._out = None
+
+    def results(self, timeout=600):
+        """Each rank's {case: outputs}; raises with the ranks' tracebacks
+        if one failed."""
+        if self._out is not None:
+            return self._out
+        for p in self.procs:
+            p.join(timeout)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = []
+        for r in range(self.world):
+            path = os.path.join(self.workdir, f"error{r}.txt")
+            if os.path.exists(path):
+                errs.append(f"rank {r}:\n" + open(path).read())
+        codes = [p.exitcode for p in self.procs]
+        if errs or any(codes):
+            raise RuntimeError(f"ranks exited {codes}\n" + "\n".join(errs))
+        self._out = [torch.load(os.path.join(self.workdir, f"rank{r}.pt"),
+                                weights_only=False)
+                     for r in range(self.world)]
+        return self._out
+
+
+def launch(world, cases, workdir) -> Cluster:
+    """Start `world` gloo ranks running `cases` ({name: spec}) in
+    workdir; returns at once."""
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(cases, os.path.join(workdir, "cases.pt"))
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, workdir),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return Cluster(procs, workdir, world)
+
+
+def _rank_main(rank, world, workdir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        from bcnn_tpu_torch.parallel import multihost
+
+        multihost.initialize(f"file://{workdir}/store", world, rank,
+                             backend="gloo",
+                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        mesh = multihost.global_mesh(device="cpu")
+        cases = torch.load(os.path.join(workdir, "cases.pt"),
+                           weights_only=False)
+        out = {name: CASES[spec["kind"]](mesh, spec, workdir)
+               for name, spec in cases.items()}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(workdir, f"error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ----------------------------------------------------------- the cases #
+
+
+def _port_net(spec):
+    import bcnn_tpu_torch as tt
+    from bcnn_tpu_torch import models
+    from bcnn_tpu_torch.types import Optimizer
+
+    net = build_net(tt, models, spec["net"])
+    if spec.get("adam"):
+        net.learner.optimizer = Optimizer.ADAM
+    if spec.get("bf16"):
+        net.compute_dtype = net.train_act_dtype = torch.bfloat16
+    if spec.get("aug"):
+        net.device_augment = dict(spec["aug"])
+    return net
+
+
+def _np(net, tree):
+    from bcnn_tpu_torch import bridge
+
+    return bridge.params_to_numpy(net, {k: v.detach().cpu()
+                                        for k, v in tree.items()})
+
+
+def _start(net, spec, mesh, zero=0):
+    """(params, state, opt_state) of the spec's numpy weights, placed as
+    `zero` asks."""
+    from bcnn_tpu_torch import bridge
+    from bcnn_tpu_torch.learner import init_opt_state
+    from bcnn_tpu_torch.parallel import replicate, shard_zero_state
+
+    params, state = bridge.params_from_numpy(net, spec["p"], spec["s"])
+    opt = init_opt_state(net, params)
+    if zero:
+        return shard_zero_state(net, mesh, params, state, opt,
+                                params_too=zero == 3)
+    return replicate(mesh, (params, state, opt))
+
+
+def _gen(spec):
+    seed = spec.get("gen")
+    return None if seed is None else torch.Generator().manual_seed(seed)
+
+
+def _recorded(fn):
+    """fn() under `replay.record`: (its result, this rank's kink sides
+    and max-pool picks, numpy, in call order)."""
+    from bcnn_tpu_torch import replay
+
+    choices = replay.Choices()
+    with replay.record(choices):
+        out = fn()
+    return out, {"kinks": [c.numpy() for c in choices.kinks],
+                 "picks": [c.numpy() for c in choices.picks]}
+
+
+def _finish(net, mesh, params, state, opt, losses, zero=0, choices=None):
+    from bcnn_tpu_torch.parallel import gather_zero_state
+
+    local = {"params": {k: tuple(v.shape) for k, v in params.items()},
+             "opt": {k: tuple(v.shape)
+                     for name in ("velocity", "adam_m", "adam_v")
+                     for k, v in opt[name].items()}}
+    if zero:
+        params, state, opt = gather_zero_state(net, mesh, params, state, opt)
+    return {"params": _np(net, params), "state": _np(net, state),
+            "losses": np.asarray([float(v) for v in losses]),
+            "seen": int(opt["seen"]), "local_shapes": local,
+            "choices": choices}
+
+
+def case_step(mesh, spec, workdir):
+    """Steps of make_dp_train_step (zero 0), make_zero1_train_step (1) or
+    make_fsdp_train_step (3) on each batch of spec["batches"]."""
+    from bcnn_tpu_torch.parallel import (make_dp_train_step,
+                                         make_fsdp_train_step,
+                                         make_zero1_train_step, shard_batch)
+
+    net = _port_net(spec)
+    zero = spec.get("zero", 0)
+    step = {0: make_dp_train_step, 1: make_zero1_train_step,
+            3: make_fsdp_train_step}[zero](net, mesh)
+    params, state, opt = _start(net, spec, mesh, zero)
+
+    def run(params, state, opt):
+        losses = []
+        for x, lab in spec["batches"]:
+            params, state, opt, loss = step(
+                params, state, opt,
+                shard_batch(mesh, {"input": x, "label": lab}), _gen(spec))
+            losses.append(loss)
+        return params, state, opt, losses
+
+    (params, state, opt, losses), choices = _recorded(
+        lambda: run(params, state, opt))
+    return _finish(net, mesh, params, state, opt, losses, zero, choices)
+
+
+def case_scan(mesh, spec, workdir):
+    """make_dp_train_scan over staged (K, B, ...) batches."""
+    from bcnn_tpu_torch.parallel import make_dp_train_scan, shard_batch
+
+    net = _port_net(spec)
+    params, state, opt = _start(net, spec, mesh)
+    xs = shard_batch(mesh, {"input": spec["xs"], "label": spec["ys"]},
+                     axis=1)
+    (params, state, opt, losses), choices = _recorded(
+        lambda: make_dp_train_scan(net, mesh)(
+            params, state, opt, xs["input"], xs["label"], _gen(spec)))
+    return _finish(net, mesh, params, state, opt, losses, choices=choices)
+
+
+class _Draws:
+    """sample_params replaced by the given per-call draws (bcnn_tpu's,
+    for the global batch), in order."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def __call__(self, generator, n, cfg, hw=None):
+        d = self.draws.pop(0)
+        assert len(d["theta"]) == n, (len(d["theta"]), n)
+        return {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+
+
+def _with_draws(spec, fn):
+    from bcnn_tpu_torch.data import device_augment as tda
+
+    if spec.get("draws") is None:
+        return fn()
+    real = tda.sample_params
+    tda.sample_params = _Draws(spec["draws"])
+    try:
+        return fn()
+    finally:
+        tda.sample_params = real
+
+
+def case_resident(mesh, spec, workdir):
+    """make_dp_train_scan_resident: the dataset replicated, the (K, B)
+    index striped; or, with spec["sharded"], shard_resident_dataset and
+    make_dp_train_scan_resident_sharded on (K, D, B/D) local indices.
+    Also this rank's bytes of the dataset."""
+    from bcnn_tpu_torch.parallel import (make_dp_train_scan_resident,
+                                         make_dp_train_scan_resident_sharded,
+                                         replicate, shard_batch,
+                                         shard_resident_dataset)
+
+    net = _port_net(spec)
+    params, state, opt = _start(net, spec, mesh)
+    data = {"input": spec["data_x"], "label": spec["data_y"]}
+    if spec.get("sharded"):
+        ds = shard_resident_dataset(mesh, data)
+        scan = make_dp_train_scan_resident_sharded(net, mesh)
+    else:
+        ds = replicate(mesh, data)
+        scan = make_dp_train_scan_resident(net, mesh)
+    idx = shard_batch(mesh, torch.from_numpy(spec["idx"]).to(torch.int64),
+                      axis=1)
+    (params, state, opt, losses), choices = _recorded(
+        lambda: _with_draws(spec, lambda: scan(params, state, opt, ds, idx,
+                                               _gen(spec))))
+    out = _finish(net, mesh, params, state, opt, losses, choices=choices)
+    out["dataset_bytes"] = sum(v.numel() * v.element_size()
+                               for v in ds.values())
+    out["dataset_shapes"] = {k: tuple(v.shape) for k, v in ds.items()}
+    return out
+
+
+def case_forward(mesh, spec, workdir):
+    """make_dp_forward in PREDICT, fp32 or, with spec["quant"] (a
+    bcnn_tpu quant dict), int8."""
+    from bcnn_tpu_torch import bridge
+    from bcnn_tpu_torch.parallel import make_dp_forward, replicate, \
+        shard_batch
+    from bcnn_tpu_torch.types import Mode
+
+    net = _port_net(spec)
+    if spec.get("quant") is not None:
+        net.quant = bridge.quant_from_numpy(net, spec["quant"])
+    params, state = replicate(mesh, bridge.params_from_numpy(
+        net, spec["p"], spec["s"]))
+    outs = make_dp_forward(net, mesh, spec["outputs"], Mode.PREDICT)(
+        params, state, shard_batch(mesh, {"input": spec["x"]}))
+    return {"outs": [o.numpy() for o in outs]}
+
+
+class _Batches:
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def next_batch(self):
+        return self.batches.pop(0)
+
+
+def case_session(mesh, spec, workdir):
+    """Session(mesh=, zero=): compile_net, train_on_batch on each of
+    spec["batches"], train_scan_on_batches over spec["scan"] (replicated
+    state only), a checkpoint to spec["ckpt"] (rank 0 writes it), a
+    second session that loads it, and a VALID prediction."""
+    from bcnn_tpu_torch import Session, bridge
+    from bcnn_tpu_torch.types import Mode
+
+    net = _port_net(spec)
+    zero = spec.get("zero", 0)
+    sess = Session(net, 0, mesh=mesh, zero=zero)
+    sess.params, sess.state = bridge.params_from_numpy(net, spec["p"],
+                                                       spec["s"])
+    sess.compile_net()
+
+    def run():
+        losses = [float(sess.train_on_batch(x, lab))
+                  for x, lab in spec["batches"]]
+        scan_loss = None
+        if spec.get("scan"):
+            sess.loader = _Batches(spec["scan"])
+            scan_loss = sess.train_scan_on_batches(len(spec["scan"]))
+        return losses, scan_loss
+
+    (losses, scan_loss), choices = _recorded(run)
+    out = _finish(net, mesh, sess.params, sess.state, sess.opt_state,
+                  losses, zero, choices)
+    out["scan_loss"] = scan_loss
+    out["step_count"] = sess._step_count
+    sess.save_checkpoint(spec["ckpt"])
+    again = Session(_port_net(spec), 0, mesh=mesh, zero=zero).compile_net()
+    again.load_checkpoint(spec["ckpt"])
+    out["reloaded"] = _finish(net, mesh, again.params, again.state,
+                              again.opt_state, [], zero)
+    net.set_mode(Mode.VALID)
+    x, lab = spec["batches"][0]
+    (prob,), err = sess.predict_on_batch(x, lab)
+    out["valid"] = (prob.numpy(), float(err))
+    return out
+
+
+def case_resume(mesh, spec, workdir):
+    """Session(mesh=, zero=) from a checkpoint (spec["load"]) or from the
+    spec's weights: train_on_batch on each batch, then, with
+    spec["save"], a checkpoint."""
+    from bcnn_tpu_torch import Session, bridge
+
+    net = _port_net(spec)
+    zero = spec.get("zero", 0)
+    sess = Session(net, 0, mesh=mesh, zero=zero)
+    if spec.get("load"):
+        sess.compile_net()
+        sess.load_checkpoint(spec["load"])
+    else:
+        sess.params, sess.state = bridge.params_from_numpy(net, spec["p"],
+                                                           spec["s"])
+        sess.compile_net()
+    losses, choices = _recorded(lambda: [float(sess.train_on_batch(x, lab))
+                                         for x, lab in spec["batches"]])
+    if spec.get("save"):
+        sess.save_checkpoint(spec["save"])
+    out = _finish(net, mesh, sess.params, sess.state, sess.opt_state,
+                  losses, zero, choices)
+    out["step_count"] = sess._step_count
+    return out
+
+
+def case_loader(mesh, spec, workdir):
+    """multihost.shard_loader over MNIST files: each rank reads its
+    stripe of every global batch (a loader net of batch B/D) and
+    host_local_batch places it for the DP step of the global net."""
+    import bcnn_tpu_torch as tt
+    from bcnn_tpu_torch import models
+    from bcnn_tpu_torch.data.loaders import MnistLoader
+    from bcnn_tpu_torch.parallel import (make_dp_train_step, multihost,
+                                         replicate)
+    from bcnn_tpu_torch import bridge
+    from bcnn_tpu_torch.learner import init_opt_state
+
+    gbatch = spec["batch"]
+    start, local = multihost.process_batch_slice(gbatch)
+    net = build_net(tt, models, "lenet")
+    loader_net = models.lenet_mnist(local)
+    loader = multihost.shard_loader(
+        MnistLoader(loader_net, spec["img"], spec["lbl"]))
+    params, state = bridge.params_from_numpy(net, spec["p"], spec["s"])
+    params, state, opt = replicate(
+        mesh, (params, state, init_opt_state(net, params)))
+    step = make_dp_train_step(net, mesh)
+    rows = []
+
+    def run(params, state, opt):
+        losses = []
+        for _ in range(spec["steps"]):
+            x, y = loader.next_batch()
+            rows.append(np.asarray(x))
+            batch = multihost.host_local_batch(mesh, x,
+                                               y.reshape(local, -1, 1, 1))
+            params, state, opt, loss = step(params, state, opt, batch)
+            losses.append(loss)
+        return params, state, opt, losses
+
+    (params, state, opt, losses), choices = _recorded(
+        lambda: run(params, state, opt))
+    out = _finish(net, mesh, params, state, opt, losses, choices=choices)
+    out["rows"] = rows
+    out["slice"] = (start, local)
+    return out
+
+
+def case_bn(mesh, spec, workdir):
+    """ops.batch_norm_train on this rank's stripe under the mesh's
+    reduce: the normalized stripe, the new running stats, and the
+    stripe's input gradient of sum(y * g)."""
+    from bcnn_tpu_torch import ops
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = mesh.stripe(torch.from_numpy(spec["x"])).to(dtype)
+        g = mesh.stripe(torch.from_numpy(spec["g"])).to(dtype)
+        x.requires_grad_()
+        sc, bi, rm, rv = (torch.from_numpy(spec[k]) for k in
+                          ("scales", "biases", "rm", "rv"))
+        y, nm, nv = ops.batch_norm_train(x, sc, bi, rm, rv,
+                                         reduce=mesh.all_reduce)
+        (y.float() * g.float()).sum().backward()
+        out[str(dtype)] = {"y": y.detach().float().numpy(),
+                           "mean": nm.float().numpy(),
+                           "var": nv.float().numpy(),
+                           "dx": x.grad.float().numpy()}
+    return out
+
+
+def case_refusals(mesh, spec, workdir):
+    """The message each DP program raises on each setting bcnn_tpu's
+    drops, or None where it takes it."""
+    from bcnn_tpu_torch import parallel
+
+    makers = {
+        "make_dp_train_step": parallel.make_dp_train_step,
+        "make_dp_train_scan": parallel.make_dp_train_scan,
+        "make_zero1_train_step": parallel.make_zero1_train_step,
+        "make_fsdp_train_step": parallel.make_fsdp_train_step,
+        "make_dp_train_scan_resident": parallel.make_dp_train_scan_resident,
+        "make_dp_train_scan_resident_sharded":
+            parallel.make_dp_train_scan_resident_sharded,
+    }
+    settings = {"device_augment": {"random_fliph": 1}, "remat": True,
+                "accum_steps": 2, "yolo_stats": True, "qat": True,
+                "bn_frozen_stats": True}
+    out = {}
+    for name, make in makers.items():
+        for attr, value in settings.items():
+            net = _port_net({"net": "lenet"})
+            setattr(net, attr, value)
+            try:
+                make(net, mesh)
+                out[(name, attr)] = None
+            except ValueError as e:
+                out[(name, attr)] = str(e)
+    return out
+
+
+CASES = {
+    "step": case_step,
+    "scan": case_scan,
+    "resident": case_resident,
+    "forward": case_forward,
+    "session": case_session,
+    "resume": case_resume,
+    "loader": case_loader,
+    "bn": case_bn,
+    "refusals": case_refusals,
+}

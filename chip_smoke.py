@@ -87,7 +87,19 @@ paths (full width and depth, random weights from a seed):
     that takes its own kink sides and max-pool picks; an FSDP checkpoint
     resumed on ZeRO-1 and on one device; then two gloo ranks share the
     card for the DP step and the replicated resident scan, held to one
-    rank's run of the global batch and to each other bit for bit.
+    rank's run of the global batch and to each other bit for bit;
+  - the example drivers (phase 15, `examples_torch/`), each main(argv)
+    called here at full width with its launches counted: the inference
+    benchmark (MobileNet-v1 224 at batch 64, fp32, bf16 and int8: K3,
+    K4, K5; YOLOv3-tiny int8 bit-equal to the CPU's), serving latency
+    over exported int8 and bf16 buckets (K4; each artifact bit-equal to
+    live), export_serving, serve_detection (its first batch as the
+    CPU's), yolo_example's image and video modes, mnist_example,
+    mnist_fast, both CIFAR-10 nets, train_throughput's four feeds, and
+    the soak (YOLOv3-tiny 416, batch 32, rotation 10: K2) run whole,
+    then killed through its --pidfile in a new process after its
+    checkpoint at step 100 and resumed, ending bit-equal to the whole
+    run under cuDNN's deterministic algorithms, its memory flat.
 Each path runs with the launch counts set to 0 just before it and read
 just after; each phase prints its seconds. Every kernel is reached
 through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
@@ -4321,6 +4333,382 @@ def parallel_phase(gpu):
     return launched
 
 
+# ------------------------------------------------------------------------
+# phase 15: the example drivers (examples_torch/) on the card
+# ------------------------------------------------------------------------
+
+# Each driver's main(argv) in this process, at full width (YOLOv3-tiny 416
+# with 80 classes, MobileNet-v1 224 with 1000), batch and step counts cut
+# so that the phase stays within P15_SECONDS. Checks, where the run is
+# deterministic: inference_benchmark --int8 --act16 (YOLOv3-tiny, the
+# CPU's quant dict and calibrated state) against the CPU's on the first
+# two images, every int8 and bf16 tensor equal as in phase 6b (the YOLO
+# layers' fp32 sigmoid and exp part by ulps between card and host);
+# serve_detection's first batch (fp32) as the CPU's
+# (p15_same_detections); export_serving's artifact (fp32) and every int8
+# serving_latency bucket's bit-equal to the live session. The bf16
+# bucket's difference from live is printed, not held: at bf16 compute
+# with fp32 activations (the JAX example's setting) the live conv sums
+# the bf16-rounded values in TF32 (`ops/conv.py`), the exported graph
+# keeps no cuDNN flag and sums them in fp32 (`deploy.py`), and NMS on
+# the top-k passes such ulps on to other slots. The soak (P15_SOAK:
+# stream feed, rotation 10, cuDNN deterministic) runs to the end here;
+# the same run in a subprocess is killed through its --pidfile right
+# after its checkpoint at dispatch P15_KILL_AT, and resumed here: the
+# final checkpoints must be equal array for array. Every driver's
+# numbers are printed on a line of their own with the launches it
+# caused; K2, K3, K4 and K5 must each launch in the phase.
+P15_DEV, P15_SIZE, P15_MB_SIZE = "cuda", SIZE, MB_SIZE
+P15_SERVE_BATCH, P15_MB_BATCH, P15_INT8_CPU_BATCH = BATCH, MB_BATCH, 2
+P15_BUCKETS, P15_BF16_BUCKETS, P15_CALLS = "1,8,64", "8", 30
+P15_SOAK = ["--batch", "32", "--scan", "5", "--steps", "200", "--images",
+            "64", "--ckpt-every", "10", "--eval-every", "10", "--eval-map",
+            "20", "--mem-every", "4", "--rotation", "10", "--deterministic"]
+P15_KILL_AT = 20  # dispatches: step 100
+P15_TRAIN_BATCH, P15_TRAIN_STEPS, P15_WORKERS = 32, 8, 2
+P15_SECONDS = 180.0
+
+
+def p15_run(label, fn, gpu, launched):
+    """fn() with the launch counts set to 0 just before it; prints the
+    counts it caused and adds them to `launched`. Returns fn()'s result
+    and the seconds it took."""
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if P15_DEV.startswith("cuda"):
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = counts()
+    for k, v in got.items():
+        launched[k] += v
+    print(f"  {label} on {gpu}: {sec:.1f} s, launches {got}", flush=True)
+    return out, sec
+
+
+def p15_int8_equal(card, cpu):
+    """inference_benchmark's int8 program on the card against the CPU's
+    (each main()'s net and session), on its first P15_INT8_CPU_BATCH
+    images: every int8 and bf16 tensor of the forward equal, as phase 6b
+    holds them, and the YOLO layers' outputs (the host's and the card's
+    fp32 sigmoid and exp of equal heads) within HEAD_RTOL. Returns how
+    many tensors were equal."""
+    t0 = cpu["net"].tensors[0]
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        P15_INT8_CPU_BATCH, t0.c, t0.h, t0.w).astype(np.float32))
+    with torch.inference_mode():
+        got = execute(card["net"], card["session"].params,
+                      card["session"].state, {"input": x.to(P15_DEV)},
+                      Mode.PREDICT)
+        want = execute(cpu["net"], cpu["session"].params,
+                       cpu["session"].state, {"input": x}, Mode.PREDICT)
+    n = 0
+    for i, v in want.values.items():
+        if v.dtype in (torch.int8, torch.bfloat16):
+            if not torch.equal(got.values[i].cpu(), v):
+                raise RuntimeError(
+                    f"inference_benchmark --int8: {cpu['net'].tensors[i].name}"
+                    f" ({v.dtype}) differs between card and CPU")
+            n += 1
+    if n < 10:
+        raise RuntimeError(f"only {n} int8 and bf16 tensors on the path")
+    for g, c in zip(card["outputs"], cpu["outputs"]):
+        torch.testing.assert_close(g[:P15_INT8_CPU_BATCH].cpu().float(),
+                                   c.float(), rtol=HEAD_RTOL, atol=0)
+    return n
+
+
+def p15_same_detections(card, cpu):
+    """detect_on_batch's outputs on the card and the CPU (fp32): the same
+    slots kept, and each image's kept rows (box, scores, objectness) the
+    same as sets within the fp32 head tolerance of phase 4 (HEAD_RTOL,
+    HEAD_ATOL): rows whose objectness ties within it may swap slots."""
+    (b1, s1, o1), (b2, s2, o2) = card, cpu
+    alive = o2 > 0
+    if not torch.equal(o1 > 0, alive) or not alive.any():
+        raise RuntimeError("serve_detection: card and CPU keep other slots")
+    for i in range(o2.shape[0]):
+        r1 = torch.cat([b1[i], s1[i], o1[i, :, None]], 1)[alive[i]].double()
+        r2 = torch.cat([b2[i], s2[i], o2[i, :, None]], 1)[alive[i]].double()
+        tol = HEAD_ATOL + HEAD_RTOL * r2.abs()[None]
+        close = ((r1[:, None] - r2[None]).abs() <= tol).all(-1)
+        match = close.double().argmax(1)
+        if not close.any(1).all() or match.unique().numel() != len(match):
+            raise RuntimeError(f"serve_detection: image {i}: card and CPU "
+                               "keep other boxes")
+
+
+def p15_soak_killed(argv, pid_path, log_path, tmp):
+    """The soak in a new process, SIGKILLed through its pidfile as soon as
+    its log shows the checkpoint at dispatch P15_KILL_AT."""
+    import signal
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples_torch", "train_soak.py")
+    with open(os.path.join(tmp, "killed.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, script] + argv,
+                                stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"the soak to be killed ended first (rc "
+                    f"{proc.returncode})")
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    evs = [json.loads(ln) for ln in f if ln.strip()]
+                if any(e["ev"] == "ckpt" and e["i"] == P15_KILL_AT
+                       for e in evs):
+                    break
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("the soak to be killed took too long")
+            time.sleep(0.02)
+        with open(pid_path) as f:
+            os.kill(int(f.read()), signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    last = max(e["i"] for e in evs if "i" in e)
+    print(f"  killed the soak's process (rc {proc.returncode}) after its "
+          f"checkpoint at dispatch {P15_KILL_AT}; its log reached dispatch "
+          f"{last}", flush=True)
+
+
+def p15_flat_memory(log_path):
+    """The soak's memory in use at each --mem-every point: after the
+    held-out batches are staged (the eval batch at the first
+    --eval-every point, the two mAP batches at the first --eval-map
+    point, fp32 on the card, kept for the run), it must not rise by more
+    than the prefetched uint8 batches' swing over the rest of the run."""
+    arg = dict(zip(P15_SOAK[::2], P15_SOAK[1::2]))
+    staged = max(int(arg["--eval-every"]), int(arg["--eval-map"]))
+    batch = int(arg["--batch"])
+    swing = 4 * batch * 3 * P15_SIZE * P15_SIZE
+    with open(log_path) as f:
+        mems = [(e["i"], e["bytes_in_use"]) for e in map(json.loads, f)
+                if e["ev"] == "mem"]
+    after = [v for i, v in mems if i > staged]
+    if len(after) < 3 or max(after) > after[0] + swing:
+        raise RuntimeError(f"the soak's memory grew: {mems}")
+    print("  the soak's memory in use (MiB) at dispatches "
+          + ", ".join(f"{i}: {v / 2**20:.1f}" for i, v in mems)
+          + f"; flat after dispatch {staged} (the held-out batches "
+          "staged by then)", flush=True)
+
+
+def p15_ckpt(d):
+    with np.load(os.path.join(d, "ckpt_latest.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(flat.pop("__meta__").tobytes()).decode())
+    return flat, meta["extra"]
+
+
+def examples_phase(gpu):
+    """Phase 15 (see P15_*); returns the launches of each kernel."""
+    from examples_torch import (cifar10_example, export_serving,
+                                inference_benchmark, mnist_example,
+                                mnist_fast, serve_detection,
+                                serving_latency, train_soak,
+                                train_throughput, yolo_example)
+
+    t_phase = time.perf_counter()
+    launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    dev = ["--device", P15_DEV]
+    cpu = ["--device", "cpu"]
+    tmp = tempfile.mkdtemp(prefix="p15_")
+    det = os.path.join(tmp, "det")
+    try:
+        # -- serving --------------------------------------------------------
+        mb = mobilenet_v1(P15_MB_BATCH, MB_CLASSES)
+        mb_w = bridge.he_numpy_weights(mb, SEED)
+        ib = ["--model", "mobilenet-v1", "--batch", str(P15_MB_BATCH),
+              "--size", str(P15_MB_SIZE), "--runs", "10"]
+        for tag, extra in (("fp32", ["--fp32"]), ("bf16", []),
+                           ("int8", ["--int8"])):
+            res, _ = p15_run(
+                f"inference_benchmark mobilenet-v1 {tag} batch "
+                f"{P15_MB_BATCH}",
+                lambda: inference_benchmark.main(ib + extra + dev,
+                                                 weights=mb_w),
+                gpu, launched)
+            out = res["outputs"][0]
+            if not torch.isfinite(out.float()).all():
+                raise RuntimeError(f"inference_benchmark {tag}: non-finite")
+            print(f"    min {res['min_ms']:.3f} ms, max {res['max_ms']:.3f}"
+                  f" ms, avg {res['avg_ms']:.3f} ms, {res['img_s']:.1f} "
+                  "img/s", flush=True)
+        # YOLOv3-tiny's drivers take He-scaled weights from SEED (the
+        # seeded XAVIER heads saturate, and their exp overflows)
+        # int8 YOLOv3-tiny at bench.py's setting (bf16 activations between
+        # layers, as phase 6b): the CPU's quant dict and calibrated state
+        # on the card, the first two images' heads bit-equal to the CPU's
+        tw = bridge.he_numpy_weights(yolov3_tiny(1, P15_SIZE, P15_SIZE), SEED)
+        ibt = ["--model", "yolov3-tiny", "--size", str(P15_SIZE), "--int8",
+               "--act16"]
+        cpu_res = inference_benchmark.main(
+            ibt + ["--batch", str(P15_INT8_CPU_BATCH), "--runs", "1"] + cpu,
+            weights=tw)
+        cpu_state = bridge.params_to_numpy(cpu_res["net"],
+                                           cpu_res["session"].state)
+        res, _ = p15_run(
+            f"inference_benchmark yolov3-tiny int8 act16 batch "
+            f"{P15_SERVE_BATCH}",
+            lambda: inference_benchmark.main(
+                ibt + ["--batch", str(P15_SERVE_BATCH), "--runs", "10"]
+                + dev, weights=(tw[0], cpu_state),
+                quant=cpu_res["net"].quant),
+            gpu, launched)
+        n_equal = p15_int8_equal(res, cpu_res)
+        print(f"    min {res['min_ms']:.3f} ms, avg {res['avg_ms']:.3f} ms, "
+              f"{res['img_s']:.1f} img/s; {n_equal} int8 and bf16 tensors "
+              "bit-equal to the CPU's", flush=True)
+
+        for mode, buckets in (("int8", P15_BUCKETS), ("bf16",
+                                                      P15_BF16_BUCKETS)):
+            rows, _ = p15_run(
+                f"serving_latency --mode {mode} --buckets {buckets}",
+                lambda: serving_latency.main(
+                    ["--mode", mode, "--buckets", buckets, "--calls",
+                     str(P15_CALLS), "--size", str(P15_SIZE), "--outdir",
+                     os.path.join(tmp, "art")] + dev, weights=tw),
+                gpu, launched)
+            for r in rows:
+                if mode == "int8" and not r["bit_equal_to_live"]:
+                    raise RuntimeError(f"serving_latency: {r} differs from "
+                                       "live")
+                if not r["p50_ms"] > 0:
+                    raise RuntimeError(f"serving_latency: {r}")
+        res, _ = p15_run(
+            f"export_serving --detect batch {P15_SERVE_BATCH}",
+            lambda: export_serving.main(
+                ["--detect", "--batch", str(P15_SERVE_BATCH), "--size",
+                 str(P15_SIZE), "--out", os.path.join(tmp, "d.pt2")] + dev,
+                weights=tw), gpu, launched)
+        if not res["bit_equal"]:
+            raise RuntimeError("export_serving: served differs from live")
+        print(f"    {res['mb']:.1f} MB, export {res['export_s']:.2f} s, "
+              f"load {res['load_s']:.2f} s, first call "
+              f"{res['first_call_s']:.3f} s; bit-equal to live", flush=True)
+
+        lst = serve_detection.synth_images(32, os.path.join(tmp, "serve"))
+        sw = tw
+        sd = [lst, "--size", str(P15_SIZE), "--fp32"]
+        res, _ = p15_run(
+            f"serve_detection fp32 batch {P15_SERVE_BATCH}",
+            lambda: serve_detection.main(
+                sd + ["--batch", str(P15_SERVE_BATCH), "--steps", "10"]
+                + dev, weights=sw), gpu, launched)
+        want = serve_detection.main(
+            sd + ["--batch", str(P15_INT8_CPU_BATCH), "--steps", "1"] + cpu,
+            weights=sw)["first"]
+        p15_same_detections(
+            tuple(t[:P15_INT8_CPU_BATCH] for t in res["first"]), want)
+        print(f"    {res['img_s']:.1f} img/s over {res['images']} images, "
+              f"{res['detections']} detections; the first batch's as the "
+              "CPU's", flush=True)
+
+        img_dir = os.path.join(tmp, "frames")
+        os.makedirs(img_dir)
+        rng = np.random.RandomState(SEED)
+        from bcnn_tpu_torch import bip
+
+        for i in range(3):
+            bip.write_image(os.path.join(img_dir, f"f{i}.png"),
+                            (rng.rand(480, 640, 3) * 255).astype(np.uint8))
+        res, _ = p15_run(
+            "yolo_example image",
+            lambda: yolo_example.main(
+                [os.path.join(img_dir, "f0.png"), "--out",
+                 os.path.join(tmp, "f0_dets.png")] + dev, weights=sw),
+            gpu, launched)
+        print(f"    inference {res['inference_ms']:.2f} ms, "
+              f"{len(res['detections'])} detections", flush=True)
+        res, _ = p15_run(
+            "yolo_example video (3 frames)",
+            lambda: yolo_example.main(
+                ["video", img_dir, "--out", os.path.join(tmp, "video")]
+                + dev, weights=sw), gpu, launched)
+        print(f"    {res['frames']} frames, {res['fps']:.2f} FPS",
+              flush=True)
+
+        # -- training -------------------------------------------------------
+        res, _ = p15_run("mnist_example --iters 100", lambda:
+                         mnist_example.main(["--iters", "100",
+                                             "--eval-every", "50",
+                                             "--num-pred", "256"] + dev),
+                         gpu, launched)
+        res, _ = p15_run("mnist_fast (30 chunks of 20 steps, batch 128)",
+                         lambda: mnist_fast.main(dev), gpu, launched)
+        print(f"    accuracy {res['accuracy']:.4f}, {res['train_s']:.2f} s, "
+              f"{res['img_s']:.1f} img/s", flush=True)
+        for variant in ([], ["resnet"]):
+            res, _ = p15_run(
+                f"cifar10_example {variant or 'convnet'} --iters 50",
+                lambda: cifar10_example.main(
+                    variant + ["--iters", "50", "--eval-every", "25"] + dev),
+                gpu, launched)
+        rows, _ = p15_run(
+            f"train_throughput batch {P15_TRAIN_BATCH}",
+            lambda: train_throughput.main(
+                ["--batch", str(P15_TRAIN_BATCH), "--steps",
+                 str(P15_TRAIN_STEPS), "--size", str(P15_SIZE), "--images",
+                 "64", "--workers", str(P15_WORKERS), "--outdir", det]
+                + dev), gpu, launched)
+
+        # -- the soak: uninterrupted, killed, resumed -----------------------
+        soak = P15_SOAK + ["--size", str(P15_SIZE), "--outdir", det] + dev
+        whole, part = os.path.join(tmp, "whole"), os.path.join(tmp, "part")
+        rep, _ = p15_run("train_soak, uninterrupted",
+                         lambda: train_soak.main(soak + ["--dir", whole]),
+                         gpu, launched)
+        print("    report " + json.dumps(rep), flush=True)
+        os.makedirs(part)
+        t0 = time.perf_counter()
+        p15_soak_killed(soak + ["--dir", part, "--pidfile",
+                                os.path.join(part, "pid")],
+                        os.path.join(part, "pid"),
+                        os.path.join(part, "soak_log.jsonl"), tmp)
+        print("  train_soak, the killed segment: "
+              f"{time.perf_counter() - t0:.1f} s (a new process)", flush=True)
+        rep2, _ = p15_run("train_soak --resume",
+                          lambda: train_soak.main(soak + ["--dir", part,
+                                                          "--resume"]),
+                          gpu, launched)
+        print("    report " + json.dumps(rep2), flush=True)
+        want, want_extra = p15_ckpt(whole)
+        got, got_extra = p15_ckpt(part)
+        if set(got) != set(want) or any(not np.array_equal(got[k], want[k])
+                                        for k in want):
+            raise RuntimeError("the resumed soak's checkpoint differs from "
+                               "the uninterrupted run's")
+        if (got_extra["loader_pos"], got_extra["dispatch"]) != (
+                want_extra["loader_pos"], want_extra["dispatch"]):
+            raise RuntimeError("the resumed soak ends elsewhere")
+        if rep2["segments"] != 2 or rep2["steps"] != rep["steps"]:
+            raise RuntimeError(f"resumed report {rep2}")
+        print("  the resumed soak's final params, state, optimizer state "
+              "and loader position equal the uninterrupted run's",
+              flush=True)
+        if P15_DEV.startswith("cuda"):
+            p15_flat_memory(os.path.join(whole, "soak_log.jsonl"))
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("K2", "K3", "K4", "K5"):
+        if not launched[k]:
+            raise RuntimeError(f"phase 15 launched no {k}")
+    sec = time.perf_counter() - t_phase
+    print(f"phase 15 launches {launched}; {sec:.1f} s (limit "
+          f"{P15_SECONDS:.0f} s)", flush=True)
+    if sec > P15_SECONDS:
+        raise RuntimeError(f"phase 15 took {sec:.1f} s")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4504,6 +4892,15 @@ def main() -> int:
     k4_launches += p14["K4"]
     k5_launches += p14["K5"]
     stamp("14")
+
+    # -- phase 15: the example drivers (examples_torch/) -------------------
+    p15 = examples_phase(gpu)
+    k1_launches += p15["K1"]
+    k2_launches += p15["K2"]
+    k3_launches += p15["K3"]
+    k4_launches += p15["K4"]
+    k5_launches += p15["K5"]
+    stamp("15")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

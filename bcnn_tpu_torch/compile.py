@@ -243,7 +243,7 @@ class _Executor:
                     swapped[s] = self.values[s]
                     self.values[s] = tap
             self.pos = i
-            fn(node)
+            self._dispatch(fn, node)
             for s, old in swapped.items():
                 if s not in node.dst:  # in-place nodes keep their write
                     self.values[s] = old
@@ -264,6 +264,19 @@ class _Executor:
                 if idx in self.values:
                     self._qat_observe(idx, self.values[idx])
         return self
+
+    # -- hooks of the model axis (`parallel.model_axis`) ----------------
+
+    def _dispatch(self, fn, node: Node) -> None:
+        """Runs one node's method; the model axis's executors wrap it
+        (a channel-sharded node gathers its output, a height band
+        fetches its halo rows)."""
+        fn(node)
+
+    def _out_rows(self, y):
+        """A conv's raw output, before its epilogue; a height band's
+        executor keeps its own rows of it here."""
+        return y
 
     # ------------------------------------------------------------------ #
 
@@ -427,6 +440,7 @@ class _Executor:
             y = conv_int8_fused(*args, **kw)
         else:
             y = grouped_int8_fused(*args, groups, **kw)
+        y = self._out_rows(y)
         if not fused:
             y = self._maybe_emit_int8(node, ops.apply_activation(y, act))
         return y
@@ -458,10 +472,10 @@ class _Executor:
             w = self.p(node.src[1])
             if self._qat_on(node):
                 x, w = self._qat_xw(node, x, w)
-            y = ops.conv2d(
+            y = self._out_rows(ops.conv2d(
                 x, w, p["stride"], p["pad"],
                 p["num_groups"], self.compute_dtype, self.act_dtype,
-            )
+            ))
             extra = {"mean": 3, "var": 4, "scales": 5,
                      "slopes": 6 if p.get("batch_norm") else 3}
             y = self._maybe_emit_int8(
@@ -493,18 +507,18 @@ class _Executor:
         if self._qat_on(node):
             x, w = self._qat_xw(node, x, w)
         if self.mode == Mode.TRAIN:
-            y = ops.conv2d(x, w, p["stride"], p["pad"], x.shape[1],
-                           self.compute_dtype)
+            y = self._out_rows(ops.conv2d(x, w, p["stride"], p["pad"],
+                                          x.shape[1], self.compute_dtype))
             y = ops.apply_activation(
                 y + b.to(y.dtype).reshape(1, -1, 1, 1), p["activation"])
             self.values[node.dst[0]] = self._cast_act(y)
             return
         if self.compute_dtype is not None:
             x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
-        y = ops.depthwise_fused(
+        y = self._out_rows(ops.depthwise_fused(
             x.to(torch.float32).contiguous(), w.to(torch.float32), b,
             p["stride"], p["pad"], p["activation"],
-        )
+        ))
         self.values[node.dst[0]] = self._cast_act(
             self._maybe_emit_int8(node, y)
         )

@@ -155,7 +155,9 @@ def _kl_threshold(hist: np.ndarray, n_quant: int = 128) -> int:
     """TensorRT-style entropy calibration over a |x| histogram,
     `bcnn_tpu/ops/quant.py:90-127`: the clip bin i (>= n_quant)
     minimizing KL(P_clip || Q_i). Returns the bin index (exclusive upper
-    edge of the kept range)."""
+    edge of the kept range). Each level's mass and count of nonzero bins
+    are bin counts, whole numbers in float64, so their sums are exact in
+    any order: Q_i is bcnn_tpu's level loop's, element for element."""
     n_bins = len(hist)
     total = hist.sum()
     if total == 0:
@@ -167,13 +169,11 @@ def _kl_threshold(hist: np.ndarray, n_quant: int = 128) -> int:
         p = ref / ref.sum()
         kept = hist[:i].astype(np.float64)
         edges = (np.arange(n_quant + 1) * i) // n_quant
-        q = np.zeros(i, np.float64)
-        for lv in range(n_quant):
-            lo, hi = edges[lv], edges[lv + 1]
-            seg = kept[lo:hi]
-            nz = seg > 0
-            if nz.any():
-                q[lo:hi][nz] = seg.sum() / nz.sum()
+        level = np.repeat(np.arange(n_quant), np.diff(edges))
+        nz = kept > 0
+        mass = np.bincount(level, weights=kept, minlength=n_quant)
+        count = np.bincount(level, weights=nz, minlength=n_quant)
+        q = np.where(nz, (mass / np.maximum(count, 1.0))[level], 0.0)
         qs = q.sum()
         if qs == 0:
             continue

@@ -59,19 +59,20 @@ def _box_iou(b1, b2):
     return torch.where(union > 0, inter / union, 0.0)
 
 
-def _decode_grid(y, anchors_wh, mask, net_w, net_h):
+def _decode_grid(y, anchors_wh, mask, net_w, net_h, row0=0, grid_h=None):
     """y: (N,H,W,A,5+K) activated -> boxes (x,y,w,h), each (N,H,W,A)
-    (get_yolo_box, bcnn_yolo.c:137-145)."""
+    (get_yolo_box, bcnn_yolo.c:137-145); y the rows row0 .. row0 + H of
+    a grid of grid_h rows (None: H)."""
     _, h, w, _, _ = y.shape
     # fp32, or float64 for a float64 y (tools/f3_float64.py)
     opts = dict(dtype=torch.promote_types(y.dtype, torch.float32),
                 device=y.device)
     col = torch.arange(w, **opts).reshape(1, 1, w, 1)
-    row = torch.arange(h, **opts).reshape(1, h, 1, 1)
+    row = torch.arange(row0, row0 + h, **opts).reshape(1, h, 1, 1)
     aw = torch.tensor([anchors_wh[2 * m] for m in mask], **opts)
     ah = torch.tensor([anchors_wh[2 * m + 1] for m in mask], **opts)
     bx = (col + y[..., 0]) / w
-    by = (row + y[..., 1]) / h
+    by = (row + y[..., 1]) / (h if grid_h is None else grid_h)
     bw = in_f32(torch.exp, y[..., 2]) * aw / net_w
     bh = in_f32(torch.exp, y[..., 3]) * ah / net_h
     return bx, by, bw, bh
@@ -84,6 +85,7 @@ def yolo_train_deltas(
     net_w: int,
     net_h: int,
     with_stats: bool = False,
+    rows: Optional[Tuple[int, int]] = None,
 ):
     """y: (N, A*(5+K), H, W) activated head; label (N, 50*5) flat
     [x, y, w, h, class] per truth. Returns delta in y's layout, with
@@ -104,6 +106,12 @@ def yolo_train_deltas(
         the layer does not own;
       - truths end at the first x == 0 (:286-289).
 
+    rows=(row0, grid_h): y holds the grid rows row0 .. row0 + H of a
+    head of grid_h rows (a height band of `parallel.model_axis`); the
+    boxes decode at their rows of the whole grid, and only the truths
+    whose cell lies in the band are assigned, so the bands' deltas are
+    the whole head's, row for row.
+
     with_stats=True also returns the per-batch diagnostics the reference
     prints (bcnn_yolo.c:258-264, 404-414), as 0-d tensors: sums for Avg
     IOU, Class, Obj, No Obj, .5R and .75R, and the count of OWNED
@@ -114,6 +122,7 @@ def yolo_train_deltas(
     anchors, mask, total = param["anchors"], param["mask"], param["total"]
     e = 5 + classes
     n, _, h, w = y.shape
+    row0, gh = (0, h) if rows is None else rows
     dev = y.device
     yr = y.reshape(n, num, e, h, w).permute(0, 3, 4, 1, 2)  # (N,H,W,A,E)
     T = DETECTION_MAX_BOXES
@@ -123,7 +132,8 @@ def yolo_train_deltas(
     valid = torch.cumprod((tx != 0).to(torch.float32), dim=1)  # (N,T)
 
     # ---- noobj deltas ------------------------------------------------ #
-    bx, by, bw, bh = _decode_grid(yr, anchors, mask, net_w, net_h)
+    bx, by, bw, bh = _decode_grid(yr, anchors, mask, net_w, net_h,
+                                  row0, gh)
     p = (bx[..., None], by[..., None], bw[..., None], bh[..., None])
     tb = tuple(label[:, None, None, None, :, i] for i in range(4))
     ious = _box_iou(p, tb) * valid[:, None, None, None, :]
@@ -150,7 +160,10 @@ def yolo_train_deltas(
     owned = eq.any(dim=-1) & (valid > 0)
     mask_n = torch.argmax(eq.to(torch.int32), dim=-1)  # first match
     ci = torch.clamp((txx * w).to(torch.int64), 0, w - 1)
-    cj = torch.clamp((tyy * h).to(torch.int64), 0, h - 1)
+    cj = torch.clamp((tyy * gh).to(torch.int64), 0, gh - 1)
+    if rows is not None:  # the band's truths; cj from here on local
+        owned = owned & (cj >= row0) & (cj < row0 + h)
+        cj = torch.clamp(cj - row0, 0, max(h - 1, 0))
 
     bidx = torch.arange(n, device=dev)[:, None]
     cur = yr[bidx, cj, ci, mask_n]  # (N,T,E)
@@ -158,7 +171,7 @@ def yolo_train_deltas(
     ah = anchors_arr[best_n, 1]
     scale = 2.0 - tww * thh
     dx = -scale * ((txx * w - ci) - cur[..., 0])
-    dy = -scale * ((tyy * h - cj) - cur[..., 1])
+    dy = -scale * ((tyy * gh - (cj + row0)) - cur[..., 1])
     dw = -scale * (torch.log(tww * net_w / aw) - cur[..., 2])
     dh = -scale * (torch.log(thh * net_h / ah) - cur[..., 3])
     dobj = cur[..., 4] - 1.0
@@ -203,7 +216,7 @@ def yolo_train_deltas(
     # per owned truth, as the reference's loop accumulates them (:321-398,
     # and the avg_anyobj sweep :313)
     px = (ci + cur[..., 0]) / w
-    py = (cj + cur[..., 1]) / h
+    py = (cj + row0 + cur[..., 1]) / gh
     pw_t = torch.exp(cur[..., 2]) * aw / net_w
     ph_t = torch.exp(cur[..., 3]) * ah / net_h
     iou_t = _box_iou((px, py, pw_t, ph_t), (txx, tyy, tww, thh))
@@ -235,19 +248,21 @@ def yolo_forward(
     param: Dict,
     mode: Mode,
     with_stats: bool = False,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Returns (activated output, aux): aux is None outside TRAIN or
     without a label, else (surrogate, cost) with surrogate
     sum(delta.detach() * x), whose gradient in x is delta, and the
     reported cost sum(delta^2) (bcnn_yolo.c:404-407); with_stats,
-    (surrogate, cost, stats) with the cost among the stats."""
+    (surrogate, cost, stats) with the cost among the stats. rows: a
+    height band's place in its head (`yolo_train_deltas`)."""
     y = yolo_head(x, param["num"], param["classes"])
     if mode != Mode.TRAIN or label is None:
         return y, None
     with torch.no_grad():
         out = yolo_train_deltas(
             y.detach(), label, param, param["net_w"], param["net_h"],
-            with_stats=with_stats,
+            with_stats=with_stats, rows=rows,
         )
     delta, stats = out if with_stats else (out, None)
     cost = torch.sum(torch.square(delta))

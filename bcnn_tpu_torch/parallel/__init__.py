@@ -1,7 +1,10 @@
-"""Data parallelism on torch.distributed: the batch-axis half of
-`bcnn_tpu.parallel` (`mesh`, `multihost`). The model axis (the 2-D
-mesh, tensor and spatial parallelism, pipeline stages) is not ported
-yet (ROADMAP Queue 1)."""
+"""Parallelism on torch.distributed, the port of `bcnn_tpu.parallel`:
+the batch axis (`mesh`: the DP step and scans, the resident feeds, the
+DP forward, ZeRO-1, FSDP), `multihost`, and the model axis
+(`model_axis`: the 2-D batch x model mesh, tensor- and
+spatial-parallel training, the spatial forward). The pipeline stages
+(`bcnn_tpu/parallel/pipeline.py`) are not ported yet (ROADMAP
+Queue 1)."""
 
 from . import multihost
 from .mesh import (
@@ -21,4 +24,18 @@ from .mesh import (
     shard_resident_dataset,
     shard_zero_state,
     zero_param_specs,
+)
+from .model_axis import (
+    MODEL_AXIS,
+    Mesh2D,
+    gather_train_state,
+    make_dp_sp_train_step,
+    make_dp_tp_train_step,
+    make_mesh_2d,
+    make_spatial_forward,
+    plan_bands,
+    shard_spatial,
+    shard_train_state,
+    spatial_band,
+    tp_param_specs,
 )

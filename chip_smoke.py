@@ -129,7 +129,7 @@ import torch.nn.functional as F
 
 from bcnn_tpu_torch import Session, bridge, kernels, replay
 from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
-                                    make_train_step)
+                                    make_train_step, output_value)
 from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
 from bcnn_tpu_torch.models import mobilenet_v1, resnet18, yolov3, yolov3_tiny
@@ -4709,6 +4709,540 @@ def examples_phase(gpu):
     return launched
 
 
+# ------------------------------------------------------------------------
+# phase 16: the int8 study, short (16a); the model axis of `parallel` (16b)
+# ------------------------------------------------------------------------
+
+# 16a: examples_torch/train_soak.py at 416 px, batch 32, 50 steps (its
+# record sets written in the phase: 64 training images and 32 held-out),
+# then tools/int8_map_study_torch.py on its checkpoint at P16_STUDY; K4
+# must launch in the study, and one int8 request of the study's absmax
+# net is held to the CPU port's on P16_INT8_CPU_BATCH held-out images:
+# every int8 tensor and both heads bit for bit.
+P16_SOAK = ["--batch", "32", "--scan", "5", "--steps", "50", "--images",
+            "64", "--eval-every", "0", "--ckpt-every", "0"]
+P16_STUDY = ["--batch", "32", "--images", "64", "--qat-steps", "10",
+             "--qat-batch", "16", "--calib-batches", "1", "--calib-chunk",
+             "16"]
+P16_INT8_CPU_BATCH = 2
+# 16b: (a) one rank (NCCL) on a 1x1 mesh: the TP and SP steps of
+# YOLOv3-tiny at 416, batch P16_BATCH, each held to the single-device
+# step of its own choices (`held`, phase 14's bound), and the spatial
+# forwards equal to one device's; (b) P16_RANKS gloo ranks on the one
+# card (NCCL refuses two ranks on one GPU; the model axis's collectives
+# are all_reduce and broadcast, which gloo runs on CUDA tensors), a 1x2
+# mesh: the TP and SP steps, each held to a float64 replay of the ranks'
+# own kink sides and max-pool picks (each rank's channel slice or band of
+# rows of them, joined) within STEP_UPDATE_TOL of its largest entry,
+# twice the CPU's own distance to a replay of its own, or one float32
+# spacing (`replayed_step`'s rule); MobileNet-v1 (224 px, batch MB_BATCH)
+# fp32 through the spatial forward within P16_FWD_RTOL of the one-device
+# forward with 13 K3 launches on each band, int8 MobileNet-v1 and int8
+# YOLOv3-tiny at 416 bit-equal to one device with K4 and K5 on each band.
+P16_DEV, P16_BACKEND = "cuda:0", "nccl"
+P16_BATCH, P16_RANKS = 8, 2
+P16_FWD_RTOL, P16_FWD_ATOL = 1e-4, 1e-5
+P16_SETTINGS = ("SIZE", "CLASSES", "MB_BATCH", "MB_SIZE", "MB_CLASSES",
+                "P16_BATCH", "P16_DEV")
+
+
+def p16_on_card() -> bool:
+    return torch.device(P16_DEV).type == "cuda"
+
+
+def p16_sync():
+    if p16_on_card():
+        torch.cuda.synchronize()
+
+
+def p16_tool(rel):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(rel))[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def study_phase(gpu):
+    """16a (see P16_SOAK). Returns the launches of each kernel in the
+    study."""
+    import shutil
+
+    from bcnn_tpu_torch.checkpoint import load_checkpoint
+    from examples_torch import train_soak
+
+    study = p16_tool("tools/int8_map_study_torch.py")
+    tmp = tempfile.mkdtemp(prefix="p16_")
+    data, run = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    dev = ["--device", P16_DEV]
+    try:
+        t0 = time.perf_counter()
+        rep = train_soak.main(P16_SOAK + ["--size", str(SIZE), "--dir", run,
+                                          "--outdir", data] + dev)
+        t_soak = time.perf_counter() - t0
+        ckpt = os.path.join(run, "ckpt_latest.npz")
+        trace = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        out = study.main(["--ckpt", ckpt, "--outdir", data, "--size",
+                          str(SIZE)] + P16_STUDY + dev, trace=trace)
+        p16_sync()
+        t_study = time.perf_counter() - t0
+        launched = counts()
+        keys = ("fp32", "ptq_absmax", "ptq_percentile", "ptq_kl", "qat_fp32",
+                "qat_int8")
+        if not launched["K4"] or any(
+                not 0.0 <= out[k] <= 1.0 for k in keys):
+            raise RuntimeError(f"the int8 study: {out}, launches {launched}")
+        # one int8 request, card against the CPU port, on the study's
+        # absmax quant dict and the soak's checkpoint
+        quant = trace["ptq"]["absmax"]
+        xe = torch.from_numpy((trace["eval"][0][:P16_INT8_CPU_BATCH].astype(
+            np.float32) - 127.5) / 127.5)
+        runs = {}
+        for where in (P16_DEV, "cpu"):
+            net = study.yolo_net(P16_INT8_CPU_BATCH, SIZE, Mode.PREDICT)
+            net.quant = to_device(quant, where)
+            params, state, _, _ = load_checkpoint(net, ckpt, where)
+            with torch.inference_mode():
+                runs[where] = (net, execute(net, params, state,
+                                            {"input": xe.to(where)},
+                                            Mode.PREDICT))
+        net, want = runs["cpu"]
+        got = runs[P16_DEV][1]
+        heads = {n.src[0] for n in net.nodes if n.type.name == "YOLOV3"}
+        n_int8 = 0
+        for i, v in want.values.items():
+            if v.dtype == torch.int8 or i in heads:
+                n_int8 += v.dtype == torch.int8
+                if not torch.equal(got.values[i].cpu(), v):
+                    raise RuntimeError(
+                        f"the study's int8 request: {net.tensors[i].name} "
+                        f"({v.dtype}) differs between card and CPU")
+        if n_int8 < 10:
+            raise RuntimeError(f"only {n_int8} int8 tensors on the path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"int8 study (phase 16a), YOLOv3-tiny {SIZE} px on {gpu}: the soak "
+          f"{' '.join(P16_SOAK)}: {t_soak:.1f} s with its records, "
+          f"{rep['img_s_whole_run']} img/s whole run, steady "
+          f"{rep['img_s_steady']}; the study {' '.join(P16_STUDY)}: "
+          + ", ".join(f"{k} {out[k]}" for k in keys)
+          + f" (held-out mAP@0.5 of {out['eval_images']} images; "
+          f"{rep['steps']} steps from the nets' fillers: not a trained "
+          f"model), {t_study:.1f} s, "
+          f"launches {launched}; one int8 request of {P16_INT8_CPU_BATCH} "
+          f"images card vs CPU: {n_int8} int8 tensors and both heads "
+          "bit-equal", flush=True)
+    return launched
+
+
+def p16_net():
+    return yolov3_tiny(P16_BATCH, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+
+
+def p16_forward_nets():
+    """(name, net, outputs, int8) of the spatial forwards: MobileNet-v1
+    at MB_SIZE, fp32 and int8, and YOLOv3-tiny at SIZE, int8."""
+    mb = mobilenet_v1(MB_BATCH, MB_CLASSES)
+    tiny = yolov3_tiny(P16_BATCH, SIZE, SIZE, CLASSES)
+    heads = [tiny.tensors[n.src[0]].name for n in tiny.nodes
+             if n.type.name == "YOLOV3"]
+    return [("MobileNet-v1 fp32", mb, MB_OUTPUTS, False),
+            ("MobileNet-v1 int8", mobilenet_v1(MB_BATCH, MB_CLASSES),
+             MB_OUTPUTS, True),
+            ("YOLOv3-tiny int8", tiny, heads, True)]
+
+
+def p16_inputs():
+    """The phase's weights and data, on the CPU: YOLOv3-tiny's seeded
+    start (phase 14's), a batch, and each forward's weights, input and
+    (int8) quant dict, calibrated on the card."""
+    rng = np.random.RandomState(SEED + 61)
+    net = p16_net()
+    p0, s0, _ = p14_start(net, "cpu")
+    inp = {"p0": p0, "s0": s0,
+           "x": (rng.rand(P16_BATCH, 3, SIZE, SIZE) * 2 - 1).astype(
+               np.float32),
+           "lab": det_labels(rng, P16_BATCH), "fwd": []}
+    for name, fnet, outs, int8 in p16_forward_nets():
+        p, s = bridge.params_from_numpy(
+            fnet, *bridge.he_numpy_weights(fnet, SEED))
+        t0 = fnet.tensors[0]
+        x = rng.rand(fnet.batch_size, t0.c, t0.h, t0.w).astype(np.float32)
+        quant = None
+        if int8:
+            sess = Session(fnet, SEED, device=P16_DEV)
+            sess.params, sess.state = to_device(p, P16_DEV), to_device(
+                s, P16_DEV)
+            sess.compile_net()
+            quant = to_device(ptq_synthetic(fnet, sess), "cpu")
+            fnet.quant = None
+        inp["fwd"].append(dict(name=name, p=p, s=s, x=x, quant=quant,
+                               outputs=outs))
+    return inp
+
+
+def p16_steps(mesh, inp, timed=0):
+    """The TP and SP steps of YOLOv3-tiny on `mesh` from inp's start:
+    {form: (params (joined), loss, choices, launches, ms)}; with timed,
+    the median of that many more steps, each from the start."""
+    from bcnn_tpu_torch.parallel import (gather_train_state,
+                                         make_dp_sp_train_step,
+                                         make_dp_tp_train_step, replicate,
+                                         shard_batch, shard_spatial,
+                                         shard_train_state)
+
+    net = p16_net()
+    batch = {"input": inp["x"], "label": inp["lab"]}
+    out = {}
+    for form in ("TP", "SP"):
+        if form == "TP":
+            step = make_dp_tp_train_step(net, mesh)
+            part = shard_batch(mesh.batch, batch)
+
+            def start():
+                return shard_train_state(net, mesh, inp["p0"], inp["s0"],
+                                         init_opt_state(net, inp["p0"]))
+        else:
+            step = make_dp_sp_train_step(net, mesh)
+            part = shard_spatial(net, mesh, batch)
+
+            def start():
+                return replicate(mesh.world, (inp["p0"], inp["s0"],
+                                              init_opt_state(net,
+                                                             inp["p0"])))
+        p, s, o = start()
+        zero_counts()
+        (p, s, o, loss), ch = recorded(lambda: step(p, s, o, part))
+        p16_sync()
+        launched = counts()
+        if form == "TP":
+            p, s, o = gather_train_state(net, mesh, p, s, o)
+        times = []
+        for _ in range(timed):
+            q, s2, o2 = start()
+            mesh.world.barrier()
+            p16_sync()
+            t0 = time.perf_counter()
+            float(step(q, s2, o2, part)[3])
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[form] = dict(params={k: v.cpu() for k, v in p.items()},
+                         loss=floats(loss), choices=ch, launches=launched,
+                         ms=statistics.median(times) if times else None)
+    return out
+
+
+def p16_forwards(mesh, inp, timed=0):
+    """Each spatial forward of inp["fwd"] on `mesh`'s model axis: {name:
+    (outputs on the CPU, launches, ms)}."""
+    from bcnn_tpu_torch.parallel import make_spatial_forward, replicate
+
+    out = {}
+    nets = {name: (fnet, int8) for name, fnet, _, int8 in p16_forward_nets()}
+    for f in inp["fwd"]:
+        net, _ = nets[f["name"]]
+        if f["quant"] is not None:
+            net.quant = to_device(f["quant"], mesh.device)
+        params, state = replicate(mesh.world, (f["p"], f["s"]))
+        fwd = make_spatial_forward(net, mesh, f["outputs"], axis="model")
+        zero_counts()
+        outs = fwd(params, state, f["x"])
+        p16_sync()
+        launched = counts()
+        times = []
+        for _ in range(timed):
+            mesh.world.barrier()
+            t0 = time.perf_counter()
+            fwd(params, state, f["x"])
+            p16_sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f["name"]] = dict(outs=[o.cpu() for o in outs],
+                              launches=launched,
+                              ms=statistics.median(times) if times else None)
+    return out
+
+
+def p16_gloo_main(rank, tmp):
+    """(b): one of P16_RANKS gloo ranks on the card."""
+    import datetime
+
+    try:
+        from bcnn_tpu_torch.parallel import make_mesh_2d, multihost
+
+        inp = torch.load(os.path.join(tmp, "p16_inputs.pt"),
+                         weights_only=False)
+        globals().update(inp["settings"])
+        multihost.initialize(f"file://{tmp}/gloo_store", P16_RANKS, rank,
+                             backend="gloo",
+                             timeout=datetime.timedelta(seconds=120))
+        torch.backends.cudnn.deterministic = True
+        if p16_on_card():
+            kernels.library()
+        mesh = make_mesh_2d(dp=1, device=P16_DEV)
+        res = p16_steps(mesh, inp, timed=3)
+        for form in res.values():
+            form["choices"] = compact(form["choices"])
+        res["fwd"] = p16_forwards(mesh, inp, timed=3)
+        torch.save(res, os.path.join(tmp, f"p16_rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"p16_error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def joined_choices(parts, full, dim):
+    """replay.Choices of the model ranks' compacted choices (rank order):
+    a call whose shape `dim` is cut (TP: channels, 1; SP: rows, 2) joined
+    along it, a whole one taken from the first rank."""
+    def unpack(p, i):
+        shape, bits = p["kinks"][i]
+        return torch.from_numpy(np.unpackbits(
+            bits, count=int(np.prod(shape))).reshape(shape).astype(bool))
+
+    def join(tensors, shape):
+        t0 = tensors[0]
+        if t0.dim() > dim and t0.shape[dim] < shape[dim]:
+            return torch.cat(tensors, dim)
+        return t0
+
+    kinks = [join([unpack(p, i) for p in parts], full.kinks[i].shape)
+             for i in range(len(full.kinks))]
+    picks = [join([torch.from_numpy(p["picks"][i]).long() for p in parts],
+                  full.picks[i].shape) for i in range(len(full.picks))]
+    for a, b in zip(kinks + picks, full.kinks + full.picks):
+        if a.shape != b.shape:
+            raise RuntimeError(f"joined choices {tuple(a.shape)} against "
+                               f"one device's {tuple(b.shape)}")
+    return replay.Choices(kinks=kinks, picks=picks)
+
+
+def held_to_replay(label, net, inp, params, choices, e_cpu):
+    """The update params - p0 against a float64 run of `choices` on the
+    CPU: each tensor within STEP_UPDATE_TOL of its largest entry, twice
+    the CPU's own distance e_cpu[k], or one float32 spacing. Returns the
+    worst (error, key)."""
+    batch = {"input": inp["x"], "label": inp["lab"]}
+    ref, _ = replay.sgd_update(net, inp["p0"], inp["s0"], batch,
+                               torch.float64, "cpu", replay.impose(choices))
+    worst = (0.0, "")
+    for k, r in ref.items():
+        du = params[k] - inp["p0"][k]
+        scale = float(r.abs().max())
+        err = float((du - r).abs().max()) / scale if scale else float(
+            du.abs().max())
+        floor = float(np.spacing(np.float32(inp["p0"][k].abs().max())))
+        lim = max(STEP_UPDATE_TOL, 2 * e_cpu.get(k, 0.0),
+                  floor / scale if scale else floor)
+        if err > lim:
+            raise RuntimeError(f"{label}: {k}'s update is {err:.3g} of its "
+                               f"largest entry from the float64 replay of "
+                               f"the ranks' choices (limit {lim:.3g})")
+        worst = max(worst, (err, k))
+    return worst
+
+
+def model_axis_phase(gpu):
+    """16b (see P16_DEV). Returns the launches of each kernel on its
+    paths (the gloo ranks' included)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from bcnn_tpu_torch.parallel import make_mesh_2d
+
+    t_phase = time.perf_counter()
+    launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="p16_")
+    lines = []
+    try:
+        inp = p16_inputs()
+        inp["settings"] = {k: globals()[k] for k in P16_SETTINGS}
+        torch.save(inp, os.path.join(tmp, "p16_inputs.pt"))
+        net = p16_net()
+        batch = {"input": torch.from_numpy(inp["x"]).to(P16_DEV),
+                 "label": torch.from_numpy(inp["lab"]).to(P16_DEV)}
+        p0 = to_device(inp["p0"], P16_DEV)
+        s0 = to_device(inp["s0"], P16_DEV)
+        ref_step = make_train_step(net)
+
+        # one device: the steps' full choices, times, the forwards
+        (_, _, _, _), full = recorded(lambda: ref_step(
+            {k: v.clone() for k, v in p0.items()}, dict(s0),
+            init_opt_state(net, p0), batch))
+        t_one = []
+        for _ in range(3):
+            q = {k: v.clone() for k, v in p0.items()}
+            p16_sync()
+            t0 = time.perf_counter()
+            float(ref_step(q, dict(s0), init_opt_state(net, q), batch)[3])
+            t_one.append(1e3 * (time.perf_counter() - t0))
+        one_fwd = {}
+        for f, (name, fnet, outs, int8) in zip(inp["fwd"],
+                                               p16_forward_nets()):
+            fnet.quant = to_device(f["quant"], P16_DEV) if int8 else None
+            p, s = to_device(f["p"], P16_DEV), to_device(f["s"], P16_DEV)
+            x = torch.from_numpy(f["x"]).to(P16_DEV)
+
+            def run():
+                with torch.inference_mode():
+                    ex = execute(fnet, p, s, {"input": x}, Mode.PREDICT)
+                    return [output_value(ex, fnet.get_tensor_index_by_name(
+                        o)) for o in outs]
+
+            got = run()
+            times = []
+            for _ in range(3):
+                p16_sync()
+                t0 = time.perf_counter()
+                run()
+                p16_sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+            one_fwd[name] = ([o.cpu() for o in got],
+                             statistics.median(times))
+
+        # -- (a): one NCCL rank, a 1x1 mesh -----------------------------------
+        dist.init_process_group(P16_BACKEND, init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        mesh = make_mesh_2d(dp=1, device=P16_DEV)
+        res = p16_steps(mesh, inp)
+        worst_a = {}
+        for form, r in res.items():
+            if any(r["launches"].values()):
+                raise RuntimeError(f"the {form} step launched {r['launches']}")
+            rp, _, _, rl = single_device(net, p0, s0, lambda *a: ref_step(
+                *a, batch), r["choices"])
+            worst_a[form] = held(f"{form} step, 1x1 mesh", p0, r["params"],
+                                 rp, r["loss"], rl)
+        fwd_a = p16_forwards(mesh, inp)
+        for name, r in fwd_a.items():
+            for k, v in r["launches"].items():
+                launched[k] += v
+            for g, w in zip(r["outs"], one_fwd[name][0]):
+                if "fp32" in name:
+                    torch.testing.assert_close(g, w, rtol=P16_FWD_RTOL,
+                                               atol=P16_FWD_ATOL)
+                elif not torch.equal(g, w):
+                    raise RuntimeError(f"{name} on a 1x1 mesh differs from "
+                                       "one device")
+        dist.destroy_process_group()
+        lines.append(
+            f"(a) one {P16_BACKEND} rank, a 1x1 mesh: the TP and SP steps "
+            "against the single-device step of their own choices, worst "
+            "update share " + ", ".join(f"{k} {v[0]:.3g} ({v[1]})"
+                                        for k, v in worst_a.items())
+            + "; the spatial forwards equal to one device's (" + ", ".join(
+                f"{n} {r['launches']}" for n, r in fwd_a.items()) + ")")
+
+        # -- (b): two gloo ranks on the card, a 1x2 mesh ----------------------
+        if p16_on_card():
+            torch.cuda.empty_cache()
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=p16_gloo_main, args=(r, tmp))
+                 for r in range(P16_RANKS)]
+        t_b = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(300)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errs = [open(os.path.join(tmp, f"p16_error{r}.txt")).read()
+                for r in range(P16_RANKS)
+                if os.path.exists(os.path.join(tmp, f"p16_error{r}.txt"))]
+        if errs or any(pr.exitcode for pr in procs):
+            raise RuntimeError("gloo ranks failed: "
+                               f"{[pr.exitcode for pr in procs]}\n"
+                               + "\n".join(errs))
+        t_b = time.perf_counter() - t_b
+        ranks = [torch.load(os.path.join(tmp, f"p16_rank{r}.pt"),
+                            weights_only=False) for r in range(P16_RANKS)]
+
+        # the CPU's own distance to a float64 replay of its own choices
+        host = {"input": inp["x"], "label": inp["lab"]}
+        ch_cpu = replay.Choices()
+        upd_cpu, _ = replay.sgd_update(net, inp["p0"], inp["s0"], host,
+                                       torch.float32, "cpu",
+                                       replay.record(ch_cpu))
+        ref_cpu, _ = replay.sgd_update(net, inp["p0"], inp["s0"], host,
+                                       torch.float64, "cpu",
+                                       replay.impose(ch_cpu))
+        e_cpu = {k: float((upd_cpu[k] - r).abs().max()) / max(
+            float(r.abs().max()), 1e-30) for k, r in ref_cpu.items()}
+        worst_b = {}
+        for form, dim in (("TP", 1), ("SP", 2)):
+            for r, o in enumerate(ranks[1:], 1):
+                for k, v in o[form]["params"].items():
+                    if not torch.equal(v, ranks[0][form]["params"][k]):
+                        raise RuntimeError(f"{form}: rank {r}'s {k} differs")
+            choices = joined_choices([o[form]["choices"] for o in ranks],
+                                     full, dim)
+            worst_b[form] = held_to_replay(
+                f"{form} step, 1x2 gloo mesh", net, inp,
+                ranks[0][form]["params"], choices, e_cpu)
+        for name, (want, ms_one) in one_fwd.items():
+            for r, o in enumerate(ranks):
+                got = o["fwd"][name]
+                for k, v in got["launches"].items():
+                    launched[k] += v
+                if "fp32" in name and got["launches"]["K3"] != 13:
+                    raise RuntimeError(f"{name}: rank {r} launched K3 "
+                                       f"{got['launches']['K3']} times")
+                if "int8" in name and not got["launches"]["K4"]:
+                    raise RuntimeError(f"{name}: rank {r} launched no K4")
+                if "MobileNet-v1 int8" == name and not got["launches"]["K5"]:
+                    raise RuntimeError(f"{name}: rank {r} launched no K5")
+                for g, w in zip(got["outs"], want):
+                    if "fp32" in name:
+                        torch.testing.assert_close(g, w, rtol=P16_FWD_RTOL,
+                                                   atol=P16_FWD_ATOL)
+                    elif not torch.equal(g, w):
+                        raise RuntimeError(f"{name}: rank {r}'s output "
+                                           "differs from one device's")
+        lines.append(
+            f"(b) {P16_RANKS} gloo ranks on the one card, a 1x2 mesh: TP "
+            "and SP steps against a float64 replay of the ranks' own "
+            "choices, worst update share " + ", ".join(
+                f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst_b.items())
+            + " (the CPU's own worst "
+            + f"{max(e_cpu.values()):.3g}); ms a step: TP "
+            + ", ".join(f"{o['TP']['ms']:.1f}" for o in ranks) + ", SP "
+            + ", ".join(f"{o['SP']['ms']:.1f}" for o in ranks)
+            + f" a rank against one device's {statistics.median(t_one):.1f};"
+            " ms a spatial forward: " + "; ".join(
+                f"{n} " + ", ".join(f"{o['fwd'][n]['ms']:.1f}"
+                                    for o in ranks)
+                + f" against {ms:.1f} ({ranks[0]['fwd'][n]['launches']} a "
+                "rank)" for n, (_, ms) in one_fwd.items())
+            + f"; the ranks took {t_b:.1f} s with start-up")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"model axis (phase 16b), YOLOv3-tiny {SIZE} px batch {P16_BATCH}"
+          f", MobileNet-v1 {MB_SIZE} px batch {MB_BATCH}, on {gpu}: "
+          + "; ".join(lines) + f"; phase {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4901,6 +5435,17 @@ def main() -> int:
     k4_launches += p15["K4"]
     k5_launches += p15["K5"]
     stamp("15")
+
+    # -- phase 16: the int8 study, short; the model axis ----------------
+    p16 = study_phase(gpu)
+    for k, v in model_axis_phase(gpu).items():
+        p16[k] += v
+    k1_launches += p16["K1"]
+    k2_launches += p16["K2"]
+    k3_launches += p16["K3"]
+    k4_launches += p16["K4"]
+    k5_launches += p16["K5"]
+    stamp("16")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

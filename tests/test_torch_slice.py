@@ -147,7 +147,9 @@ def test_no_jax_in_the_port(tmp_path):
     """A 64-px slice through the port in a fresh interpreter loads no
     JAX module: serving, a training step with rotation augmentation,
     and `bcnn_tpu_torch.parallel` and `multihost` with one data-parallel
-    step of a world of one gloo rank on the CPU."""
+    step of a world of one gloo rank on the CPU, one tensor-parallel step
+    of `parallel.model_axis` on its 1x1 mesh, and the int8 study's tool
+    (`tools/int8_map_study_torch.py`) imported."""
     code = textwrap.dedent(
         """
         import sys
@@ -184,7 +186,22 @@ def test_no_jax_in_the_port(tmp_path):
         p, s, o, loss = make_dp_train_step(net, mesh)(
             p, s, o, shard_batch(mesh, {"input": x, "label": lab}))
         assert bool(torch.isfinite(loss)) and o["seen"] == 2
+        from bcnn_tpu_torch.parallel import (make_dp_tp_train_step,
+                                             make_mesh_2d, model_axis,
+                                             shard_train_state)
+        mesh2 = make_mesh_2d(dp=1, device="cpu")
+        p, s, o = shard_train_state(net, mesh2, dp.params, dp.state,
+                                    dp.opt_state)
+        p, s, o, loss = make_dp_tp_train_step(net, mesh2)(
+            p, s, o, shard_batch(mesh2.batch, {"input": x, "label": lab}))
+        assert bool(torch.isfinite(loss)) and model_axis.MODEL_AXIS
         torch.distributed.destroy_process_group()
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "int8_map_study_torch", "tools/int8_map_study_torch.py")
+        study = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(study)
+        assert study.parse(["--ckpt", "c.npz", "--device", "cpu"]).batch
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "bcnn_tpu.")))
         assert not bad, bad

@@ -1,5 +1,7 @@
-"""The rank side of tests/test_torch_parallel.py and
-tests/test_torch_multihost.py: D gloo ranks on the CPU, started with
+"""The rank side of tests/test_torch_parallel.py,
+tests/test_torch_multihost.py and tests/test_torch_model_axis.py (the
+`model_axis` cases, on the 2-D meshes of `make_mesh_2d`, made once a
+process): D gloo ranks on the CPU, started with
 torch.multiprocessing (spawn), each running a list of cases through
 `bcnn_tpu_torch.parallel` and writing its results for the test process
 to hold against bcnn_tpu and the port's one-rank run. Not a pytest
@@ -28,6 +30,7 @@ LENET_BATCH = 16
 TINY_BATCH, TINY_SIZE, TINY_CLASSES = 4, 64, 4
 LIFTED_BATCH = 8
 MB_BATCH, MB_SIZE, MB_CLASSES = 4, 64, 10
+AXIS_SIZE, FWD_BATCH = 96, 2  # the model axis's YOLOv3-tiny and forwards
 # the device augmentation of the resident scans: rotation (K2's shear
 # chain; its plain version on the CPU), a flip, contrast and brightness
 AUG = dict(rotation_range=10.0, random_fliph=1, min_contrast=0.8,
@@ -81,6 +84,21 @@ def build_net(pkg, models, name):
         net = models.mobilenet_v1(MB_BATCH, MB_CLASSES, pkg.Mode.PREDICT,
                                   width_mult=0.25)
         net.resize(MB_SIZE, MB_SIZE)
+        return net
+    # the model axis's nets (tests/test_torch_model_axis.py)
+    if name == "tiny96":
+        return models.yolov3_tiny(TINY_BATCH, AXIS_SIZE, AXIS_SIZE,
+                                  TINY_CLASSES, mode=pkg.Mode.TRAIN)
+    if name == "tiny96p":
+        return models.yolov3_tiny(FWD_BATCH, AXIS_SIZE, AXIS_SIZE,
+                                  TINY_CLASSES, mode=pkg.Mode.PREDICT)
+    if name == "cifar":
+        return models.cifar10_convnet(batch_size=FWD_BATCH,
+                                      mode=pkg.Mode.PREDICT)
+    if name == "mobilenet96":
+        net = models.mobilenet_v1(FWD_BATCH, MB_CLASSES, pkg.Mode.PREDICT,
+                                  width_mult=0.25)
+        net.resize(AXIS_SIZE, AXIS_SIZE)
         return net
     raise ValueError(name)
 
@@ -513,7 +531,130 @@ def case_refusals(mesh, spec, workdir):
     return out
 
 
+# ------------------------------------------------- the model axis #
+
+_MESH2 = {}
+
+
+def _mesh2(dp):
+    """The (dp, world / dp) mesh, made once a rank process (every rank
+    makes the same ones in the same order)."""
+    from bcnn_tpu_torch.parallel import make_mesh_2d
+
+    if dp not in _MESH2:
+        _MESH2[dp] = make_mesh_2d(dp=dp, device="cpu")
+    return _MESH2[dp]
+
+
+def case_tp_specs(mesh, spec, workdir):
+    """The keys tp_param_specs shards, per net: (params, state)."""
+    import bcnn_tpu_torch as tt
+    from bcnn_tpu_torch import models
+    from bcnn_tpu_torch.parallel import tp_param_specs
+
+    m2 = _mesh2(spec["dp"])
+    out = {}
+    for name in spec["nets"]:
+        ps, ss = tp_param_specs(build_net(tt, models, name), m2)
+        out[name] = ({k: d for k, d in ps.items() if d is not None},
+                     {k: d for k, d in ss.items() if d is not None})
+    return out
+
+
+def case_model_step(mesh, spec, workdir):
+    """Steps of make_dp_tp_train_step (form "tp": state from
+    shard_train_state, batch shard_batch over the batch axis, the state
+    joined by gather_train_state) or make_dp_sp_train_step ("sp":
+    replicated state, batch shard_spatial) on the (dp, D / dp) mesh."""
+    from bcnn_tpu_torch import bridge
+    from bcnn_tpu_torch.learner import init_opt_state
+    from bcnn_tpu_torch.parallel import (gather_train_state,
+                                         make_dp_sp_train_step,
+                                         make_dp_tp_train_step, replicate,
+                                         shard_batch, shard_spatial,
+                                         shard_train_state)
+
+    m2 = _mesh2(spec["dp"])
+    net = _port_net(spec)
+    params, state = bridge.params_from_numpy(net, spec["p"], spec["s"])
+    opt = init_opt_state(net, params)
+    if spec["form"] == "tp":
+        step = make_dp_tp_train_step(net, m2)
+        params, state, opt = shard_train_state(net, m2, params, state, opt)
+
+        def shard(b):
+            return shard_batch(m2.batch, b)
+    else:
+        step = make_dp_sp_train_step(net, m2)
+        params, state, opt = replicate(m2.world, (params, state, opt))
+
+        def shard(b):
+            return shard_spatial(net, m2, b)
+
+    def run(params, state, opt):
+        losses = []
+        for x, lab in spec["batches"]:
+            params, state, opt, loss = step(
+                params, state, opt, shard({"input": x, "label": lab}))
+            losses.append(loss)
+        return params, state, opt, losses
+
+    (params, state, opt, losses), choices = _recorded(
+        lambda: run(params, state, opt))
+    raw = {k: v.detach().numpy().copy() for k, v in params.items()}
+    local = {k: tuple(v.shape) for k, v in params.items()}
+    if spec["form"] == "tp":
+        params, state, opt = gather_train_state(net, m2, params, state, opt)
+    return {"params": _np(net, params), "state": _np(net, state),
+            "losses": np.asarray([float(v) for v in losses]),
+            "seen": int(opt["seen"]), "raw": raw, "local": local,
+            "coords": m2.coords, "choices": choices}
+
+
+def case_spatial_forward(mesh, spec, workdir):
+    """make_spatial_forward over the world's ranks (the 1-D mesh), fp32
+    or, with spec["quant"], int8."""
+    from bcnn_tpu_torch import bridge
+    from bcnn_tpu_torch.parallel import make_spatial_forward, replicate
+
+    net = _port_net(spec)
+    if spec.get("quant") is not None:
+        net.quant = bridge.quant_from_numpy(net, spec["quant"])
+    params, state = replicate(mesh, bridge.params_from_numpy(
+        net, spec["p"], spec["s"]))
+    outs = make_spatial_forward(net, mesh, spec["outputs"])(
+        params, state, spec["x"])
+    return {"outs": [o.numpy() for o in outs]}
+
+
+def case_model_refusals(mesh, spec, workdir):
+    """The message each model-axis step raises on each setting
+    bcnn_tpu's drops, or None where it takes it."""
+    from bcnn_tpu_torch import parallel
+
+    m2 = _mesh2(spec["dp"])
+    makers = {"make_dp_tp_train_step": parallel.make_dp_tp_train_step,
+              "make_dp_sp_train_step": parallel.make_dp_sp_train_step}
+    settings = {"device_augment": {"random_fliph": 1}, "remat": True,
+                "accum_steps": 2, "yolo_stats": True}
+    out = {}
+    for name, make in makers.items():
+        for attr, value in settings.items():
+            net = _port_net({"net": "lenet"})
+            setattr(net, attr, value)
+            try:
+                make(net, m2)
+                out[(name, attr)] = None
+            except ValueError as e:
+                out[(name, attr)] = str(e)
+    return out
+
+
 CASES = {
+    "tp_specs": case_tp_specs,
+    "model_step": case_model_step,
+    "spatial_forward": case_spatial_forward,
+    "model_refusals": case_model_refusals,
     "step": case_step,
     "scan": case_scan,
     "resident": case_resident,

@@ -213,7 +213,12 @@ class _Executor:
     def p(self, idx: int) -> torch.Tensor:
         return self.params[self.key_of(idx)]
 
-    def run(self):
+    def run(self, lo: int = 0, hi: Optional[int] = None, taps_in=None):
+        # Nodes [lo, hi) (`bcnn_tpu/compile.py:237-304`): the pipeline
+        # (`parallel/pipeline.py`) runs one stage of the graph so. taps_in
+        # seeds the routing taps that earlier stages made for consumers in
+        # this range; afterwards self.taps holds every live tap.
+        #
         # reference-faithful gradient ROUTING on branched graphs (TRAIN):
         # when a tensor feeds both an accumulating consumer and an earlier
         # overwriting one (a conv), the reference's backward runs the conv
@@ -226,10 +231,13 @@ class _Executor:
             and getattr(self.net, "ref_grad_routing", True)
             else {}
         )
-        taps: Dict[Tuple[int, int], torch.Tensor] = {}
+        if hi is None:
+            hi = len(self.net.nodes)
+        taps: Dict[Tuple[int, int], torch.Tensor] = dict(taps_in or {})
         checks = debug.CHECKS
         nan, inf = checks["nan"], checks["inf"]
-        for i, node in enumerate(self.net.nodes):
+        for i in range(lo, hi):
+            node = self.net.nodes[i]
             fn = getattr(self, f"_{node.type.name.lower()}", None)
             if fn is None:
                 raise NotImplementedError(
@@ -256,6 +264,7 @@ class _Executor:
                                        self.values[d])
                     for (pos, _), o in zip(rec, outs):
                         taps[(d, pos)] = o
+        self.taps = taps
         if self.qat and self.mode == Mode.TRAIN:
             # the watched tensors no conv-like node observed (joiner
             # inputs), at their end-of-pass values, as calibrate sees them
@@ -816,6 +825,76 @@ class _Executor:
             self.metrics.append(self._global_sum(cost))
             if self.want_stats:
                 self.yolo_stats.append(aux[2])
+
+
+# the executor's dtype rules, node by node (`value_dtypes`): the nodes
+# whose output `_Executor._cast_act` stores in the activation dtype
+_ACT_CAST = frozenset({LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D,
+                       LayerType.TRANSPOSE_CONV2D, LayerType.BATCHNORM})
+# the nodes that write an int8 output where the flow plan routes it
+_EMIT_INT8 = frozenset({LayerType.CONV2D, LayerType.DEPTHWISE_CONV2D,
+                        LayerType.TRANSPOSE_CONV2D,
+                        LayerType.FULL_CONNECTED, LayerType.CONCAT,
+                        LayerType.ELTWISE})
+
+
+def value_dtypes(net: Net, mode: Mode) -> Dict[int, torch.dtype]:
+    """The dtype in which the executor writes each tensor a node
+    produces, in `mode` (host-fed tensors fp32): int8 where the int8
+    flow plan routes the output of a node that requantizes (PREDICT with
+    net.quant: a conv, depthwise, deconv, FC, shortcut add or concat of
+    several sources); else a conv, depthwise, deconv or BN output in the
+    stored activation dtype (train_act_dtype in TRAIN, act_dtype in
+    PREDICT) or fp32; the FC's and the YOLO layer's fp32; the shortcut
+    add and a concat of several sources in their inputs' promoted dtype,
+    cast to the activation dtype where that is fp32; a single-source
+    concat and the ops that keep their input's dtype (pooling, upsample,
+    softmax, LRN, dropout, the activation layer) their input's. The
+    pipeline (`parallel/pipeline.py`) sizes its transfers and checks
+    every boundary value by it; `tests/test_torch_pipeline_parallel.py`
+    holds it to what the executor writes."""
+    from .ops.quant import plan_int8_flow
+
+    quant = getattr(net, "quant", None)
+    flow = (plan_int8_flow(net, quant)
+            if quant and mode == Mode.PREDICT and quant.get("act_flow", True)
+            else {})
+    act = (getattr(net, "train_act_dtype", None) if mode == Mode.TRAIN
+           else getattr(net, "act_dtype", None) if mode == Mode.PREDICT
+           else None)
+    f32 = torch.float32
+    out: Dict[int, torch.dtype] = {}
+
+    def cast(dt):
+        return act if (act is not None and dt == f32) else dt
+
+    for node in net.nodes:
+        if not node.dst:
+            continue
+        srcs = [out.get(s, f32) for s in node.src
+                if net.tensors[s].kind == TensorKind.DATA]
+        t = node.type
+        single = t == LayerType.CONCAT and len(srcs) == 1
+        if node.dst[0] in flow and t in _EMIT_INT8 and not single:
+            dt = torch.int8
+        elif t in _ACT_CAST:
+            dt = act or f32
+        elif t in (LayerType.FULL_CONNECTED, LayerType.YOLOV3):
+            dt = f32
+        elif single:
+            dt = srcs[0]
+        elif t in (LayerType.CONCAT, LayerType.ELTWISE):
+            data = srcs[:2] if t == LayerType.ELTWISE else srcs
+            promoted = f32 if torch.int8 in data else data[0]
+            for d in data[1:]:
+                if d != torch.int8:
+                    promoted = torch.promote_types(promoted, d)
+            dt = cast(promoted)
+        else:
+            dt = srcs[0] if srcs else f32
+        for d in node.dst:
+            out[d] = dt
+    return out
 
 
 def execute(

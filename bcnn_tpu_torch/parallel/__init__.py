@@ -1,10 +1,11 @@
 """Parallelism on torch.distributed, the port of `bcnn_tpu.parallel`:
 the batch axis (`mesh`: the DP step and scans, the resident feeds, the
-DP forward, ZeRO-1, FSDP), `multihost`, and the model axis
+DP forward, ZeRO-1, FSDP), `multihost`, the model axis
 (`model_axis`: the 2-D batch x model mesh, tensor- and
-spatial-parallel training, the spatial forward). The pipeline stages
-(`bcnn_tpu/parallel/pipeline.py`) are not ported yet (ROADMAP
-Queue 1)."""
+spatial-parallel training, the spatial forward), and the pipeline
+stages (`pipeline`: `split_stages`, `stage_io`, `Pipeline` with GPipe
+and 1F1B over microbatches, data-parallel stages and cross-stage routing
+taps). Every module of `bcnn_tpu.parallel` has its counterpart."""
 
 from . import multihost
 from .mesh import (
@@ -39,3 +40,4 @@ from .model_axis import (
     spatial_band,
     tp_param_specs,
 )
+from .pipeline import Pipeline, split_stages, stage_io

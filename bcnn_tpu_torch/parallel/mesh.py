@@ -84,24 +84,28 @@ def _reduce_scatter_into(out, t, group):
         dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM, group=group)
 
 
-def _rank_device(device, backend: str) -> torch.device:
+def _rank_device(device, backend: Optional[str] = None) -> torch.device:
     """The rank's device: `device`, or with None (or a bare "cuda") the
     card of the local rank (LOCAL_RANK, as torchrun sets it, else the
-    rank modulo the cards)."""
+    rank modulo the cards); with no process group (backend None), the
+    current card."""
     if device is None or (torch.device(device).type == "cuda"
                           and torch.device(device).index is None):
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "make_mesh: CUDA is not available; pass device='cpu' for "
-                "gloo ranks on the CPU")
-        local = int(os.environ.get(
-            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
+                "CUDA is not available; pass device='cpu' to run on the "
+                "CPU (gloo ranks, or one process)")
+        if backend is None:
+            local = torch.cuda.current_device()
+        else:
+            local = int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
         device = torch.device("cuda", local)
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"make_mesh(device={str(device)!r}): CUDA "
-                               "is not available")
+            raise RuntimeError(f"device {str(device)!r}: CUDA is not "
+                               "available")
         torch.cuda.set_device(device)
     elif backend == "nccl":
         raise ValueError("NCCL ranks run on the card; a rank on the CPU "

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -112,26 +112,34 @@ def _patched(activation, maxpool, fake_quant):
         ops.apply_activation, ops.maxpool, quant.fake_quant_ste = saved
 
 
-def record(choices: Choices):
+def record(choices: Choices, when: Optional[Callable[[], bool]] = None):
     """A context in which the executor's forward appends its choices to
-    `choices` and computes as it always does."""
+    `choices` and computes as it always does. when: a call's choices are
+    kept only where when() is true (None: every call's), e.g. a
+    pipeline's forwards, which run without autograd, and not their
+    recomputes."""
     act0, pool0, fq0 = ops.apply_activation, ops.maxpool, \
         quant.fake_quant_ste
 
+    def keep():
+        return when is None or when()
+
     def activation(x, act, slopes=None):
-        if act in KINKED:
+        if act in KINKED and keep():
             choices.kinks.append((x > 0).detach().cpu())
         return act0(x, act, slopes)
 
     def maxpool(x, size, stride, out_h, out_w):
-        choices.picks.append(windows(x.detach(), size, stride, out_h,
-                                     out_w).argmax(-1).cpu())
+        if keep():
+            choices.picks.append(windows(x.detach(), size, stride, out_h,
+                                         out_w).argmax(-1).cpu())
         return pool0(x, size, stride, out_h, out_w)
 
     def fake_quant(x, scale):
-        codes, inside = fake_quant_choice(x, scale)
-        choices.codes.append(codes.cpu())
-        choices.inside.append(inside.cpu())
+        if keep():
+            codes, inside = fake_quant_choice(x, scale)
+            choices.codes.append(codes.cpu())
+            choices.inside.append(inside.cpu())
         return fq0(x, scale)
 
     return _patched(activation, maxpool, fake_quant)
@@ -209,7 +217,8 @@ def sgd_update(net: Net, params: Dict[str, torch.Tensor],
                dtype: torch.dtype = torch.float32, device="cpu",
                choices=None, retain: Iterable[int] = (),
                seed: Optional[int] = None,
-               dropout_masks: Optional[Dict[int, torch.Tensor]] = None):
+               dropout_masks: Optional[Dict[int, torch.Tensor]] = None,
+               accum_steps: int = 1):
     """One TRAIN forward and backward of `net` on `device`, its params,
     state and input cast to `dtype` (the label kept as it is), inside
     the context `choices` (`record(...)` or `impose(...)`) if given; then
@@ -217,17 +226,29 @@ def sgd_update(net: Net, params: Dict[str, torch.Tensor],
     optimizer state. batch: {"input", "label"}, tensors or arrays.
     retain: tensor indices whose gradient to keep (their `.grad` in the
     executor's values); seed and dropout_masks go to `execute`.
+    accum_steps: the batch runs as that many microbatches in turn, the
+    running stats carried and the gradients summed, as
+    `make_train_step(accum_steps=...)` runs it (no seed or masks then;
+    the executor returned is the last microbatch's).
 
     Returns (update: trainable key -> fp32 CPU tensor, the executor)."""
+    if accum_steps > 1 and (seed is not None or dropout_masks):
+        raise ValueError("sgd_update: accum_steps takes no seed or masks")
     specs = {t.key: t for t in net.param_specs()}
     leaves = {k: v.detach().to(device, dtype, copy=True).requires_grad_(
         specs[k].trainable) for k, v in params.items()}
     st = {k: v.to(device, dtype) for k, v in state.items()}
     inputs = {"input": torch.as_tensor(batch["input"]).to(device, dtype),
               "label": torch.as_tensor(batch["label"]).to(device)}
+    n = inputs["input"].shape[0] // accum_steps
     with choices if choices is not None else contextlib.nullcontext():
-        ex = execute(net, leaves, st, inputs, Mode.TRAIN, seed=seed,
-                     dropout_masks=dropout_masks)
+        for m in range(accum_steps):
+            ex = execute(net, leaves, st,
+                         {k: v[m * n:(m + 1) * n] for k, v in inputs.items()},
+                         Mode.TRAIN, seed=seed, dropout_masks=dropout_masks)
+            st = ex.state
+            if m < accum_steps - 1:
+                ex.surrogate.backward()
     for i in retain:
         if ex.values[i].requires_grad:
             ex.values[i].retain_grad()

@@ -99,7 +99,16 @@ paths (full width and depth, random weights from a seed):
     the soak (YOLOv3-tiny 416, batch 32, rotation 10: K2) run whole,
     then killed through its --pidfile in a new process after its
     checkpoint at step 100 and resumed, ending bit-equal to the whole
-    run under cuDNN's deterministic algorithms, its memory flat.
+    run under cuDNN's deterministic algorithms, its memory flat;
+  - pipeline stages (phase 17, `bcnn_tpu_torch.parallel.Pipeline`): one
+    NCCL rank holding every stage runs MobileNet-v1's forward (224,
+    batch 64, 3 stages, 4 microbatches) fp32 (K3 on every stage) and
+    int8 (K4 and K5 on every stage, bit-equal to one device), and
+    YOLOv3-tiny training (416, batch 32, 2 stages) at one microbatch and
+    at four under GPipe and 1F1B, each update held to a float64 replay
+    of its own choices, with step times and peak memory beside the
+    plain and accumulation steps; two gloo ranks on the card run the
+    1F1B step a stage each.
 Each path runs with the launch counts set to 0 just before it and read
 just after; each phase prints its seconds. Every kernel is reached
 through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
@@ -279,6 +288,11 @@ T16_LOSS_RTOL = 2.0**-5
 FORMS_BATCH, SCAN_K, FORM_TOL = 32, 4, 2.0**-7
 # a write of this many floats between launches empties the 50 MB L2
 FLUSH_FLOATS = 64 * 2**20  # 256 MB
+# cycles of the sleep queued before each timed call (about 0.5 ms at
+# 1.98 GHz): one K5 call takes 90-100 us of host time through its
+# wrapper, and a cover of 100 us let the host's time into the CUDA-event
+# times (tools/kernel_repeat.py)
+SLEEP_CYCLES = 1_000_000
 
 
 def bound(nbytes, flops, rate=FP32_FLOP_S):
@@ -306,7 +320,7 @@ def cuda_ms(fn, iters=200, warmup=10) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(iters * 200_000)  # cycles: ~100 us a call to queue
+    torch.cuda._sleep(iters * SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -325,7 +339,7 @@ def cold_ms(fn, flush, reps=9) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(200_000)  # cycles: ~100 us to queue the call
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -656,6 +670,7 @@ def check_k3():
         k_dev = device_us(kern, iters=10)
         p_dev = device_us(plain, iters=10)
         kd = sum(k_dev.values()) / 10
+        r["dev_ms"] = kd / 1e3 if kd else None
         print(f"K3 {tuple(x.shape)} k{k} s{stride} p{pad} {act.name} -> "
               f"{tuple(got.shape)}: max_abs_err {err:.3g} (largest output "
               f"{scale:.3g}, bit-equal {r['bit_equal']}); {r['mb']:.1f} MB "
@@ -679,12 +694,24 @@ def check_k3():
            for key in ("ms", "cold_ms", "plain_ms", "library_ms",
                        "library_cold_ms", "bound")}
     print(f"K3 per MobileNet-v1 forward (13 launches, batch 64): warm "
-          f"{fwd['ms']:.4f} ms, cold {fwd['cold_ms']:.4f} ms, bound "
+          f"{fwd['ms']:.4f} ms, cold {fwd['cold_ms']:.4f} ms, device "
+          f"{forward_dev_ms(rows)} (profiler), bound "
           f"{fwd['bound']:.4f} ms ({fwd['bound'] / fwd['cold_ms']:.0%} of "
           f"it cold); plain {fwd['plain_ms']:.4f} ms; library "
           f"{fwd['library_ms']:.4f} ms warm, {fwd['library_cold_ms']:.4f} "
           "ms cold")
     return rows
+
+
+def forward_dev_ms(rows) -> str:
+    """The profiler's device time of a MobileNet-v1 forward's launches
+    (rows: the nine depthwise shapes in K3_MOBILENET's order), which the
+    host's launch time cannot reach, unlike the CUDA-event times when one
+    call's host time outgrows the sleep queued before it."""
+    dev = [r.get("dev_ms") for r in rows[:len(K3_PER_FORWARD)]]
+    if None in dev:
+        return "not measured"
+    return f"{sum(m * d for m, d in zip(K3_PER_FORWARD, dev)):.4f} ms"
 
 
 def k4_path_cases(net, name, bn_mode):
@@ -3143,6 +3170,7 @@ def check_k5():
             (plain, 3, 1), (kern, 50, 5), (lib, 50, 5), (lib, 50, 5),
             (kern, 50, 5), (plain, 3, 1))]
         out = kern()
+        k_dev = sum(device_us(kern, iters=10).values()) / 10
         nbytes = x.numel() + wt.numel() + out.numel() + 4 * 5 * o
         ops = 2 * out.numel() * (c // groups) * k * k
         r = rows[-1]
@@ -3150,7 +3178,7 @@ def check_k5():
                  library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
                  library_cold_ms=cold_ms(lib, flush),
                  bound=bound(nbytes, ops, INT8_OP_S), mb=nbytes / 1e6,
-                 gop=ops / 1e9)
+                 gop=ops / 1e9, dev_ms=k_dev / 1e3 if k_dev else None)
         del x, wt, xb, wb, out, args
         print(f"K5 {shape[:9]} {bn or 'no BN'} {act.name}: bit-equal, int8 "
               f"and fp32 out; {r['mb']:.2f} MB, {r['gop']:.3f} G int ops, "
@@ -3160,7 +3188,8 @@ def check_k5():
               f"channels-last) {1e3 * r['library_ms']:.1f} us; cold: kernel "
               f"{1e3 * r['cold_ms']:.1f} us "
               f"({r['bound'][0] / r['cold_ms']:.0%} of the bound), library "
-              f"{1e3 * r['library_cold_ms']:.1f} us; {plan_s}")
+              f"{1e3 * r['library_cold_ms']:.1f} us; device (profiler): "
+              f"kernel {fmt_device(k_dev * 10, 10)}; {plan_s}")
     del flush
     mb = rows[:len(K5_MOBILENET)]
     fwd = {key: sum(m * (r[key][0] if key == "bound" else r[key])
@@ -3169,8 +3198,9 @@ def check_k5():
                        "library_cold_ms", "bound")}
     print(f"K5 per int8 MobileNet-v1 forward (13 launches, batch "
           f"{MB_BATCH}): warm {fwd['ms']:.4f} ms, cold {fwd['cold_ms']:.4f} "
-          f"ms, bound {fwd['bound']:.4f} ms ({fwd['bound'] / fwd['cold_ms']:.0%}"
-          f" of it cold); plain {fwd['plain_ms']:.2f} ms; library (bf16 "
+          f"ms, device {forward_dev_ms(mb)} (profiler), bound "
+          f"{fwd['bound']:.4f} ms ({fwd['bound'] / fwd['cold_ms']:.0%} of "
+          f"it cold); plain {fwd['plain_ms']:.2f} ms; library (bf16 "
           f"cuDNN grouped) {fwd['library_ms']:.4f} ms warm, "
           f"{fwd['library_cold_ms']:.4f} ms cold")
     for r, m in zip(mb, K3_PER_FORWARD):
@@ -5029,14 +5059,17 @@ def joined_choices(parts, full, dim):
     return replay.Choices(kinks=kinks, picks=picks)
 
 
-def held_to_replay(label, net, inp, params, choices, e_cpu):
+def held_to_replay(label, net, inp, params, choices, e_cpu, ref=None):
     """The update params - p0 against a float64 run of `choices` on the
-    CPU: each tensor within STEP_UPDATE_TOL of its largest entry, twice
-    the CPU's own distance e_cpu[k], or one float32 spacing. Returns the
+    CPU (or `ref`, such a run's update made elsewhere): each tensor
+    within STEP_UPDATE_TOL of its largest entry, twice the reference
+    device's own distance e_cpu[k], or one float32 spacing. Returns the
     worst (error, key)."""
-    batch = {"input": inp["x"], "label": inp["lab"]}
-    ref, _ = replay.sgd_update(net, inp["p0"], inp["s0"], batch,
-                               torch.float64, "cpu", replay.impose(choices))
+    if ref is None:
+        batch = {"input": inp["x"], "label": inp["lab"]}
+        ref, _ = replay.sgd_update(net, inp["p0"], inp["s0"], batch,
+                                   torch.float64, "cpu",
+                                   replay.impose(choices))
     worst = (0.0, "")
     for k, r in ref.items():
         du = params[k] - inp["p0"][k]
@@ -5243,6 +5276,467 @@ def model_axis_phase(gpu):
     return launched
 
 
+# ------------------------------------------------------------------------
+# phase 17: pipeline stages (bcnn_tpu_torch.parallel.Pipeline)
+# ------------------------------------------------------------------------
+
+# (a) one NCCL rank holding every stage. MobileNet-v1 (224 px, batch
+# MB_BATCH, PREDICT) on split_stages' 3 stages and P17_MICRO
+# microbatches: fp32 within P17_FWD_RTOL of the one-device forward, int8
+# (ptq_synthetic) bit-equal to it, K3 (fp32), K4 and K5 (int8) launched
+# on every stage. YOLOv3-tiny (416 px, batch P17_BATCH, TRAIN) on
+# split_stages(net, 2): one microbatch against make_train_step, and
+# P17_MICRO under GPipe and 1F1B against make_train_step(accum_steps=
+# P17_MICRO); each update held to a float64 replay on the card of the
+# pipeline's own kink sides and max-pool picks (recorded in its
+# forwards, which run without autograd; every recompute checked bit-equal
+# to its forward, under cuDNN's deterministic algorithms): within
+# STEP_UPDATE_TOL of its largest entry, twice the one-device step's own
+# distance to a float64 replay of its choices, or one float32 spacing;
+# 1F1B bit-equal to GPipe; each step's median time and peak memory. (b)
+# P17_RANKS gloo ranks sharing the card, a stage each, P17_MICRO
+# microbatches under 1F1B: the ranks' gathered parameters equal and held
+# to the same rule; the step's time.
+P17_DEV, P17_BACKEND = "cuda:0", "nccl"
+P17_BATCH, P17_MICRO, P17_RANKS, P17_TIMED = 32, 4, 2, 3
+P17_FWD_RTOL, P17_FWD_ATOL = 1e-4, 1e-5
+P17_SETTINGS = ("SIZE", "CLASSES", "P17_BATCH", "P17_MICRO", "P17_TIMED",
+                "P17_DEV")
+
+
+def p17_on_card() -> bool:
+    return torch.device(P17_DEV).type == "cuda"
+
+
+def p17_sync():
+    if p17_on_card():
+        torch.cuda.synchronize()
+
+
+def p17_peak(reset=False) -> float:
+    """GiB of peak device memory since the last reset (0 off the card)."""
+    if not p17_on_card():
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def forward_choices(fn):
+    """fn() under `replay.record` of the calls made without autograd: a
+    pipeline's forwards, not its recomputes."""
+    choices = replay.Choices()
+    with replay.record(choices, when=lambda: not torch.is_grad_enabled()):
+        out = fn()
+    return out, choices
+
+
+def p17_net():
+    return yolov3_tiny(P17_BATCH, SIZE, SIZE, CLASSES, mode=Mode.TRAIN)
+
+
+def p17_inputs():
+    """YOLOv3-tiny's seeded start (phase 14's) and a batch, on the CPU."""
+    rng = np.random.RandomState(SEED + 71)
+    p0, s0, _ = p14_start(p17_net(), "cpu")
+    return {"p0": p0, "s0": s0,
+            "x": (rng.rand(P17_BATCH, 3, SIZE, SIZE) * 2 - 1).astype(
+                np.float32),
+            "lab": det_labels(rng, P17_BATCH)}
+
+
+def p17_step(stages, n_micro, schedule, inp, timed=0):
+    """One Pipeline step of YOLOv3-tiny over `stages` from inp's start:
+    (gathered params on the CPU, loss, this rank's forward choices), and
+    with timed the median ms and peak GiB of that many more steps, each
+    from the start."""
+    from bcnn_tpu_torch.parallel import Pipeline
+
+    net = p17_net()
+    pipe = Pipeline(net, stages, Mode.TRAIN, n_microbatches=n_micro,
+                    schedule=schedule, device=P17_DEV)
+    batch = {"input": torch.from_numpy(inp["x"]).to(P17_DEV),
+             "label": torch.from_numpy(inp["lab"]).to(P17_DEV)}
+    p0, s0 = to_device(inp["p0"], P17_DEV), to_device(inp["s0"], P17_DEV)
+
+    def start():
+        return pipe.shard(p0, s0, init_opt_state(net, p0))
+
+    ps, ss, os_ = start()
+    pipe._check_recompute = True
+    (ps, _, _, loss), choices = forward_choices(
+        lambda: pipe.train_on_batch(ps, ss, os_, batch))
+    pipe._check_recompute = False
+    params = pipe.gather(ps)
+    times, peak = [], 0.0
+    for _ in range(timed):
+        ps, ss, os_ = start()
+        if pipe.world > 1:
+            torch.distributed.barrier()
+        p17_sync()
+        p17_peak(reset=True)
+        t0 = time.perf_counter()
+        float(pipe.train_on_batch(ps, ss, os_, batch)[3])
+        p17_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peak = max(peak, p17_peak())
+    return dict(params=params, loss=floats(loss), choices=choices,
+                ms=statistics.median(times) if times else None, peak=peak,
+                ranges=pipe.ranges,
+                busy=p17_busy(lambda: pipe.train_on_batch(*start(), batch))
+                if timed and pipe.world == 1 else None)
+
+
+def p17_one_device(net, inp, accum, timed):
+    """make_train_step(accum_steps=accum) on the card from inp's start:
+    (params, loss, choices, median ms, peak GiB)."""
+    step = make_train_step(net, accum_steps=accum)
+    batch = {"input": torch.from_numpy(inp["x"]).to(P17_DEV),
+             "label": torch.from_numpy(inp["lab"]).to(P17_DEV)}
+
+    p0, s0 = to_device(inp["p0"], P17_DEV), to_device(inp["s0"], P17_DEV)
+
+    def start():
+        p = {k: v.clone() for k, v in p0.items()}
+        return p, dict(s0), init_opt_state(net, p)
+
+    (p, _, _, loss), choices = recorded(lambda: step(*start(), batch))
+    times, peak = [], 0.0
+    for _ in range(timed):
+        args = start()
+        p17_sync()
+        p17_peak(reset=True)
+        t0 = time.perf_counter()
+        float(step(*args, batch)[3])
+        p17_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peak = max(peak, p17_peak())
+    return dict(params={k: v.cpu() for k, v in p.items()},
+                loss=floats(loss), choices=choices,
+                ms=statistics.median(times), peak=peak,
+                busy=p17_busy(lambda: step(*start(), batch)))
+
+
+def p17_busy(fn):
+    """Device ms of one call of fn (profiler; None off the card or where
+    it saw no device time)."""
+    if not p17_on_card():
+        return None
+    return sum(device_us(fn, iters=1).values()) / 1e3 or None
+
+
+def p17_exact(net, inp, choices, accum):
+    """The update of a float64 run on the card that takes `choices`
+    (`replay.sgd_update`, accum_steps=accum)."""
+    upd, _ = replay.sgd_update(net, inp["p0"], inp["s0"],
+                               {"input": inp["x"], "label": inp["lab"]},
+                               torch.float64, P17_DEV,
+                               replay.impose(choices), accum_steps=accum)
+    return upd
+
+
+def p17_share(params, p0, exact):
+    """Each update's largest distance to `exact`'s, over its largest
+    entry."""
+    return {k: float((params[k] - p0[k] - r).abs().max()) / max(
+        float(r.abs().max()), 1e-30) for k, r in exact.items()}
+
+
+def interleave(parts, counts, n_micro):
+    """One rank's choices a stage (in stage order) joined in the order one
+    device makes them: microbatch by microbatch, stage by stage. counts:
+    the calls of each kind a stage makes a microbatch."""
+    out = replay.Choices()
+    for kind in ("kinks", "picks"):
+        lists = [getattr(p, kind) for p in parts]
+        for m in range(n_micro):
+            for lst, c in zip(lists, counts):
+                getattr(out, kind).extend(lst[m * c[kind]:(m + 1) * c[kind]])
+    return out
+
+
+def stage_counts(net, ranges):
+    kinks, pools = replay.kinked_nodes(net), replay.pooling_nodes(net)
+    return [{"kinks": sum(lo <= i < hi for i in kinks),
+             "picks": sum(lo <= i < hi for i in pools)}
+            for lo, hi in ranges]
+
+
+def same_choices(a, b):
+    return all(len(getattr(a, kind)) == len(getattr(b, kind)) and all(
+        torch.equal(x, y) for x, y in zip(getattr(a, kind),
+                                          getattr(b, kind)))
+        for kind in ("kinks", "picks"))
+
+
+def p17_gloo_main(rank, tmp):
+    """(b): one of P17_RANKS gloo ranks on the card, a stage each."""
+    import datetime
+
+    try:
+        from bcnn_tpu_torch.parallel import multihost
+
+        inp = torch.load(os.path.join(tmp, "p17_inputs.pt"),
+                         weights_only=False)
+        globals().update(inp["settings"])
+        multihost.initialize(f"file://{tmp}/gloo_store", P17_RANKS, rank,
+                             backend="gloo",
+                             timeout=datetime.timedelta(seconds=120))
+        torch.backends.cudnn.deterministic = True
+        res = p17_step([[r] for r in range(P17_RANKS)], P17_MICRO, "1f1b",
+                       inp, timed=P17_TIMED)
+        res["choices"] = compact(res["choices"])
+        torch.save(res, os.path.join(tmp, f"p17_rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"p17_error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def p17_forwards():
+    """(a)'s MobileNet-v1 forwards, fp32 then int8, each through the
+    3-stage pipeline and on one device: {precision: (launches a stage,
+    ms, one-device ms, one-device ms over the microbatches in turn,
+    worst error)}."""
+    from bcnn_tpu_torch.parallel import Pipeline
+
+    net = mobilenet_v1(MB_BATCH, MB_CLASSES).resize(MB_SIZE, MB_SIZE)
+    p, s = bridge.params_from_numpy(net, *bridge.he_numpy_weights(net, SEED))
+    params, state = to_device(p, P17_DEV), to_device(s, P17_DEV)
+    x = torch.from_numpy(np.random.RandomState(SEED + 72).rand(
+        MB_BATCH, 3, MB_SIZE, MB_SIZE).astype(np.float32)).to(P17_DEV)
+    idx = [net.get_tensor_index_by_name(o) for o in MB_OUTPUTS]
+    out = {}
+    for prec in ("fp32", "int8"):
+        net.quant = None
+        if prec == "int8":
+            sess = Session(net, SEED, device=P17_DEV)
+            sess.params, sess.state = params, state
+            sess.compile_net()
+            ptq_synthetic(net, sess)
+
+        def one():
+            with torch.inference_mode():
+                ex = execute(net, params, state, {"input": x}, Mode.PREDICT)
+                return [ex.values[i] for i in idx]
+
+        def one_micro():  # one device, the microbatches in turn
+            with torch.inference_mode():
+                for xm in x.chunk(P17_MICRO):
+                    execute(net, params, state, {"input": xm}, Mode.PREDICT)
+
+        pipe = Pipeline(net, [[0]] * 3, Mode.PREDICT,
+                        n_microbatches=P17_MICRO, output_names=MB_OUTPUTS,
+                        device=P17_DEV)
+        ps, ss = pipe.shard(params, state)
+        per_stage = [dict.fromkeys(counts(), 0) for _ in pipe.ranges]
+        run_stage = pipe._run_stage
+
+        def counted(k, *args):
+            before = counts()
+            ex = run_stage(k, *args)
+            for name, v in counts().items():
+                per_stage[k][name] += v - before[name]
+            return ex
+
+        want = one()
+        zero_counts()
+        pipe._run_stage = counted
+        got = pipe.forward(ps, ss, {"input": x})
+        pipe._run_stage = run_stage
+        p17_sync()
+        kinds = ("K3",) if prec == "fp32" else ("K4", "K5")
+        layers = {"K3": 13, "K4": 15, "K5": 13}
+        for k, launched in enumerate(per_stage):
+            if not all(launched[n] for n in kinds):
+                raise RuntimeError(f"MobileNet-v1 {prec} pipeline: stage {k} "
+                                   f"launched {launched}")
+        for n in kinds:
+            total = sum(ls[n] for ls in per_stage)
+            if total != layers[n] * P17_MICRO:
+                raise RuntimeError(f"MobileNet-v1 {prec} pipeline: {n} "
+                                   f"launched {total} times")
+        err = 0.0
+        for g, w in zip(got, want):
+            if prec == "fp32":
+                torch.testing.assert_close(g, w, rtol=P17_FWD_RTOL,
+                                           atol=P17_FWD_ATOL)
+                err = max(err, float((g - w).abs().max()))
+            elif not torch.equal(g, w):
+                raise RuntimeError("the int8 MobileNet-v1 pipeline differs "
+                                   "from one device")
+        times = {"pipe": [], "one": [], "micro": []}
+        for _ in range(P17_TIMED):
+            for key, fn in (("one", one), ("micro", one_micro),
+                            ("pipe", lambda: pipe.forward(
+                                ps, ss, {"input": x}))):
+                p17_sync()
+                t0 = time.perf_counter()
+                fn()
+                p17_sync()
+                times[key].append(1e3 * (time.perf_counter() - t0))
+        out[prec] = (per_stage, statistics.median(times["pipe"]),
+                     statistics.median(times["one"]),
+                     statistics.median(times["micro"]), err)
+    net.quant = None
+    return out
+
+
+def pipeline_phase(gpu):
+    """Phase 17 (see P17_DEV). Returns the launches of each kernel."""
+    import shutil
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="p17_")
+    lines = []
+    try:
+        dist.init_process_group(P17_BACKEND,
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        fwd = p17_forwards()
+        launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+        for per_stage, _, _, _, _ in fwd.values():
+            for ls in per_stage:
+                for k, v in ls.items():
+                    launched[k] += v
+        lines.append(
+            f"(a) one {P17_BACKEND} rank, MobileNet-v1 {MB_SIZE} px batch "
+            f"{MB_BATCH} on 3 stages, {P17_MICRO} microbatches: " + "; ".join(
+                f"{prec} {ms:.2f} ms a forward against one device's "
+                f"{one:.2f} ({micro:.2f} over the microbatches in turn; "
+                + (f"max |err| {err:.3g}" if prec == "fp32" else "bit-equal")
+                + "; launches a stage "
+                + str([{k: v for k, v in ls.items() if v} for ls in per])
+                + ")" for prec, (per, ms, one, micro, err) in fwd.items()))
+
+        inp = p17_inputs()
+        net = p17_net()
+        plain = p17_one_device(net, inp, 1, P17_TIMED)
+        accum = p17_one_device(net, inp, P17_MICRO, P17_TIMED)
+        e_one = p17_share(plain["params"], inp["p0"],
+                          p17_exact(net, inp, plain["choices"], 1))
+        e_acc = p17_share(accum["params"], inp["p0"],
+                          p17_exact(net, inp, accum["choices"], P17_MICRO))
+        runs = {"n1": p17_step([[0], [0]], 1, "gpipe", inp, P17_TIMED),
+                "gpipe": p17_step([[0], [0]], P17_MICRO, "gpipe", inp,
+                                  P17_TIMED),
+                "1f1b": p17_step([[0], [0]], P17_MICRO, "1f1b", inp,
+                                 P17_TIMED)}
+        ranges = runs["n1"]["ranges"]
+        worst = {}
+        exact = {}
+        for name, r in runs.items():
+            n = 1 if name == "n1" else P17_MICRO
+            ref = plain if n == 1 else accum
+            if not np.allclose(r["loss"], ref["loss"], rtol=STEP_LOSS_RTOL):
+                raise RuntimeError(f"pipeline {name}: loss {r['loss']} "
+                                   f"against one device's {ref['loss']}")
+            if name == "1f1b" and same_choices(
+                    r["choices"], runs["gpipe"]["choices"]):
+                exact[name] = exact["gpipe"]
+            else:
+                exact[name] = p17_exact(net, inp, r["choices"], n)
+            worst[name] = held_to_replay(
+                f"pipeline {name}", net, inp, r["params"], None,
+                e_one if n == 1 else e_acc, ref=exact[name])
+        same = all(torch.equal(v, runs["gpipe"]["params"][k])
+                   for k, v in runs["1f1b"]["params"].items())
+        if not same:
+            raise RuntimeError("1F1B's parameters differ from GPipe's")
+        dist.destroy_process_group()
+        lines.append(
+            f"YOLOv3-tiny {SIZE} px batch "
+            f"{P17_BATCH} on stages {ranges}: worst update share from the "
+            "float64 replay of its own choices " + ", ".join(
+                f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+            + f" (one device's own: plain {max(e_one.values()):.3g}, "
+            f"accumulation {max(e_acc.values()):.3g}); 1F1B bit-equal to "
+            "GPipe; every recompute bit-equal to its forward; ms a step "
+            f"(median of {P17_TIMED}): plain {plain['ms']:.1f}, pipeline "
+            f"n1 {runs['n1']['ms']:.1f}; accumulation x{P17_MICRO} "
+            f"{accum['ms']:.1f}, GPipe {runs['gpipe']['ms']:.1f}, 1F1B "
+            f"{runs['1f1b']['ms']:.1f}; device busy ms a step (profiler): "
+            + ", ".join(f"{k} " + ("not measured" if r["busy"] is None
+                                   else f"{r['busy']:.1f}")
+                        for k, r in (("plain", plain), ("n1", runs["n1"]),
+                                     ("accumulation", accum),
+                                     ("GPipe", runs["gpipe"]),
+                                     ("1F1B", runs["1f1b"])))
+            + f"; peak GiB: plain {plain['peak']:.3f}, "
+            f"n1 {runs['n1']['peak']:.3f}, accumulation {accum['peak']:.3f}"
+            f", GPipe {runs['gpipe']['peak']:.3f}, 1F1B "
+            f"{runs['1f1b']['peak']:.3f}")
+
+        # -- (b): gloo ranks on the card, a stage each ------------------------
+        if p17_on_card():
+            torch.cuda.empty_cache()
+        inp["settings"] = {k: globals()[k] for k in P17_SETTINGS}
+        torch.save(inp, os.path.join(tmp, "p17_inputs.pt"))
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=p17_gloo_main, args=(r, tmp))
+                 for r in range(P17_RANKS)]
+        t_b = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(300)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        errs = [open(os.path.join(tmp, f"p17_error{r}.txt")).read()
+                for r in range(P17_RANKS)
+                if os.path.exists(os.path.join(tmp, f"p17_error{r}.txt"))]
+        if errs or any(pr.exitcode for pr in procs):
+            raise RuntimeError("gloo ranks failed: "
+                               f"{[pr.exitcode for pr in procs]}\n"
+                               + "\n".join(errs))
+        t_b = time.perf_counter() - t_b
+        ranks = [torch.load(os.path.join(tmp, f"p17_rank{r}.pt"),
+                            weights_only=False) for r in range(P17_RANKS)]
+        for r, o in enumerate(ranks[1:], 1):
+            for k, v in o["params"].items():
+                if not torch.equal(v, ranks[0]["params"][k]):
+                    raise RuntimeError(f"gloo pipeline: rank {r}'s {k} "
+                                       "differs from rank 0's")
+        choices = interleave([expand([o["choices"]]) for o in ranks],
+                             stage_counts(net, ranks[0]["ranges"]),
+                             P17_MICRO)
+        if same_choices(choices, runs["1f1b"]["choices"]):
+            ex_b = exact["1f1b"]
+        else:
+            ex_b = p17_exact(net, inp, choices, P17_MICRO)
+        worst_b = held_to_replay("gloo pipeline", net, inp,
+                                 ranks[0]["params"], None, e_acc, ref=ex_b)
+        bit = all(torch.equal(v, runs["1f1b"]["params"][k])
+                  for k, v in ranks[0]["params"].items())
+        lines.append(
+            f"(b) {P17_RANKS} gloo ranks on the card, a stage each, "
+            f"{P17_MICRO} microbatches, 1F1B: ranks equal, worst update share "
+            f"{worst_b[0]:.3g} ({worst_b[1]}), "
+            + ("bit-equal to" if bit else "not bit-equal to")
+            + " (a)'s 1F1B; ms a step (median of "
+            f"{P17_TIMED}) " + ", ".join(f"{o['ms']:.1f}" for o in ranks)
+            + " a rank, peak GiB " + ", ".join(f"{o['peak']:.3f}"
+                                               for o in ranks)
+            + f"; the ranks took {t_b:.1f} s with start-up")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"pipeline stages (phase 17) on {gpu}: " + "; ".join(lines)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5446,6 +5940,13 @@ def main() -> int:
     k4_launches += p16["K4"]
     k5_launches += p16["K5"]
     stamp("16")
+
+    # -- phase 17: pipeline stages (one NCCL rank; two gloo ranks) --------
+    p17 = pipeline_phase(gpu)
+    k3_launches += p17["K3"]
+    k4_launches += p17["K4"]
+    k5_launches += p17["K5"]
+    stamp("17")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
     trained = k2[:3]  # the three shears of one training step

@@ -1346,3 +1346,93 @@ def test_exported_int8_detect_launches_k4_per_conv(cuda, tmp_path):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="cpu"):
         served(x)  # a CPU tensor is not copied over
+
+
+def _pipeline_step(net, p, s, batch, n_micro, schedule, device,
+                   check=False):
+    """One Pipeline step of `net` over split_stages' 2 stages, both on
+    `device` (no process group), recording the kink sides and
+    max-pool picks of its forwards (not of its recomputes)."""
+    from bcnn_tpu_torch import replay
+    from bcnn_tpu_torch.learner import init_opt_state
+    from bcnn_tpu_torch.parallel import Pipeline
+
+    pipe = Pipeline(net, [[0], [0]], Mode.TRAIN, n_microbatches=n_micro,
+                    schedule=schedule, device=device)
+    pipe._check_recompute = check
+    ps, ss, os_ = pipe.shard(p, s, init_opt_state(net, p))
+    choices = replay.Choices()
+    with replay.record(choices, when=lambda: not torch.is_grad_enabled()):
+        ps, ss, os_, loss = pipe.train_on_batch(ps, ss, os_, batch)
+    return pipe.gather(ps), float(loss), choices
+
+
+def _tiny_train():
+    net = yolov3_tiny(4, 96, 96, 4, mode=Mode.TRAIN)
+    p, s = bridge.params_from_numpy(net, *bridge.he_numpy_weights(net, 3))
+    rng = np.random.RandomState(4)
+    lab = np.zeros((4, 50, 5), np.float32)
+    lab[:, 0] = [0.5, 0.5, 0.3, 0.4, 1]
+    lab[:, 1] = [0.25, 0.7, 0.2, 0.2, 3]
+    batch = {"input": torch.from_numpy((rng.rand(4, 3, 96, 96) * 2 - 1)
+                                       .astype(np.float32)),
+             "label": torch.from_numpy(lab.reshape(4, 250))}
+    return net, p, s, batch
+
+
+def test_pipeline_step_on_the_card_within_the_replay_rule(cuda):
+    """A 2-stage YOLOv3-tiny pipeline step at 96 px, batch 4, 2
+    microbatches, on the card: each update within 1e-3 of its largest
+    entry from a float64 replay (on the card) of the pipeline's own kink
+    sides and max-pool picks, twice the one-device
+    make_train_step(accum_steps=2)'s own distance to the replay of its
+    choices, or one float32 spacing; the loss within 1e-4 of the one
+    device step's."""
+    from bcnn_tpu_torch import replay
+    from bcnn_tpu_torch.compile import make_train_step
+    from bcnn_tpu_torch.learner import init_opt_state
+
+    net, p, s, batch = _tiny_train()
+    dev = {k: v.to(cuda) for k, v in batch.items()}
+    params, loss, choices = _pipeline_step(
+        net, {k: v.to(cuda) for k, v in p.items()},
+        {k: v.to(cuda) for k, v in s.items()}, dev, 2, "gpipe", cuda)
+    one = replay.Choices()
+    q = {k: v.to(cuda) for k, v in p.items()}
+    with replay.record(one):
+        q, _, _, l1 = make_train_step(net, accum_steps=2)(
+            q, {k: v.to(cuda) for k, v in s.items()},
+            init_opt_state(net, q), dev)
+    np.testing.assert_allclose(loss, float(l1), rtol=1e-4)
+
+    def exact(ch):
+        return replay.sgd_update(net, p, s, batch, torch.float64, cuda,
+                                 replay.impose(ch), accum_steps=2)[0]
+
+    ref, ref_one = exact(choices), exact(one)
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        e_one = float((q[k].cpu() - p[k] - ref_one[k]).abs().max()) / scale
+        lim = max(1e-3, 2 * e_one,
+                  float(np.spacing(np.float32(p[k].abs().max()))) / scale)
+        err = float((params[k] - p[k] - r).abs().max()) / scale
+        assert err <= lim, (k, err, lim)
+
+
+def test_pipeline_recompute_is_bit_equal_on_the_card(cuda):
+    """Under cuDNN's deterministic algorithms every stage's recompute
+    gives its first forward's boundary outputs bit for bit (the
+    pipeline's check raises otherwise), and 1F1B's step is GPipe's."""
+    net, p, s, batch = _tiny_train()
+    dev = {k: v.to(cuda) for k, v in batch.items()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_pipeline_step(net, {k: v.to(cuda) for k, v in p.items()},
+                               {k: v.to(cuda) for k, v in s.items()}, dev, 2,
+                               schedule, cuda, check=True)
+                for schedule in ("gpipe", "1f1b")]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for k, v in runs[0][0].items():
+        assert torch.equal(v, runs[1][0][k]), k

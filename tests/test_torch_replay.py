@@ -227,3 +227,55 @@ def test_imposed_codes_are_held_to_the_run_s_own_values():
     with pytest.raises(ValueError, match="fake quant 2"):
         replay.sgd_update(net, params, state, batch, torch.float64,
                           choices=replay.impose(made))
+
+
+def test_record_when_keeps_the_calls_it_selects():
+    """record(when=...) keeps the choices of the calls for which when()
+    holds: a pass without autograd is recorded, a pass with it is not,
+    and what is kept equals a plain record of the first pass."""
+    net = small_net(Activation.LRELU)
+    params, state, batch = seeded(net)
+    every, some = replay.Choices(), replay.Choices()
+    with replay.record(every):
+        with torch.no_grad():
+            execute(net, params, state, batch, Mode.TRAIN)
+    with replay.record(some, when=lambda: not torch.is_grad_enabled()):
+        with torch.no_grad():
+            execute(net, params, state, batch, Mode.TRAIN)
+        execute(net, params, state, batch, Mode.TRAIN)
+    assert len(some.kinks) == len(every.kinks) == 2
+    for a, b in zip(some.kinks + some.picks, every.kinks + every.picks):
+        assert torch.equal(a, b)
+
+
+def test_sgd_update_accumulates_as_the_step_does():
+    """sgd_update(accum_steps=2) gives make_train_step(accum_steps=2)'s
+    update bit for bit, and a float64 one that imposes the step's own
+    choices lies within 1e-3 of each tensor's largest entry (the repo's
+    fp32-against-float64 bound, tests/test_torch_train_shortcut.py)."""
+    from bcnn_tpu_torch.compile import make_train_step
+    from bcnn_tpu_torch.learner import init_opt_state
+
+    net = yolov3_tiny(4, 64, 64, 3, mode=Mode.TRAIN)
+    params, state, _ = seeded(net)
+    rng = np.random.RandomState(5)
+    lab = np.zeros((4, 50, 5), np.float32)
+    lab[:, 0] = [0.5, 0.5, 0.3, 0.4, 1]
+    batch = {"input": torch.from_numpy(
+        rng.randn(4, 3, 64, 64).astype(np.float32)),
+        "label": torch.from_numpy(lab.reshape(4, 250))}
+    p = {k: v.clone() for k, v in params.items()}
+    choices = replay.Choices()
+    with replay.record(choices):
+        p, _, _, _ = make_train_step(net, accum_steps=2)(
+            p, dict(state), init_opt_state(net, p), batch)
+    upd, _ = replay.sgd_update(net, params, state, batch, accum_steps=2)
+    exact, _ = replay.sgd_update(net, params, state, batch, torch.float64,
+                                 choices=replay.impose(choices),
+                                 accum_steps=2)
+    for k, u in upd.items():
+        assert torch.equal(p[k] - params[k], u), k
+        scale = float(exact[k].abs().max())
+        assert float((u - exact[k]).abs().max()) <= 1e-3 * scale, k
+    with pytest.raises(ValueError):
+        replay.sgd_update(net, params, state, batch, seed=1, accum_steps=2)

@@ -148,8 +148,9 @@ def test_no_jax_in_the_port(tmp_path):
     JAX module: serving, a training step with rotation augmentation,
     and `bcnn_tpu_torch.parallel` and `multihost` with one data-parallel
     step of a world of one gloo rank on the CPU, one tensor-parallel step
-    of `parallel.model_axis` on its 1x1 mesh, and the int8 study's tool
-    (`tools/int8_map_study_torch.py`) imported."""
+    of `parallel.model_axis` on its 1x1 mesh, a forward of
+    `parallel.pipeline`'s Pipeline on two stages, and the int8 study's
+    tool (`tools/int8_map_study_torch.py`) imported."""
     code = textwrap.dedent(
         """
         import sys
@@ -195,6 +196,12 @@ def test_no_jax_in_the_port(tmp_path):
         p, s, o, loss = make_dp_tp_train_step(net, mesh2)(
             p, s, o, shard_batch(mesh2.batch, {"input": x, "label": lab}))
         assert bool(torch.isfinite(loss)) and model_axis.MODEL_AXIS
+        from bcnn_tpu_torch.parallel import Pipeline, pipeline
+        pipe = Pipeline(sess.net, [[0], [0]], Mode.PREDICT,
+                        output_names=["lid16"], device="cpu")
+        (yp,) = pipe.forward(*pipe.shard(sess.params, sess.state),
+                             {"input": x[:1]})
+        assert tuple(yp.shape) == (1, 27, 2, 2) and pipeline.split_stages
         torch.distributed.destroy_process_group()
         import importlib.util
         spec = importlib.util.spec_from_file_location(

@@ -4,7 +4,9 @@ tests/test_torch_multihost.py and tests/test_torch_model_axis.py (the
 process): D gloo ranks on the CPU, started with
 torch.multiprocessing (spawn), each running a list of cases through
 `bcnn_tpu_torch.parallel` and writing its results for the test process
-to hold against bcnn_tpu and the port's one-rank run. Not a pytest
+to hold against bcnn_tpu and the port's one-rank run; and the
+`Pipeline` cases of tests/test_torch_pipeline_parallel.py (stages over
+the world's global ranks). Not a pytest
 module (no test_ prefix); it imports no JAX, and the test modules import
 it for the nets and the launcher.
 
@@ -30,6 +32,7 @@ LENET_BATCH = 16
 TINY_BATCH, TINY_SIZE, TINY_CLASSES = 4, 64, 4
 LIFTED_BATCH = 8
 MB_BATCH, MB_SIZE, MB_CLASSES = 4, 64, 10
+PP_BATCH = 8  # the pipeline's nets (tests/test_pipeline.py)
 AXIS_SIZE, FWD_BATCH = 96, 2  # the model axis's YOLOv3-tiny and forwards
 # the device augmentation of the resident scans: rotation (K2's shear
 # chain; its plain version on the CPU), a flip, contrast and brightness
@@ -69,8 +72,60 @@ def dropout_net(pkg, batch=LIFTED_BATCH):
     return net
 
 
+def bn_free_net(pkg, batch=PP_BATCH):
+    """Conv/pool/fc stack with no batch-coupled op
+    (tests/test_pipeline.py:53-68)."""
+    A, F = pkg.Activation, pkg.FillerType
+    net = pkg.Net(pkg.Mode.TRAIN)
+    net.set_input_shape(16, 16, 3, batch)
+    net.set_sgd_optimizer(learning_rate=0.01, momentum=0.9)
+    X, R = F.XAVIER, A.RELU
+    net.add_convolutional_layer(16, 3, 1, 1, 1, 0, X, R, 0, "input", "c1")
+    net.add_maxpool_layer(2, 2, pkg.Padding.SAME, "c1", "p1")
+    net.add_convolutional_layer(32, 3, 1, 1, 1, 0, X, R, 0, "p1", "c2")
+    net.add_maxpool_layer(2, 2, pkg.Padding.SAME, "c2", "p2")
+    net.add_fullc_layer(64, X, R, 0, "p2", "fc1")
+    net.add_fullc_layer(10, X, A.NONE, 0, "fc1", "fc2")
+    net.add_softmax_layer("fc2", "sm")
+    net.add_cost_layer(pkg.Loss.EUCLIDEAN, pkg.Metric.SSE, 1.0, "sm",
+                       "label", "cost")
+    return net
+
+
+def bn_net(pkg, batch=PP_BATCH, frozen=False):
+    """Conv + BN stack (tests/test_pipeline.py:316-330)."""
+    A, F = pkg.Activation, pkg.FillerType
+    net = pkg.Net(pkg.Mode.TRAIN)
+    net.set_input_shape(16, 16, 3, batch)
+    net.set_sgd_optimizer(learning_rate=0.01, momentum=0.9)
+    X, R = F.XAVIER, A.RELU
+    net.add_convolutional_layer(16, 3, 1, 1, 1, 1, X, R, 0, "input", "c1")
+    net.add_maxpool_layer(2, 2, pkg.Padding.SAME, "c1", "p1")
+    net.add_convolutional_layer(32, 3, 1, 1, 1, 1, X, R, 0, "p1", "c2")
+    net.add_fullc_layer(10, X, A.NONE, 0, "c2", "fc")
+    net.add_softmax_layer("fc", "sm")
+    net.add_cost_layer(pkg.Loss.EUCLIDEAN, pkg.Metric.SSE, 1.0, "sm",
+                       "label", "cost")
+    if frozen:
+        net.bn_frozen_stats = True
+    return net
+
+
 def build_net(pkg, models, name):
     """The test nets in either package (`pkg`, its `models`)."""
+    # the pipeline's (tests/test_torch_pipeline_parallel.py)
+    if name == "pp_lenet":
+        return models.lenet_mnist(PP_BATCH)
+    if name == "pp_lenet_predict":
+        return models.lenet_mnist(PP_BATCH, pkg.Mode.PREDICT)
+    if name == "pp_cifar":
+        return models.cifar10_resnet(PP_BATCH)
+    if name == "pp_bnfree":
+        return bn_free_net(pkg)
+    if name in ("pp_bn", "pp_bn_frozen"):
+        return bn_net(pkg, frozen=name == "pp_bn_frozen")
+    if name == "pp_dropout":
+        return dropout_net(pkg, PP_BATCH)
     if name == "lenet":
         return models.lenet_mnist(LENET_BATCH)
     if name == "tiny":
@@ -650,7 +705,71 @@ def case_model_refusals(mesh, spec, workdir):
     return out
 
 
+# ------------------------------------------------------- the pipeline #
+
+
+def warm(state):
+    """Non-degenerate running stats (frozen BN divides by run_var + eps),
+    tests/test_pipeline.py:333-340."""
+    return {k: (np.ones_like(v) if "run_var" in k else v)
+            for k, v in state.items()}
+
+
+def case_pipeline(mesh, spec, workdir):
+    """`Pipeline` over spec["stages"] (global ranks): with spec["x"], one
+    PREDICT forward of spec["outputs"] (fp32, or int8 on spec["quant"]);
+    else TRAIN steps on each of spec["batches"] under each schedule of
+    spec["schedules"], from spec's weights (run_var set to 1 with
+    spec["warm"]): the gathered params and state, the losses. With
+    spec["default_seed"], each rank seeds torch's default generator with
+    it plus its rank, and the steps take no generator (each recompute
+    checked bit-equal to its forward); spec["boundaries"] fixes the
+    cuts."""
+    import bcnn_tpu_torch as tt
+    from bcnn_tpu_torch import bridge, models
+    from bcnn_tpu_torch.learner import init_opt_state
+    from bcnn_tpu_torch.parallel import Pipeline
+    from bcnn_tpu_torch.types import Mode
+
+    net = build_net(tt, models, spec["net"])
+    s_np = warm(spec["s"]) if spec.get("warm") else spec["s"]
+    if spec.get("x") is not None:
+        if spec.get("quant") is not None:
+            net.quant = bridge.quant_from_numpy(net, spec["quant"])
+        pipe = Pipeline(net, spec["stages"], Mode.PREDICT,
+                        n_microbatches=spec.get("n_micro", 1),
+                        output_names=spec["outputs"], device="cpu")
+        ps, ss = pipe.shard(*bridge.params_from_numpy(net, spec["p"], s_np))
+        outs = pipe.forward(ps, ss, {"input": spec["x"]})
+        return {"outs": [o.numpy() for o in outs],
+                "dtypes": [str(o.dtype) for o in outs]}
+    out = {}
+    for schedule in spec.get("schedules", ("gpipe",)):
+        pipe = Pipeline(net, spec["stages"], Mode.TRAIN,
+                        n_microbatches=spec.get("n_micro", 1),
+                        boundaries=spec.get("boundaries"),
+                        schedule=schedule, device="cpu")
+        if spec.get("default_seed") is not None:
+            torch.manual_seed(spec["default_seed"] + pipe.rank)
+            pipe._check_recompute = True
+        params, state = bridge.params_from_numpy(net, spec["p"], s_np)
+        ps, ss, os_ = pipe.shard(params, state,
+                                 init_opt_state(net, params))
+        losses = []
+        for x, y in spec["batches"]:
+            ps, ss, os_, loss = pipe.train_on_batch(
+                ps, ss, os_, {"input": x, "label": y})
+            losses.append(float(loss))
+        out[schedule] = {
+            "params": _np(net, pipe.gather(ps)),
+            "state": _np(net, pipe.gather(ss)),
+            "losses": np.asarray(losses),
+            "seen": [o["seen"] for o in os_ if o is not None]}
+    return out
+
+
 CASES = {
+    "pipeline": case_pipeline,
     "tp_specs": case_tp_specs,
     "model_step": case_model_step,
     "spatial_forward": case_spatial_forward,

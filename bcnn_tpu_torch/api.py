@@ -41,6 +41,7 @@ from .compile import (
     output_value,
 )
 from .graph import Net
+from .profiling import span
 from .types import LayerType, Mode
 
 
@@ -232,7 +233,9 @@ class Session:
         return x_buffer
 
     def _input(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with span("bcnn.upload"):
+            return torch.as_tensor(x, dtype=torch.float32,
+                                   device=self.device)
 
     def _default_output_name(self) -> str:
         for node in reversed(self.net.nodes):
@@ -501,18 +504,22 @@ class Session:
         topk_first (default) selects candidates on the raw objectness
         logits and decodes only those. Otherwise every candidate is
         decoded, by the K1 CUDA kernel when use_pallas is set (None: set
-        exactly when the session's device is CUDA)."""
-        if topk_first:
-            use_pallas = False
-        elif use_pallas is None:
-            use_pallas = self.device.type == "cuda"
-        detect = make_detect_fn(
-            self.net, thresh, max_dets,
-            use_pallas=use_pallas, topk_first=topk_first,
-        )
-        params = self._full_params()
-        with torch.inference_mode():
-            return detect(params, self.state, {"input": self._input(x)})
+        exactly when the session's device is CUDA). The call is the span
+        `bcnn.detect` where a profiler records (`profiling.span`)."""
+        with span("bcnn.detect"):
+            if topk_first:
+                use_pallas = False
+            elif use_pallas is None:
+                use_pallas = self.device.type == "cuda"
+            with span("bcnn.build.detect_fn"):
+                detect = make_detect_fn(
+                    self.net, thresh, max_dets,
+                    use_pallas=use_pallas, topk_first=topk_first,
+                )
+            params = self._full_params()
+            with torch.inference_mode():
+                return detect(params, self.state,
+                              {"input": self._input(x)})
 
     def yolo_get_detections(
         self,

@@ -30,7 +30,11 @@ import torch
 
 from . import debug, ops
 from .graph import Net, Node, TensorKind
+from .profiling import recording, span
 from .types import Activation, LayerType, Loss, Mode
+
+# each node's span (`profiling.span`), named once a layer type
+_NODE_SPAN = {t: f"bcnn.node.{t.name.lower()}" for t in LayerType}
 
 
 def init_params(
@@ -191,7 +195,8 @@ class _Executor:
         if quant and mode == Mode.PREDICT and quant.get("act_flow", True):
             from .ops.quant import plan_int8_flow
 
-            self.int8_flow = plan_int8_flow(net, quant)
+            with span("bcnn.build.int8_flow"):
+                self.int8_flow = plan_int8_flow(net, quant)
         # net.qat (True, or a dict with "ema" and "per_layer"): TRAIN and
         # VALID fake-quantize each conv-like input and weight; the input
         # ranges' EMAs live in the state (`bcnn_tpu/compile.py:216-229`).
@@ -214,6 +219,12 @@ class _Executor:
         return self.params[self.key_of(idx)]
 
     def run(self, lo: int = 0, hi: Optional[int] = None, taps_in=None):
+        """Nodes [lo, hi), the pass's span `bcnn.execute` and each node's
+        `bcnn.node.<type>` where a profiler records (`profiling.span`)."""
+        with span("bcnn.execute"):
+            return self._run(lo, hi, taps_in)
+
+    def _run(self, lo, hi, taps_in):
         # Nodes [lo, hi) (`bcnn_tpu/compile.py:237-304`): the pipeline
         # (`parallel/pipeline.py`) runs one stage of the graph so. taps_in
         # seeds the routing taps that earlier stages made for consumers in
@@ -236,6 +247,7 @@ class _Executor:
         taps: Dict[Tuple[int, int], torch.Tensor] = dict(taps_in or {})
         checks = debug.CHECKS
         nan, inf = checks["nan"], checks["inf"]
+        traced = recording()
         for i in range(lo, hi):
             node = self.net.nodes[i]
             fn = getattr(self, f"_{node.type.name.lower()}", None)
@@ -251,7 +263,11 @@ class _Executor:
                     swapped[s] = self.values[s]
                     self.values[s] = tap
             self.pos = i
-            self._dispatch(fn, node)
+            if traced:
+                with torch.profiler.record_function(_NODE_SPAN[node.type]):
+                    self._dispatch(fn, node)
+            else:
+                self._dispatch(fn, node)
             for s, old in swapped.items():
                 if s not in node.dst:  # in-place nodes keep their write
                     self.values[s] = old
@@ -435,14 +451,16 @@ class _Executor:
         fused = act in FUSED_ACT
         s_out = self.int8_flow.get(node.dst[0]) if fused else None
         bn = {}
-        if node.type == LayerType.CONV2D and p.get("batch_norm"):
-            bn["scale"] = self.p(node.src[5])
-            if not (self.net.bn_folded and self.mode == Mode.PREDICT):
-                var = self.state[self.key_of(node.src[4])]
-                bn["mean"] = self.state[self.key_of(node.src[3])]
-                bn["inv"] = torch.ones_like(var) / torch.sqrt(
-                    var + ops.norm.EPS)
-        args = (self._quant_in(x, sx), wq["q"], wq["scale"] * sx,
+        with span("bcnn.build.epilogue"):
+            if node.type == LayerType.CONV2D and p.get("batch_norm"):
+                bn["scale"] = self.p(node.src[5])
+                if not (self.net.bn_folded and self.mode == Mode.PREDICT):
+                    var = self.state[self.key_of(node.src[4])]
+                    bn["mean"] = self.state[self.key_of(node.src[3])]
+                    bn["inv"] = torch.ones_like(var) / torch.sqrt(
+                        var + ops.norm.EPS)
+            d = wq["scale"] * sx
+        args = (self._quant_in(x, sx), wq["q"], d,
                 self.p(node.src[2]), p["stride"], p["pad"])
         kw = dict(act=act if fused else Activation.NONE, s_out=s_out, **bn)
         if groups == 1:
@@ -993,15 +1011,16 @@ def make_detect_fn(
                 net_w, net_h, max_dets=max_dets, thresh=thresh,
             )
         all_b, all_o, all_p = [], [], []
-        for raw, (_, prm) in zip(raws, yolo_nodes):
-            if use_pallas:
-                b, o, p = decode_fused(raw.to(torch.float32), prm, net_w,
-                                       net_h)
-            else:
-                b, o, p = decode_grid_ref(raw, prm, net_w, net_h)
-            all_b.append(b)
-            all_o.append(o)
-            all_p.append(p)
+        with span("bcnn.decode"):
+            for raw, (_, prm) in zip(raws, yolo_nodes):
+                if use_pallas:
+                    b, o, p = decode_fused(raw.to(torch.float32), prm,
+                                           net_w, net_h)
+                else:
+                    b, o, p = decode_grid_ref(raw, prm, net_w, net_h)
+                all_b.append(b)
+                all_o.append(o)
+                all_p.append(p)
         return device_decode_nms(
             torch.cat(all_b, dim=1),
             torch.cat(all_o, dim=1),

@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..profiling import span
+
 
 def _tf32(allow: bool):
     cudnn = torch.backends.cudnn
@@ -114,7 +116,9 @@ def _conv_any(x, w, stride, pad, groups, transposed, compute_dtype,
         if grad:
             return _Conv2dMixed.apply(x, w, stride, pad, groups, transposed,
                                       compute_dtype)
-        xc, wc = x.to(compute_dtype), w.to(compute_dtype)
+        xc = x.to(compute_dtype)
+        with span("bcnn.build.weight_cast"):
+            wc = w.to(compute_dtype)
         if out_dtype is not None:
             return _conv(xc, wc, stride, pad, groups, transposed).to(
                 out_dtype)

@@ -37,7 +37,7 @@ version, returning the same layouts; its CUDA implementation,
 `conv_int8_cuda`, launches the kernel or raises, also on an x or w that
 is not channels-last; nothing falls back and nothing is copied. `plan_conv_int8` chooses the kernel's tile
 and its split of K here, where the CPU tests reach it; the kernel checks
-the plan. `conv_int8_fused.launches` counts the kernel's launches: one
+the plan. `library.launches("conv_int8")` counts the kernel's launches: one
 a call, split or not (a split launch first zeroes its tiles' counters
 with one `cudaMemsetAsync` on the same stream, which is not counted).
 """
@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..profiling import span
 from ..types import Activation
 from . import library
 
@@ -284,7 +285,7 @@ def conv_int8_cuda(x, w, d, bias, stride, pad, act, scale=None,
                    mean=None, inv=None, s_out=None):
     """The op's CUDA implementation, K4's launcher: checks what the
     kernel takes (raises otherwise), plans, allocates the output and a
-    split's workspace, launches, checks the launch and counts it."""
+    split's workspace, launches and checks the launch."""
     act = Activation(act)
     vecs = [v for v in (d, bias, scale, mean, inv) if v is not None]
     ts = [x, w, *vecs]
@@ -334,8 +335,9 @@ def conv_int8_cuda(x, w, d, bias, stride, pad, act, scale=None,
         device=x.device, memory_format=out_format(s_out),
     )
     if out.numel():
-        plan = plan_conv_int8(n, c, h, wd, o, k, stride, pad,
-                              kernels.sm_count(x.device))
+        with span("bcnn.build.k4_plan"):
+            plan = plan_conv_int8(n, c, h, wd, o, k, stride, pad,
+                                  kernels.sm_count(x.device))
         ws = counters = None
         if plan.splits > 1:
             ws = torch.empty(plan.workspace_ints, dtype=torch.int32,
@@ -357,7 +359,6 @@ def conv_int8_cuda(x, w, d, bias, stride, pad, act, scale=None,
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         kernels.check(rc, "conv_int8_fused")
-        conv_int8_fused.launches += 1
     return out
 
 
@@ -384,7 +385,6 @@ def _numel(shape) -> int:
     return n
 
 
-conv_int8_fused.launches = 0
 _K4 = library.register(
     "conv_int8",
     "(Tensor x, Tensor w, Tensor d, Tensor bias, int stride, int pad, "

@@ -15,7 +15,8 @@ plain version's); its CUDA implementation, `depthwise_cuda`, launches
 the kernel or raises; nothing falls back. The kernel takes fp32 only.
 An activation the kernel does not fuse (TANH, SOFTPLUS, ...) runs the op
 with NONE and then `apply_activation`. The kernel has no backward yet,
-so on the card the wrapper refuses tensors that autograd records. `depthwise_fused.launches` counts the kernel's launches.
+so on the card the wrapper refuses tensors that autograd records.
+`library.launches("depthwise")` counts the kernel's launches.
 
 `plan_tiles` chooses the kernel's tiles here, where the CPU tests reach
 it: g whole planes, or a band of output rows of one plane, a tile; the
@@ -176,7 +177,7 @@ def _depthwise_cpu(x, w, b, stride, pad, act):
 def depthwise_cuda(x, w, b, stride, pad, act):
     """The op's CUDA implementation, K3's launcher (`act` a fused one):
     checks what the kernel takes (raises otherwise), plans, allocates
-    the output, launches, checks the launch and counts it."""
+    the output, launches and checks the launch."""
     act = Activation(act)
     ts = (x, w, b)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
@@ -220,7 +221,6 @@ def depthwise_cuda(x, w, b, stride, pad, act):
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         kernels.check(rc, "depthwise_fused")
-        depthwise_fused.launches += 1
     return y
 
 
@@ -264,7 +264,6 @@ def _backward(ctx, gy):
                  for t in leaves) + (None, None, None)
 
 
-depthwise_fused.launches = 0
 _K3 = library.register(
     "depthwise",
     "(Tensor x, Tensor w, Tensor b, int stride, int pad, int act) -> Tensor",

@@ -41,7 +41,7 @@ its CPU implementation is the plain version; its CUDA implementation,
 not channels-last or a w not in K5's layout. `plan_grouped_int8` chooses
 the branch and the launch geometry here, where the CPU tests reach it
 (`tests/test_torch_grouped_int8_plan.py` emulates the kernel's words and
-byte operations with it). `grouped_int8_fused.launches` counts the
+byte operations with it). `library.launches("grouped_int8")` counts the
 kernel's launches.
 """
 
@@ -286,7 +286,7 @@ def grouped_int8_cuda(x, w, d, bias, stride, pad, groups, act, scale=None,
                       mean=None, inv=None, s_out=None):
     """The op's CUDA implementation, K5's launcher: checks what the
     kernel takes (raises otherwise), plans, allocates the output,
-    launches (`launch`) and counts the launch."""
+    launches (`launch`)."""
     act = Activation(act)
     vecs = [v for v in (d, bias, scale, mean, inv) if v is not None]
     ts = [x, w, *vecs]
@@ -345,7 +345,6 @@ def grouped_int8_cuda(x, w, d, bias, stride, pad, groups, act, scale=None,
             shortcut_on(s_out))
         launch(plan, x, w, d, bias, stride, pad, groups, act, scale, mean,
                inv, s_out, out)
-        grouped_int8_fused.launches += 1
     return out
 
 
@@ -372,7 +371,6 @@ def launch(plan: GroupedPlan, x, w, d, bias, stride, pad, groups, act,
     kernels.check(rc, "grouped_int8_fused")
 
 
-grouped_int8_fused.launches = 0
 _K5 = library.register(
     "grouped_int8",
     "(Tensor x, Tensor w, Tensor d, Tensor bias, int stride, int pad, "

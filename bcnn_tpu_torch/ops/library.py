@@ -5,8 +5,8 @@ modes), `depthwise` (K3), `conv_int8` (K4), `grouped_int8` (K5).
 Each op is one node of a traced or exported graph (`torch.export`,
 `deploy.py`) and dispatches on its tensors' device: the CUDA
 implementation launches the kernel (the launcher of its module: the
-plan, the workspace, `kernels.check`, the launch counter) and raises on
-what the kernel does not take; the CPU implementation is the plain
+plan, the workspace, `kernels.check`) and raises on what the kernel
+does not take; the CPU implementation is the plain
 version; the fake implementation gives the real op's shape, dtype and
 strides, so a program traced with fake tensors lays its tensors out as
 the kernel does (K4 and K5 write int8 channels-last). A program traced
@@ -22,17 +22,46 @@ then (`kernels.py` builds at the first CUDA launch). The public wrappers
 K3's, K4's and K5's flop formulas are registered with
 `torch.utils.flop_counter`, so that `FlopCounterMode`
 (`profiling.memory_report`) counts their work as it counts aten's convs.
+
+`register` wraps each CUDA implementation with the port's one launch
+counter: a call that returns with an output counts one launch under the
+op's name (`launches("conv_int8")`; `reset_launches()` sets them all to
+0). A call that raises counts none, nor one whose outputs are empty:
+every launcher returns those without a launch. K2's row and column
+modes count under `row_shift`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 NAMESPACE = "bcnn_tpu_torch"
 _LIB = torch.library.Library(NAMESPACE, "DEF")
+_LAUNCHES: Dict[str, int] = {}
+
+
+def launches(name: str) -> int:
+    """Kernel launches of op `name` since the last `reset_launches`."""
+    return _LAUNCHES[name]
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _counted(name: str, cuda: Callable) -> Callable:
+    def launch(*args, **kwargs):
+        out = cuda(*args, **kwargs)
+        if any(t.numel() for t in (out if isinstance(out, tuple)
+                                   else (out,))):
+            _LAUNCHES[name] += 1
+        return out
+
+    return launch
 
 
 def register(
@@ -46,10 +75,12 @@ def register(
     """Define `bcnn_tpu_torch::<name>` with `schema` (the arguments and
     results, e.g. "(Tensor x, int k) -> Tensor"), its CPU, CUDA and fake
     implementations and, where given, its flop formula (called with the
-    tensors' shapes and `out_shape`); returns the op's overload."""
+    tensors' shapes and `out_shape`); returns the op's overload. The CUDA
+    implementation counts its launches (`launches(name)`)."""
     _LIB.define(name + schema)
     _LIB.impl(name, cpu, "CPU")
-    _LIB.impl(name, cuda, "CUDA")
+    _LAUNCHES[name] = 0
+    _LIB.impl(name, _counted(name, cuda), "CUDA")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
     packet = getattr(getattr(torch.ops, NAMESPACE), name)
     if flops is not None:

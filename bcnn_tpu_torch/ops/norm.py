@@ -41,6 +41,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..profiling import span
 from .activations import in_f32, weak
 
 EPS = 1e-6
@@ -65,14 +66,15 @@ def batch_norm(
     """x: NCHW; the other tensors are per channel (C,). affine_fp32 keeps
     scales and biases fp32, so that a bf16 x is promoted where it meets
     them (bcnn_tpu's standalone BN layer, which does not cast them)."""
-    run_mean, run_var = run_mean.to(x.dtype), run_var.to(x.dtype)
-    if not affine_fp32:
-        scales, biases = scales.to(x.dtype), biases.to(x.dtype)
+    with span("bcnn.build.bn_consts"):
+        run_mean, run_var = run_mean.to(x.dtype), run_var.to(x.dtype)
+        if not affine_fp32:
+            scales, biases = scales.to(x.dtype), biases.to(x.dtype)
+        if not folded:
+            inv = in_f32(torch.rsqrt, _per_channel(run_var) + weak(EPS, x))
     if folded:
         return x * _per_channel(scales) + _per_channel(biases)
-    x_norm = (x - _per_channel(run_mean)) * in_f32(
-        torch.rsqrt, _per_channel(run_var) + weak(EPS, x)
-    )
+    x_norm = (x - _per_channel(run_mean)) * inv
     return x_norm * _per_channel(scales) + _per_channel(biases)
 
 

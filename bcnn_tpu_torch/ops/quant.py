@@ -42,6 +42,7 @@ import torch
 
 import torch.nn.functional as F
 
+from ..profiling import span
 from ..types import LayerType, Mode
 from .conv_int8 import conv2d_int32
 
@@ -283,7 +284,8 @@ def quantize_tensor(x: torch.Tensor, scale: float) -> torch.Tensor:
     Python number on the card into a product with its reciprocal. The
     cast to int8 writes a 4-d x channels-last (NHWC in memory), the int8
     flow's layout, in the same pass."""
-    s = torch.tensor(scale, dtype=x.dtype, device=x.device)
+    with span("bcnn.build.scale"):
+        s = torch.tensor(scale, dtype=x.dtype, device=x.device)
     fmt = torch.channels_last if x.dim() == 4 else torch.preserve_format
     return torch.clamp(torch.round(x / s), -127, 127).to(
         torch.int8, memory_format=fmt)

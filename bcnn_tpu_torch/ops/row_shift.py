@@ -16,7 +16,7 @@ Both wrappers call the op `bcnn_tpu_torch::row_shift` (`ops.library`;
 `columns` picks the mode): its CPU implementation is the plain version;
 its CUDA implementation, `shift_cuda`, launches the kernel or raises;
 nothing falls back. Both
-modes count on K2's one counter, `row_shift.launches`.
+modes count on K2's one counter, `library.launches("row_shift")`.
 """
 
 from __future__ import annotations
@@ -130,8 +130,7 @@ def _shift_cpu(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
 def shift_cuda(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
     """The op's CUDA implementation, K2's launcher in row or column mode:
     checks what the kernel takes (raises otherwise), allocates the
-    output, launches, checks the launch and counts it (both modes on
-    `row_shift.launches`)."""
+    output, launches and checks the launch."""
     what = "col_shift" if columns else "row_shift"
     _check(what, img, d)
     lines = (img.shape[0], img.shape[2] if columns else img.shape[1])
@@ -152,7 +151,6 @@ def shift_cuda(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
             torch.cuda.current_stream(img.device).cuda_stream,
         )
     kernels.check(rc, what)
-    row_shift.launches += 1
     return out
 
 
@@ -161,7 +159,6 @@ def _shift_fake(img, d, kmax, out_x0, out_w, in_x0, fill, columns):
     return img.new_empty((n, out_w, b, c) if columns else (n, a, out_w, c))
 
 
-row_shift.launches = 0
 _K2 = library.register(
     "row_shift",
     "(Tensor img, Tensor d, int kmax, int out_x0, int out_w, int in_x0, "

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..profiling import span
 from ..types import DETECTION_MAX_BOXES, Mode
 from .activations import in_f32, sigmoid
 
@@ -406,7 +407,9 @@ def _greedy_nms_mask(
         (x[..., None, :], y[..., None, :], w[..., None, :], h[..., None, :]),
     )
     k = bsel.shape[1]
-    later = torch.ones(k, k, dtype=torch.bool, device=bsel.device).triu(1)
+    with span("bcnn.build.nms_order"):
+        later = torch.ones(k, k, dtype=torch.bool,
+                           device=bsel.device).triu(1)
     suppress_pair = (iou > nms_thresh) & later  # i suppresses j > i
     alive = valid
     for i in range(k):
@@ -425,42 +428,48 @@ def device_decode_nms(
     """Top max_dets candidates by objectness, then greedy NMS. Returns
     (boxes (N,max_dets,4), scores (N,max_dets,K), objectness (N,max_dets));
     suppressed and padded slots have zero scores and objectness."""
-    m = boxes.shape[1]
-    obj = torch.where(obj > thresh, obj, 0.0)
-    if max_dets > m:  # pad with dead candidates
-        pad = max_dets - m
-        boxes = F.pad(boxes, (0, 0, 0, pad))
-        obj = F.pad(obj, (0, pad))
-        cls_probs = F.pad(cls_probs, (0, 0, 0, pad))
-    topv, topi = _top_k(obj, max_dets)
-    bsel = _gather_rows(boxes, topi)
-    psel = _gather_rows(cls_probs, topi)
-    keep = _greedy_nms_mask(bsel, topv > 0, nms_thresh)
-    return bsel, psel * keep[..., None], topv * keep
+    with span("bcnn.heads"):
+        m = boxes.shape[1]
+        with span("bcnn.select"):
+            obj = torch.where(obj > thresh, obj, 0.0)
+            if max_dets > m:  # pad with dead candidates
+                pad = max_dets - m
+                boxes = F.pad(boxes, (0, 0, 0, pad))
+                obj = F.pad(obj, (0, pad))
+                cls_probs = F.pad(cls_probs, (0, 0, 0, pad))
+            topv, topi = _top_k(obj, max_dets)
+            bsel = _gather_rows(boxes, topi)
+            psel = _gather_rows(cls_probs, topi)
+        with span("bcnn.nms"):
+            keep = _greedy_nms_mask(bsel, topv > 0, nms_thresh)
+        return bsel, psel * keep[..., None], topv * keep
 
 
 def _candidate_table(meta, device) -> torch.Tensor:
     """(6, M) per-candidate col, row, grid w, grid h, anchor w, anchor h,
     in the (head, location, anchor) order of the flattened heads."""
-    parts = []
-    for h, w, num, anchors, mask in meta:
-        loc = np.arange(h * w)
-        aw = np.asarray([anchors[2 * mi] for mi in mask], np.float32)
-        ah = np.asarray([anchors[2 * mi + 1] for mi in mask], np.float32)
-        m = h * w * num
-        parts.append(
-            np.stack(
-                [
-                    np.repeat(loc % w, num),
-                    np.repeat(loc // w, num),
-                    np.full(m, w),
-                    np.full(m, h),
-                    np.tile(aw, h * w),
-                    np.tile(ah, h * w),
-                ]
-            ).astype(np.float32)
-        )
-    return torch.as_tensor(np.concatenate(parts, axis=1), device=device)
+    with span("bcnn.build.candidates"):
+        parts = []
+        for h, w, num, anchors, mask in meta:
+            loc = np.arange(h * w)
+            aw = np.asarray([anchors[2 * mi] for mi in mask], np.float32)
+            ah = np.asarray([anchors[2 * mi + 1] for mi in mask],
+                            np.float32)
+            m = h * w * num
+            parts.append(
+                np.stack(
+                    [
+                        np.repeat(loc % w, num),
+                        np.repeat(loc // w, num),
+                        np.full(m, w),
+                        np.full(m, h),
+                        np.tile(aw, h * w),
+                        np.tile(ah, h * w),
+                    ]
+                ).astype(np.float32)
+            )
+        return torch.as_tensor(np.concatenate(parts, axis=1),
+                               device=device)
 
 
 def device_detect_topk(
@@ -480,52 +489,57 @@ def device_detect_topk(
     fp32 rounding at the boundary and for ±inf logits; NaN logits compare
     False and are dropped. Rows are selected with a gather (the `take`
     formulation of `bcnn_tpu.ops.yolo.device_detect_topk`)."""
-    n = heads[0].shape[0]
-    classes = head_params[0]["classes"]
-    e = 5 + classes
+    with span("bcnn.heads"):
+        n = heads[0].shape[0]
+        classes = head_params[0]["classes"]
+        e = 5 + classes
 
-    flat_heads, offsets, sizes, meta = [], [], [], []
-    off = 0
-    for raw, prm in zip(heads, head_params):
-        _, _, h, w = raw.shape
-        num = prm["num"]
-        fh = raw.reshape(n, num, e, h * w).permute(0, 3, 1, 2)
-        flat_heads.append(fh.reshape(n, h * w * num, e))
-        offsets.append(off)
-        sizes.append(h * w * num)
-        meta.append((h, w, num, prm["anchors"], prm["mask"]))
-        off += h * w * num
+        with span("bcnn.select"):
+            flat_heads, offsets, sizes, meta = [], [], [], []
+            off = 0
+            for raw, prm in zip(heads, head_params):
+                _, _, h, w = raw.shape
+                num = prm["num"]
+                fh = raw.reshape(n, num, e, h * w).permute(0, 3, 1, 2)
+                flat_heads.append(fh.reshape(n, h * w * num, e))
+                offsets.append(off)
+                sizes.append(h * w * num)
+                meta.append((h, w, num, prm["anchors"], prm["mask"]))
+                off += h * w * num
 
-    objl = torch.cat([fh[..., 4] for fh in flat_heads], dim=1)
-    masked = torch.where(sigmoid(objl) > thresh, objl, float("-inf"))
-    k = min(max_dets, masked.shape[1])
-    topv_l, topi = _top_k(masked, k)
-    valid = topv_l > float("-inf")
+            objl = torch.cat([fh[..., 4] for fh in flat_heads], dim=1)
+            masked = torch.where(sigmoid(objl) > thresh, objl,
+                                 float("-inf"))
+            k = min(max_dets, masked.shape[1])
+            topv_l, topi = _top_k(masked, k)
+            valid = topv_l > float("-inf")
 
-    sel = torch.zeros((n, k, e), dtype=flat_heads[0].dtype,
-                      device=topi.device)
-    for fh, o, m in zip(flat_heads, offsets, sizes):
-        local = topi - o
-        inr = (local >= 0) & (local < m)
-        g = _gather_rows(fh, local.clamp(0, m - 1))
-        sel = torch.where(inr[..., None], g, sel)
-    csel, rsel, gwsel, ghsel, awsel, ahsel = _candidate_table(
-        meta, topi.device
-    )[:, topi]
+            sel = torch.zeros((n, k, e), dtype=flat_heads[0].dtype,
+                              device=topi.device)
+            for fh, o, m in zip(flat_heads, offsets, sizes):
+                local = topi - o
+                inr = (local >= 0) & (local < m)
+                g = _gather_rows(fh, local.clamp(0, m - 1))
+                sel = torch.where(inr[..., None], g, sel)
 
-    bx = (csel + sigmoid(sel[..., 0])) / gwsel
-    by = (rsel + sigmoid(sel[..., 1])) / ghsel
-    bw = in_f32(torch.exp, sel[..., 2]) * awsel / net_w
-    bh = in_f32(torch.exp, sel[..., 3]) * ahsel / net_h
-    bsel = torch.stack([bx, by, bw, bh], dim=-1)
-    obj = sigmoid(sel[..., 4]) * valid
-    psel = obj[..., None] * sigmoid(sel[..., 5 : 5 + classes])
+        with span("bcnn.decode"):
+            csel, rsel, gwsel, ghsel, awsel, ahsel = _candidate_table(
+                meta, topi.device
+            )[:, topi]
+            bx = (csel + sigmoid(sel[..., 0])) / gwsel
+            by = (rsel + sigmoid(sel[..., 1])) / ghsel
+            bw = in_f32(torch.exp, sel[..., 2]) * awsel / net_w
+            bh = in_f32(torch.exp, sel[..., 3]) * ahsel / net_h
+            bsel = torch.stack([bx, by, bw, bh], dim=-1)
+            obj = sigmoid(sel[..., 4]) * valid
+            psel = obj[..., None] * sigmoid(sel[..., 5 : 5 + classes])
 
-    keep = _greedy_nms_mask(bsel, valid, nms_thresh)
-    psel, obj = psel * keep[..., None], obj * keep
-    if k < max_dets:  # pad to the requested width with suppressed slots
-        pad = max_dets - k
-        bsel = F.pad(bsel, (0, 0, 0, pad))
-        psel = F.pad(psel, (0, 0, 0, pad))
-        obj = F.pad(obj, (0, pad))
-    return bsel, psel, obj
+        with span("bcnn.nms"):
+            keep = _greedy_nms_mask(bsel, valid, nms_thresh)
+        psel, obj = psel * keep[..., None], obj * keep
+        if k < max_dets:  # pad to the requested width with suppressed slots
+            pad = max_dets - k
+            bsel = F.pad(bsel, (0, 0, 0, pad))
+            psel = F.pad(psel, (0, 0, 0, pad))
+            obj = F.pad(obj, (0, pad))
+        return bsel, psel, obj

@@ -10,8 +10,8 @@ is its plain version, the counterpart of `decode_grid_jnp`.
 The wrapper calls the op `bcnn_tpu_torch::yolo_decode` (`ops.library`;
 the head's anchors go in as (w, h) pairs): its CPU implementation is
 the plain version; its CUDA implementation, `decode_cuda`, launches the
-kernel or raises; nothing falls back.
-`decode_fused.launches` counts the kernel's launches.
+kernel or raises; nothing falls back. `library.launches("yolo_decode")`
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -74,8 +74,8 @@ def _decode_cpu(x, anchors, classes, net_w, net_h):
 
 def decode_cuda(x, anchors, classes, net_w, net_h):
     """The op's CUDA implementation, K1's launcher: checks what the
-    kernel takes (raises otherwise), allocates the outputs, launches,
-    checks the launch and counts it."""
+    kernel takes (raises otherwise), allocates the outputs, launches and
+    checks the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"decode_fused: unsupported device {x.device}")
     num = len(anchors) // 2
@@ -104,7 +104,6 @@ def decode_cuda(x, anchors, classes, net_w, net_h):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(rc, "decode_fused")
-    decode_fused.launches += 1
     return boxes, obj, probs
 
 
@@ -117,7 +116,6 @@ def _decode_fake(x, anchors, classes, net_w, net_h):
             x.new_empty((n, m, classes)))
 
 
-decode_fused.launches = 0
 _K1 = library.register(
     "yolo_decode",
     "(Tensor x, float[] anchors, int classes, float net_w, float net_h) "

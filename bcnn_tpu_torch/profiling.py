@@ -2,7 +2,38 @@
 
   - `trace(logdir)`: `torch.profiler` (the host, and the card where
     there is one) around a block, written to `logdir` as a Chrome trace
-    (`trace_<pid>_<ns>.json`; chrome://tracing or Perfetto open it);
+    (`trace_<pid>_<ns>.json`; chrome://tracing or Perfetto open it).
+    The trace holds the port's own spans beside the kernels and copies,
+    on the same clock;
+  - `span(name)`: one of those spans, a `record_function` range while a
+    torch profiler records (`recording()`, the profiler's own flag) and
+    nothing otherwise: no allocation, no string formatted, no device
+    work and no sync, so outputs are the same with the profiler on or
+    off, and `torch.export` sees none. The serving path's spans, on the
+    calling thread:
+      `bcnn.detect`   `Session.detect_on_batch`, the request's root;
+      `bcnn.upload`   `Session._input`, the host batch to the device;
+      `bcnn.execute`  `compile._Executor.run`, one pass (or a pipeline
+                      stage's range of nodes);
+      `bcnn.node.<type>`  each node of the pass (`conv2d`, `eltwise`,
+                      `concat`, `upsample`, `yolov3`, ...);
+      `bcnn.heads`    `ops.yolo.device_detect_topk` or
+                      `device_decode_nms`, inside it `bcnn.select`
+                      (top-k and gather), `bcnn.decode`, `bcnn.nms`
+                      (the greedy loop); on the decode-everything
+                      branch `bcnn.decode` comes before `bcnn.heads`;
+      `bcnn.build.<what>`  work redone on every request that depends
+                      only on the net and the shapes: `detect_fn`
+                      (`compile.make_detect_fn`), `int8_flow`
+                      (`ops.quant.plan_int8_flow`), `candidates`
+                      (`ops.yolo._candidate_table`), `nms_order` (the
+                      greedy loop's pair order), `epilogue` (K4's and
+                      K5's per-channel vectors), `k4_plan`
+                      (`ops.conv_int8.plan_conv_int8`, on the card),
+                      `scale` (`ops.quant.quantize_tensor`'s 0-d scale),
+                      `bn_consts` (`ops.norm.batch_norm`'s per-channel
+                      operands) and `weight_cast` (a conv's weight in
+                      the compute dtype);
   - `profile_forward(session, x)`: the per-node wall-clock mode: the
     graph run node by node, with a device synchronize after each node on
     the card, best of `runs`. The host's launch time is in each number;
@@ -25,7 +56,23 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
+
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a torch profiler records now (outside a `torch.export` or
+    `torch.compile` trace)."""
+    return (_autograd_profiler._is_profiler_enabled
+            and not torch.compiler.is_compiling())
+
+
+def span(name: str):
+    """A context: the range `name` in the trace while a torch profiler
+    records, else one shared no-op context."""
+    return torch.profiler.record_function(name) if recording() else _OFF
 
 
 @contextlib.contextmanager

@@ -1,0 +1,7 @@
+"""The card's idle ms a traced request while the host is in the detection heads (`bcnn.heads`), outside builds."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.idle_ms(run, "heads")

@@ -146,6 +146,7 @@ from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
                                           plan_conv_int8)
+from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.ops import quant as tq
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.grouped_int8 import (grouped_int8_fused,
@@ -383,11 +384,11 @@ def check_k1(shapes):
     for n, classes, h, w, mask in shapes:
         x = (3 * torch.randn(n, 3 * (5 + classes), h, w, generator=gen)).cuda()
         p = dict(num=3, classes=classes, mask=mask, anchors=ANCHORS)
-        before = decode_fused.launches
+        before = library.launches("yolo_decode")
         got = decode_fused(x, p, SIZE, SIZE)
         want = decode_grid_ref(x, p, SIZE, SIZE)
         torch.cuda.synchronize()
-        if decode_fused.launches != before + 1:
+        if library.launches("yolo_decode") != before + 1:
             raise RuntimeError("decode_fused did not count its launch")
         err = 0.0
         for g, r in zip(got, want):
@@ -517,11 +518,11 @@ def check_k2():
         args = (kmax, out_x0, out_w, in_x0, 128.0)
         fn, ref = (col_shift, col_shift_ref) if column else (row_shift,
                                                              row_shift_ref)
-        before = row_shift.launches
+        before = library.launches("row_shift")
         got = fn(img, d, *args)
         want = ref(img, d, *args)
         torch.cuda.synchronize()
-        if row_shift.launches != before + 1:
+        if library.launches("row_shift") != before + 1:
             raise RuntimeError(f"{fn.__name__} did not count its launch")
         if got.shape != want.shape:
             raise RuntimeError(f"K2 shape {got.shape} != {want.shape}")
@@ -594,10 +595,10 @@ def shear_chain_phase():
     args = (SIZE, SIZE, kx, ky, kx2, myc, mxc, 128.0)
     mid_c, theta_c = mid.cuda(), theta.cuda()
     run = lambda: _rotate_3shear(mid_c, theta_c, *args)  # noqa: E731
-    before = row_shift.launches
+    before = library.launches("row_shift")
     got = run()
     torch.cuda.synchronize()
-    if row_shift.launches != before + 3:
+    if library.launches("row_shift") != before + 3:
         raise RuntimeError("the shear chain did not make 3 K2 launches")
     want = _rotate_3shear(mid, theta, *args)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=WARP_ATOL)
@@ -638,11 +639,11 @@ def check_k3():
               * (2.0 / (k * k)) ** 0.5).cuda()
         b = (0.2 * torch.rand(c, generator=gen) - 0.1).cuda()
         args = (x, wt, b, stride, pad, act)
-        before = depthwise_fused.launches
+        before = library.launches("depthwise")
         got = depthwise_fused(*args)
         want = depthwise_fused_ref(*args)
         torch.cuda.synchronize()
-        if depthwise_fused.launches != before + 1:
+        if library.launches("depthwise") != before + 1:
             raise RuntimeError("depthwise_fused did not count its launch")
         if got.shape != want.shape:
             raise RuntimeError(f"K3 shape {got.shape} != {want.shape}")
@@ -817,11 +818,11 @@ def check_k4():
         err = 0.0
         for form in ((bn, act, int8_out), other):
             args, kw = k4_args(shape, *form, gen)
-            before = conv_int8_fused.launches
+            before = library.launches("conv_int8")
             got = conv_int8_fused(*args, **kw)
             want = conv_int8_fused_ref(*args, **kw)
             torch.cuda.synchronize()
-            if conv_int8_fused.launches != before + 1:
+            if library.launches("conv_int8") != before + 1:
                 raise RuntimeError("conv_int8_fused did not count its launch")
             if got.shape != want.shape or got.dtype != want.dtype:
                 raise RuntimeError(f"K4 {name}: {got.shape} {got.dtype} != "
@@ -918,20 +919,16 @@ def yolo_bf16_phase(gpu):
         np.float32)
     for label, topk_first in (("decode-everything (K1)", False),
                               ("top-k-first", True)):
-        for kern in (decode_fused, depthwise_fused, row_shift,
-                     conv_int8_fused):
-            kern.launches = 0
+        zero_counts()
         req = lambda v: sess.detect_on_batch(  # noqa: E731
             v, topk_first=topk_first)
         outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
         want_k1 = 0 if topk_first else 2 * len(lat)
-        if decode_fused.launches != want_k1 or depthwise_fused.launches or \
-                row_shift.launches or conv_int8_fused.launches:
-            raise RuntimeError(f"bf16 {label}: launches K1 "
-                               f"{decode_fused.launches}, K2 "
-                               f"{row_shift.launches}, K3 "
-                               f"{depthwise_fused.launches}, K4 "
-                               f"{conv_int8_fused.launches}")
+        got = counts()
+        if got["K1"] != want_k1 or got["K2"] or got["K3"] or got["K4"]:
+            raise RuntimeError(f"bf16 {label}: launches K1 {got['K1']}, "
+                               f"K2 {got['K2']}, K3 {got['K3']}, K4 "
+                               f"{got['K4']}")
         for o in outs:
             check_detections(o, BATCH)
         dev = device_us(lambda: req(x), iters=5)
@@ -985,15 +982,15 @@ def yolo_int8_phase(gpu):
     x = np.random.RandomState(SEED + 7).rand(BATCH, 3, SIZE, SIZE).astype(
         np.float32)
 
-    for kern in (decode_fused, depthwise_fused, row_shift, conv_int8_fused):
-        kern.launches = 0
+    zero_counts()
     req = lambda v: sess.detect_on_batch(v)  # noqa: E731
     outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-    k4_launches = conv_int8_fused.launches
+    got = counts()
+    k4_launches = got["K4"]
     if k4_launches != 13 * len(lat):
         raise RuntimeError(f"K4 launched {k4_launches} times in {len(lat)} "
                            "int8 requests")
-    if decode_fused.launches or depthwise_fused.launches or row_shift.launches:
+    if got["K1"] or got["K3"] or got["K2"]:
         raise RuntimeError("the int8 path launched K1, K2 or K3")
     for o in outs:
         check_detections(o, BATCH)
@@ -1067,23 +1064,20 @@ def mobilenet_phase(gpu, bf16=False):
         batches.append(batches[0])
     torch.cuda.reset_peak_memory_stats()
 
-    depthwise_fused.launches = 0
-    decode_fused.launches = 0
-    row_shift.launches = 0
-    conv_int8_fused.launches = 0
+    zero_counts()
     def classify(x):
         return sess.predict_on_batch(x, outputs=MB_OUTPUTS)[0]
 
     outs, lat = serve(classify, batches)
     _, steady = serve(classify, [batches[1]] * MB_STEADY)
-    k3_launches = depthwise_fused.launches
+    k3_launches = library.launches("depthwise")
     forwards = len(batches) + MB_STEADY
     if k3_launches != 13 * forwards:
         raise RuntimeError(
             f"K3 launched {k3_launches} times in {forwards} forwards"
         )
-    if decode_fused.launches or row_shift.launches or \
-            conv_int8_fused.launches:
+    if library.launches("yolo_decode") or library.launches("row_shift") or \
+            library.launches("conv_int8"):
         raise RuntimeError("the MobileNet path launched K1, K2 or K4")
 
     for out in outs:
@@ -1253,21 +1247,19 @@ def yolov3_phase(gpu):
         last = {}
         for label, topk_first in (("decode-everything (K1)", False),
                                   ("top-k-first", True)):
-            for kern in (decode_fused, depthwise_fused, row_shift,
-                         conv_int8_fused):
-                kern.launches = 0
+            zero_counts()
             torch.cuda.reset_peak_memory_stats()
             req = lambda v: sess.detect_on_batch(  # noqa: E731
                 v, topk_first=topk_first)
             outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-            k1, k4 = decode_fused.launches, conv_int8_fused.launches
+            got = counts()
+            k1, k4 = got["K1"], got["K4"]
             want_k1 = 0 if topk_first else 3 * len(lat)
             want_k4 = n_conv * len(lat) if prec == "int8" else 0
-            if (k1, k4) != (want_k1, want_k4) or depthwise_fused.launches \
-                    or row_shift.launches:
+            if (k1, k4) != (want_k1, want_k4) or got["K3"] or got["K2"]:
                 raise RuntimeError(f"full YOLOv3 {prec} {label}: launches K1 "
-                                   f"{k1}, K2 {row_shift.launches}, K3 "
-                                   f"{depthwise_fused.launches}, K4 {k4}")
+                                   f"{k1}, K2 {got['K2']}, K3 "
+                                   f"{got['K3']}, K4 {k4}")
             k1_total += k1
             k4_total += k4
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1390,16 +1382,15 @@ def train_phase(gpu):
     p0 = {k: v.clone() for k, v in sess.params.items()}
     s0 = {k: v.clone() for k, v in sess.state.items()}
 
-    row_shift.launches = 0
-    decode_fused.launches = 0
+    zero_counts()
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         losses.append(sess.train_on_batch(x, lab))
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    k2_launches = row_shift.launches
-    if decode_fused.launches:
+    k2_launches = library.launches("row_shift")
+    if library.launches("yolo_decode"):
         raise RuntimeError("the training path launched K1")
     if k2_launches != 3 * TRAIN_STEPS:
         raise RuntimeError(
@@ -1739,16 +1730,15 @@ def scan_phase(gpu):
     gen = torch.Generator().manual_seed(SEED)
     st[:] = scan(*st, batches, gen)[:3]  # warm-up
     torch.cuda.synchronize()
-    row_shift.launches = 0
-    decode_fused.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = scan(*st, batches, gen)
     losses = out[3].cpu()
     ms = 1e3 * (time.perf_counter() - t0)
-    k2 = row_shift.launches
-    if k2 != 3 * SCAN_K or decode_fused.launches:
+    k2 = library.launches("row_shift")
+    if k2 != 3 * SCAN_K or library.launches("yolo_decode"):
         raise RuntimeError(f"the scan launched K2 {k2} times and K1 "
-                           f"{decode_fused.launches} times")
+                           f"{counts()['K1']} times")
     if tuple(losses.shape) != (SCAN_K,) or not torch.isfinite(losses).all():
         raise RuntimeError(f"scan losses {losses}")
     check_fp32("the scan", *out[:3])
@@ -2127,13 +2117,13 @@ def timed_feed(label, step, per_call, rows, gpu, calls=None):
     step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    row_shift.launches = 0
+    zero_counts()
     times, losses = [], []
     for _ in range(calls):
         t0 = time.perf_counter()
         losses.append(float(step()))
         times.append(1e3 * (time.perf_counter() - t0) / per_call)
-    k2 = row_shift.launches
+    k2 = library.launches("row_shift")
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"{label}: losses {losses}")
     med = statistics.median(times)
@@ -2485,16 +2475,17 @@ L10_BATCH, L10_SIZE, L10_CLASSES = 16, 32, 8
 MB_TRAIN, MB_TRAIN_STEPS, P10C_CLI_BATCHES = 32, 3, 6
 
 
+# each kernel's op (`ops.library`), whose launches the library counts
+K_OPS = {"K1": "yolo_decode", "K2": "row_shift", "K3": "depthwise",
+         "K4": "conv_int8", "K5": "grouped_int8"}
+
+
 def zero_counts():
-    for kern in (decode_fused, depthwise_fused, row_shift, conv_int8_fused,
-                 grouped_int8_fused):
-        kern.launches = 0
+    library.reset_launches()
 
 
 def counts():
-    return {"K1": decode_fused.launches, "K2": row_shift.launches,
-            "K3": depthwise_fused.launches, "K4": conv_int8_fused.launches,
-            "K5": grouped_int8_fused.launches}
+    return {k: library.launches(op) for k, op in K_OPS.items()}
 
 
 def replayed_step(label, net, p_np, s_np, x, lab):
@@ -2780,11 +2771,11 @@ def yolov3_train_phase(gpu):
         torch.Generator().manual_seed(SEED))
     loss = float(out[3])
     t_accum = 1e3 * (time.perf_counter() - t0)
-    if row_shift.launches != 6 or not np.isfinite(loss) or any(
+    if counts()["K2"] != 6 or not np.isfinite(loss) or any(
             torch.equal(p0[k], out[0][k]) for k in heads):
         raise RuntimeError(f"full YOLOv3 accum_steps=2: loss {loss}, "
                            f"launches {counts()}")
-    k2 += row_shift.launches
+    k2 += library.launches("row_shift")
     sess = Session(net, SEED, device=DEV).compile_net()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "v3.bcrd")
@@ -2798,10 +2789,10 @@ def yolov3_train_phase(gpu):
         total = sess.train_scan_resident_on_batches(2)
         t_res = 1e3 * (time.perf_counter() - t0)
         sess.loader = None
-    if row_shift.launches != 6 or not np.isfinite(total) or total <= 0:
+    if counts()["K2"] != 6 or not np.isfinite(total) or total <= 0:
         raise RuntimeError(f"full YOLOv3 resident scan: loss sum {total}, "
                            f"launches {counts()}")
-    k2 += row_shift.launches
+    k2 += library.launches("row_shift")
     print(f"full YOLOv3 step forms, fp32, batch {P10_BATCH}: accum_steps=2 "
           f"one step {t_accum:.1f} ms (loss {loss:.1f}, 6 K2 launches); "
           f"the resident scan of 2 steps on {P10_RECORDS} raw records "
@@ -3134,11 +3125,11 @@ def check_k5():
         err = 0.0
         for s_out in (kw["s_out"], None):
             kw_f = dict(kw, s_out=s_out)
-            before = grouped_int8_fused.launches
+            before = library.launches("grouped_int8")
             got = grouped_int8_fused(*args, **kw_f)
             want = grouped_int8_fused_ref(*args, **kw_f)
             torch.cuda.synchronize()
-            if grouped_int8_fused.launches != before + 1:
+            if library.launches("grouped_int8") != before + 1:
                 raise RuntimeError("grouped_int8_fused did not count its "
                                    "launch")
             if got.shape != want.shape or got.dtype != want.dtype or \
@@ -3630,7 +3621,7 @@ def resume_phase(gpu, tmp):
         for x, lab in batches[P13_STEPS:]:
             fresh.train_on_batch(x, lab)
         torch.cuda.synchronize()
-        k2 = row_shift.launches
+        k2 = library.launches("row_shift")
     finally:
         torch.backends.cudnn.deterministic = det
     if k2 != 3 * 3 * P13_STEPS:
@@ -5794,13 +5785,13 @@ def main() -> int:
     batches = [rng.rand(BATCH, 3, SIZE, SIZE).astype(np.float32)
                for _ in range(REQUESTS + 1)]  # the first one warms up
 
-    decode_fused.launches = 0
+    zero_counts()
     full, lat_full = serve(
         lambda x: sess.detect_on_batch(x, topk_first=False), batches)
-    k1_launches = decode_fused.launches
+    k1_launches = library.launches("yolo_decode")
     topk, lat_topk = serve(
         lambda x: sess.detect_on_batch(x, topk_first=True), batches)
-    if decode_fused.launches != k1_launches:
+    if library.launches("yolo_decode") != k1_launches:
         raise RuntimeError("the top-k-first branch launched K1")
     if k1_launches != 2 * len(batches):
         raise RuntimeError(

@@ -12,6 +12,7 @@ import torch
 
 from bcnn_tpu_torch import Session, bridge, ops
 from bcnn_tpu_torch.ops import depthwise as dw
+from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
@@ -51,10 +52,10 @@ def test_k1_matches_plain_version(cuda, n, classes, h, w, mask):
     x[0, 4, 0, 0] = float("inf")
     x[0, 2, 0, 0] = 200.0  # exp overflow -> inf, as in the plain version
     x = x.to(cuda)
-    before = decode_fused.launches
+    before = library.launches("yolo_decode")
     got = decode_fused(x, p, 416, 416)
     torch.cuda.synchronize()
-    assert decode_fused.launches == before + 1
+    assert library.launches("yolo_decode") == before + 1
     for g, r in zip(got, decode_grid_ref(x, p, 416, 416)):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
 
@@ -77,12 +78,12 @@ def test_k1_refuses_what_it_does_not_take(cuda):
 def test_detect_on_batch_launches_k1_per_head(cuda):
     sess = Session(yolov3_tiny(2, 96, 96, 4), 0, device=cuda).compile_net()
     x = np.random.RandomState(0).rand(2, 3, 96, 96).astype(np.float32)
-    before = decode_fused.launches
+    before = library.launches("yolo_decode")
     full = sess.detect_on_batch(x, 0.3, 20, topk_first=False)
-    assert decode_fused.launches == before + 2
+    assert library.launches("yolo_decode") == before + 2
     plain = sess.detect_on_batch(x, 0.3, 20, topk_first=False,
                                  use_pallas=False)
-    assert decode_fused.launches == before + 2
+    assert library.launches("yolo_decode") == before + 2
     for a, b in zip(full, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
@@ -111,10 +112,10 @@ def test_k2_matches_plain_version(cuda, n, r, win, c, kmax, out_x0, out_w,
     img, d = k2_inputs(n, r, win, c, kmax,
                        torch.Generator().manual_seed(r * win))
     img, d = img.to(cuda), d.to(cuda)
-    before = row_shift.launches
+    before = library.launches("row_shift")
     got = row_shift(img, d, kmax, out_x0, out_w, in_x0, 128.0)
     torch.cuda.synchronize()
-    assert row_shift.launches == before + 1
+    assert library.launches("row_shift") == before + 1
     want = row_shift_ref(img, d, kmax, out_x0, out_w, in_x0, 128.0)
     assert got.shape == want.shape and torch.equal(got, want)
 
@@ -151,10 +152,10 @@ def test_k2_column_mode_matches_plain_version(cuda, n, r, win, c, kmax,
                        torch.Generator().manual_seed(r + win))
     img = img.transpose(1, 2).contiguous().to(cuda)  # (n, win, r, c)
     d = d.to(cuda)
-    before = row_shift.launches
+    before = library.launches("row_shift")
     got = col_shift(img, d, kmax, out_x0, out_w, in_x0, 128.0)
     torch.cuda.synchronize()
-    assert row_shift.launches == before + 1
+    assert library.launches("row_shift") == before + 1
     assert got.shape == (n, out_w, r, c) and got.is_contiguous()
     assert torch.equal(got, col_shift_ref(img, d, kmax, out_x0, out_w,
                                           in_x0, 128.0))
@@ -185,9 +186,9 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         col_shift(img, dc.cpu(), 2, 0, 4, 0, 0.0)
     with pytest.raises(ValueError):
         col_shift(img, dc, -1, 0, 4, 0, 0.0)
-    before = row_shift.launches
+    before = library.launches("row_shift")
     assert col_shift(img, dc, 2, 0, 0, 0, 0.0).shape == (2, 0, 6, 3)
-    assert row_shift.launches == before  # nothing to launch
+    assert library.launches("row_shift") == before  # nothing to launch
 
 
 def test_train_step_launches_k2_three_times(cuda):
@@ -198,11 +199,11 @@ def test_train_step_launches_k2_three_times(cuda):
     x = rng.randint(0, 256, (2, 3, 96, 96)).astype(np.uint8)
     lab = np.zeros((2, 250), np.float32)
     lab[:, :5] = [0.4, 0.6, 0.3, 0.2, 1]
-    before = row_shift.launches
+    before = library.launches("row_shift")
     w0 = sess.params["input_w"].clone()
     loss = sess.train_on_batch(x, lab)
     torch.cuda.synchronize()
-    assert row_shift.launches == before + 3
+    assert library.launches("row_shift") == before + 3
     assert loss.device.type == "cuda" and bool(torch.isfinite(loss))
     assert not torch.equal(w0, sess.params["input_w"])
 
@@ -277,7 +278,7 @@ def test_bf16_training_forms_on_the_card(cuda, form):
     lab[..., :5] = [0.4, 0.6, 0.3, 0.2, 1]
     lab = torch.from_numpy(lab).to(cuda)
     w0 = sess.params["input_w"].clone()
-    before = row_shift.launches
+    before = library.launches("row_shift")
     gen = torch.Generator().manual_seed(0)
     if form == "scan":
         out = make_train_scan(net)(sess.params, sess.state, sess.opt_state,
@@ -293,7 +294,7 @@ def test_bf16_training_forms_on_the_card(cuda, form):
         assert len(out[4]) == 2  # one stats dict a head
     torch.cuda.synchronize()
     augments = 2 if form == "accum_steps" else steps
-    assert row_shift.launches == before + 3 * augments
+    assert library.launches("row_shift") == before + 3 * augments
     assert bool(torch.isfinite(out[3]).all())
     for table in (out[0], out[1], out[2]["velocity"]):
         assert all(v.dtype == torch.float32 and v.device.type == "cuda"
@@ -353,32 +354,32 @@ def test_k3_raises_on_a_plan_the_kernel_refuses(cuda, monkeypatch):
                 good._replace(tiles=good.tiles + 1),
                 good._replace(stages=5), good._replace(rows=2)):
         monkeypatch.setattr(dw, "plan_tiles", lambda *a, bad=bad: bad)
-        before = depthwise_fused.launches
+        before = library.launches("depthwise")
         with pytest.raises(RuntimeError, match="CUDA error"):
             depthwise_fused(x, wt, b, 1, 1)
-        assert depthwise_fused.launches == before
+        assert library.launches("depthwise") == before
 
 
 def test_k3_counts_its_launches(cuda):
     x = torch.randn(2, 8, 10, 10, device=cuda)
     wt = torch.randn(8, 1, 3, 3, device=cuda)
     b = torch.zeros(8, device=cuda)
-    before = depthwise_fused.launches
+    before = library.launches("depthwise")
     depthwise_fused(x, wt, b, 1, 1, Activation.RELU)
     depthwise_fused(x, wt, b, 2, 1, Activation.SOFTPLUS)  # K3, then softplus
-    assert depthwise_fused.launches == before + 2
+    assert library.launches("depthwise") == before + 2
     depthwise_fused_ref(x, wt, b, 1, 1, Activation.RELU)
-    assert depthwise_fused.launches == before + 2
+    assert library.launches("depthwise") == before + 2
     net = mobilenet_v1(2, 10, width_mult=0.25)
     sess = Session(net, 0, device=cuda)
     sess.params, sess.state = bridge.params_from_numpy(
         net, *bridge.he_numpy_weights(net, 0), device=cuda)
     sess.compile_net()
     xs = np.random.RandomState(0).rand(2, 3, 224, 224).astype(np.float32)
-    before = depthwise_fused.launches
+    before = library.launches("depthwise")
     (y,), _ = sess.predict_on_batch(xs)
     torch.cuda.synchronize()
-    assert depthwise_fused.launches == before + 13
+    assert library.launches("depthwise") == before + 13
     assert y.shape == (2, 10, 1, 1) and bool(torch.isfinite(y).all())
 
 
@@ -471,12 +472,12 @@ def test_k4_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad, bn,
     x, wt = x.to(cuda), wt.to(cuda)
     d = vec(1e-5, 1e-4) * (64 / (c * k * k)) ** 0.5
     b = vec(-1, 1)
-    before = conv_int8_fused.launches
+    before = library.launches("conv_int8")
     got = conv_int8_fused(x.contiguous(memory_format=torch.channels_last),
                           channels_last_weight(wt), d, b, stride, pad, **kw)
     want = conv_int8_fused_ref(x, wt, d, b, stride, pad, **kw)
     torch.cuda.synchronize()
-    assert conv_int8_fused.launches == before + 1
+    assert library.launches("conv_int8") == before + 1
     assert got.dtype == (torch.int8 if int8_out else torch.float32)
     assert got.is_contiguous(memory_format=torch.channels_last if int8_out
                              else torch.contiguous_format)
@@ -506,12 +507,12 @@ def test_k4_raises_on_an_nchw_int8_x_or_w(cuda):
     w = torch.ones(8, 16, 3, 3, dtype=torch.int8, device=cuda)
     d = b = torch.ones(8, device=cuda)
     xc = x.contiguous(memory_format=torch.channels_last)
-    before = conv_int8_fused.launches
+    before = library.launches("conv_int8")
     with pytest.raises(ValueError, match="channels-last"):
         conv_int8_fused(x, channels_last_weight(w), d, b, 1, 1)
     with pytest.raises(ValueError, match="channels-last"):
         conv_int8_fused(xc, w, d, b, 1, 1)
-    assert conv_int8_fused.launches == before
+    assert library.launches("conv_int8") == before
     y = conv_int8_fused(xc, channels_last_weight(w), d, b, 1, 1)
     assert torch.equal(y, conv_int8_fused_ref(x, w, d, b, 1, 1))
 
@@ -610,11 +611,11 @@ def test_int8_detect_on_the_card_equals_the_cpu(cuda):
         want = execute(net, cpu.params, cpu.state, {"input": x},
                        Mode.PREDICT)
         net.quant = quant_gpu
-        before = conv_int8_fused.launches
+        before = library.launches("conv_int8")
         got = execute(net, gpu.params, gpu.state, {"input": x.to(cuda)},
                       Mode.PREDICT)
         torch.cuda.synchronize()
-        assert conv_int8_fused.launches == before + 13
+        assert library.launches("conv_int8") == before + 13
     net.quant = quant_cpu
     n_int8 = 0
     for i, v in want.values.items():
@@ -639,9 +640,9 @@ def test_detect_on_full_yolov3_launches_k1_per_head(cuda):
         device=cuda)
     sess.compile_net()
     x = np.random.RandomState(0).rand(2, 3, 96, 96).astype(np.float32)
-    before = decode_fused.launches
+    before = library.launches("yolo_decode")
     full = sess.detect_on_batch(x, 0.5, 30, topk_first=False)
-    assert decode_fused.launches == before + 3
+    assert library.launches("yolo_decode") == before + 3
     plain = sess.detect_on_batch(x, 0.5, 30, topk_first=False,
                                  use_pallas=False)
     for a, b in zip(full, plain):
@@ -670,12 +671,12 @@ def test_full_yolov3_int8_on_the_card_equals_the_cpu(cuda):
         want = execute(net, cpu.params, cpu.state, {"input": x},
                        Mode.PREDICT)
         net.quant = quant_gpu
-        before = conv_int8_fused.launches
+        before = library.launches("conv_int8")
         got = execute(net, {k: v.to(cuda) for k, v in cpu.params.items()},
                       {k: v.to(cuda) for k, v in cpu.state.items()},
                       {"input": x.to(cuda)}, Mode.PREDICT)
         torch.cuda.synchronize()
-        assert conv_int8_fused.launches == before + 75
+        assert library.launches("conv_int8") == before + 75
     net.quant = quant_cpu
     for i, v in want.values.items():
         if v.dtype in (torch.int8, torch.bfloat16) and v.dim() == 4:
@@ -844,11 +845,11 @@ def test_resident_scan_gathers_the_staged_batches_on_the_card(cuda,
         sess = Session(net, 0, device=cuda).compile_net()
         p0 = {k: v.clone() for k, v in sess.params.items()}
         sess.loader = records.RawRecordLoader(net, path)
-        before = row_shift.launches
+        before = library.launches("row_shift")
         fn = (sess.train_scan_resident_on_batches if resident
               else sess.train_scan_on_batches)
         losses = [fn(2) for _ in range(2)]
-        assert row_shift.launches - before == 3 * 4
+        assert library.launches("row_shift") - before == 3 * 4
         out.append((losses, p0, sess.params))
     torch.backends.cudnn.deterministic = det
     (la, p0, pa), (lb, _, pb) = out
@@ -1033,13 +1034,13 @@ def test_k5_matches_plain_version(cuda, n, c, h, w, o, k, stride, pad,
     for s_out in (None, 0.05):
         want = grouped_int8_fused_ref(x, wt, d, b, stride, pad, groups, act,
                                       s_out=s_out, **kw)
-        before = grouped_int8_fused.launches
+        before = library.launches("grouped_int8")
         got = grouped_int8_fused(
             xc.to(cuda), wg.to(cuda), d.to(cuda), b.to(cuda), stride, pad,
             groups, act, s_out=s_out, **{k_: v.to(cuda)
                                          for k_, v in kw.items()})
         torch.cuda.synchronize()
-        assert grouped_int8_fused.launches == before + 1
+        assert library.launches("grouped_int8") == before + 1
         assert torch.equal(got.cpu(), want)
 
 
@@ -1085,7 +1086,7 @@ def test_k5_raises_on_an_nchw_x_or_a_conv_layout_w(cuda):
     x, wt, d, b, _ = _k5_args(2, 8, 6, 6, 8, 3, 8, 0, gen)
     x, wt, d, b = x.to(cuda), wt.to(cuda), d.to(cuda), b.to(cuda)
     xc = x.contiguous(memory_format=torch.channels_last)
-    before = grouped_int8_fused.launches
+    before = library.launches("grouped_int8")
     with pytest.raises(ValueError, match="channels-last"):
         grouped_int8_fused(x, grouped_weight(wt), d, b, 1, 1, 8)
     with pytest.raises(ValueError, match="grouped_weight"):
@@ -1093,7 +1094,7 @@ def test_k5_raises_on_an_nchw_x_or_a_conv_layout_w(cuda):
     with pytest.raises(ValueError, match="not fused"):
         grouped_int8_fused(xc, grouped_weight(wt), d, b, 1, 1, 8,
                            Activation.TANH)
-    assert grouped_int8_fused.launches == before
+    assert library.launches("grouped_int8") == before
 
 
 def _int8_layers_net():
@@ -1140,15 +1141,16 @@ def test_int8_depthwise_grouped_deconv_and_fc_card_vs_cpu(cuda):
             net.quant = {**quant, "weights": {
                 k: {p: t.to(cuda) for p, t in e.items()}
                 for k, e in quant["weights"].items()}}
-        k4, k5 = conv_int8_fused.launches, grouped_int8_fused.launches
+        k4 = library.launches("conv_int8")
+        k5 = library.launches("grouped_int8")
         with torch.inference_mode():
             ex = execute(net, sess.params, sess.state,
                          {"input": torch.from_numpy(x).to(dev)},
                          Mode.PREDICT)
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert grouped_int8_fused.launches - k5 == 3
-            assert conv_int8_fused.launches - k4 == 5
+            assert library.launches("grouped_int8") - k5 == 3
+            assert library.launches("conv_int8") - k4 == 5
         outs[str(dev)] = {i: v.cpu() for i, v in ex.values.items()}
     net.quant = None
     cpu, card = outs["cpu"], outs[str(cuda)]
@@ -1285,24 +1287,18 @@ def test_ops_on_the_card_equal_their_plain_versions_and_launchers(cuda):
     by one), equals its plain version (the op's CPU implementation) on
     the same values, and equals its launcher called directly, bit for
     bit."""
-    from bcnn_tpu_torch.ops import (conv_int8, depthwise, grouped_int8,
-                                    row_shift, yolo_decode)
-
-    counters = {"yolo_decode": yolo_decode.decode_fused,
-                "row_shift": row_shift.row_shift,
-                "col_shift": row_shift.row_shift,
-                "depthwise": depthwise.depthwise_fused,
-                "conv_int8": conv_int8.conv_int8_fused,
-                "grouped_int8": grouped_int8.grouped_int8_fused}
+    counters = {"yolo_decode": "yolo_decode", "row_shift": "row_shift",
+                "col_shift": "row_shift", "depthwise": "depthwise",
+                "conv_int8": "conv_int8", "grouped_int8": "grouped_int8"}
     for name, op, launcher, args, tol in _op_cases(
             torch.Generator().manual_seed(11)):
         dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a
                for a in args]
         plain = op(*args)
-        before = counters[name].launches
+        before = library.launches(counters[name])
         got = op(*dev)
         torch.cuda.synchronize()
-        assert counters[name].launches == before + 1, name
+        assert library.launches(counters[name]) == before + 1, name
         direct = launcher(*dev)
         outs = (got, direct, plain)
         if isinstance(got, torch.Tensor):
@@ -1338,10 +1334,10 @@ def test_exported_int8_detect_launches_k4_per_conv(cuda, tmp_path):
     assert served.platforms == ("cuda",)
     x = torch.rand(2, 3, 96, 96, generator=torch.Generator().manual_seed(2))
     live = sess.detect_on_batch(x, 0.3, 20)
-    before = conv_int8_fused.launches
+    before = library.launches("conv_int8")
     got = served(x.to(cuda))
     torch.cuda.synchronize()
-    assert conv_int8_fused.launches == before + 13
+    assert library.launches("conv_int8") == before + 13
     for g, w in zip(got, live):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="cpu"):

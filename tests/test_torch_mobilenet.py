@@ -33,6 +33,7 @@ from bcnn_tpu.types import Mode as JaxMode
 
 from bcnn_tpu_torch import Session, bridge, ops
 from bcnn_tpu_torch.models import mobilenet_v1
+from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.types import Activation, LayerType, Mode
 
@@ -210,9 +211,9 @@ def test_depthwise_ref_matches_bcnn_tpu(c, h, w, k, stride, pad, act):
     )
     args = (torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(b),
             stride, pad, act)
-    before = depthwise_fused.launches
+    before = library.launches("depthwise")
     got = depthwise_fused(*args)  # CPU tensors: the plain version
-    assert depthwise_fused.launches == before
+    assert library.launches("depthwise") == before
     assert torch.equal(got, depthwise_fused_ref(*args))
     np.testing.assert_allclose(got.numpy(), nchw(ref), rtol=RTOL, atol=ATOL)
 
@@ -303,9 +304,9 @@ def slice_pair():
 def test_mobilenet_slice_matches_bcnn_tpu(slice_pair):
     js, ts, x = slice_pair
     ref, ref_loss = js.predict_on_batch(x, outputs=OUTPUTS)
-    before = depthwise_fused.launches
+    before = library.launches("depthwise")
     out, loss = ts.predict_on_batch(x, outputs=OUTPUTS)
-    assert depthwise_fused.launches == before  # the CPU runs the plain one
+    assert library.launches("depthwise") == before  # the plain one runs
     assert float(loss) == float(ref_loss) == 0.0
     for name, o, r in zip(OUTPUTS, out, ref):
         o, r = o.numpy(), np.asarray(r)

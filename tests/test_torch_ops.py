@@ -17,6 +17,7 @@ from bcnn_tpu.ops.yolo_pallas import decode_fused as jax_decode_fused
 from bcnn_tpu.ops.yolo_pallas import decode_grid_jnp
 
 from bcnn_tpu_torch import ops
+from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
 from bcnn_tpu_torch.types import Activation
 
@@ -186,10 +187,10 @@ def test_decode_fused_wrapper_on_cpu_is_the_plain_version():
     x = torch.from_numpy(
         np.random.RandomState(5).randn(2, 27, 3, 3).astype(np.float32)
     )
-    before = decode_fused.launches
+    before = library.launches("yolo_decode")
     for a, b in zip(decode_fused(x, p, 96, 96), decode_grid_ref(x, p, 96, 96)):
         assert torch.equal(a, b)
-    assert decode_fused.launches == before  # no kernel on the CPU
+    assert library.launches("yolo_decode") == before  # no kernel on the CPU
 
 
 def test_decode_fused_wrapper_refuses_other_devices():

@@ -27,7 +27,7 @@ from bcnn_tpu_torch import Session, bridge
 from bcnn_tpu_torch.compile import execute
 from bcnn_tpu_torch.graph import Node
 from bcnn_tpu_torch.models import yolov3_tiny
-from bcnn_tpu_torch.ops.yolo_decode import decode_fused
+from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.types import LayerType, Mode
 
 torch.set_num_threads(1)
@@ -233,9 +233,9 @@ def test_cuda_session_raises_without_cuda():
 
 def test_cpu_session_never_launches_the_kernel(pair):
     _, ts, x = pair
-    before = decode_fused.launches
+    before = library.launches("yolo_decode")
     ts.detect_on_batch(x, topk_first=False, use_pallas=True)
-    assert decode_fused.launches == before
+    assert library.launches("yolo_decode") == before
 
 
 def test_unported_layer_raises_naming_it():

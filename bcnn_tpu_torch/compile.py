@@ -311,25 +311,36 @@ class _Executor:
         TRAIN). With batch_norm the bias tensor is the BN shift, added
         after normalisation; TRAIN normalizes with batch stats (or, with
         net.bn_frozen_stats, the step-start running stats) and writes
-        the new running stats into `state`."""
+        the new running stats into `state`. Outside TRAIN, BN and the
+        activation are one K6 launch where `ops.bn_act.takes` the output
+        (on the card: bf16 or fp32, no autograd; NONE, RELU or LRELU),
+        on the output made contiguous and the vectors made fp32."""
         p = node.param
         if p.get("batch_norm"):
             mean_k = self.key_of(node.src[extra["mean"]])
             var_k = self.key_of(node.src[extra["var"]])
             scales = self.p(node.src[extra["scales"]])
             biases = self.p(bias_idx)
+            mean, var = self.state[mean_k], self.state[var_k]
             if self.mode == Mode.TRAIN:
                 y, nm, nv = ops.batch_norm_train(
-                    y, scales, biases, self.state[mean_k], self.state[var_k],
+                    y, scales, biases, mean, var,
                     frozen=self.bn_frozen, reduce=self._reduce,
                 )
                 self.state[mean_k], self.state[var_k] = nm, nv
             else:
-                y = ops.batch_norm(
-                    y, scales, biases, self.state[mean_k],
-                    self.state[var_k],
-                    folded=self.net.bn_folded and self.mode == Mode.PREDICT,
-                )
+                folded = self.net.bn_folded and self.mode == Mode.PREDICT
+                act = p["activation"]
+                if ops.bn_act.takes(y, act):
+                    # a vector rounded to y's dtype first, as the plain
+                    # ops round it, then widened: the same values
+                    vecs = [v if v.dtype == torch.float32
+                            else v.to(y.dtype).float()
+                            for v in (scales, biases, mean, var)]
+                    return ops.bn_act.bn_act(y.contiguous(), *vecs, folded,
+                                             act)
+                y = ops.batch_norm(y, scales, biases, mean, var,
+                                   folded=folded)
         else:
             y = y + self.p(bias_idx).to(y.dtype).reshape(1, -1, 1, 1)
         slopes = None

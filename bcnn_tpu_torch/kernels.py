@@ -146,6 +146,14 @@ def library() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.bcnn_grouped_int8.restype = ctypes.c_int
+    lib.bcnn_bn_act.argtypes = [
+        p, p, p, p, p, p,       # x, y, mean, var, scale, bias
+        ctypes.c_longlong, i, ctypes.c_longlong,  # n, c, hw
+        i, i, i,                # bf16, folded, act
+        f, f,                   # eps, slope
+        p,                      # stream
+    ]
+    lib.bcnn_bn_act.restype = ctypes.c_int
     lib.bcnn_cuda_error_string.argtypes = [i]
     lib.bcnn_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,6 +30,8 @@ from ..types import Activation
 # fp32, and float64 (tools/f3_float64.py's reference run): computed as
 # they are, with no rounding to a narrower dtype between steps
 WIDE = (torch.float32, torch.float64)
+# LRELU's slope, the reference's (`ops/bn_act.py` and K6 take it too)
+LRELU_SLOPE = 0.1
 
 
 def weak(v: float, x: torch.Tensor):
@@ -142,7 +144,7 @@ def apply_activation(x: torch.Tensor, act: Activation,
     if act == Activation.TANH:
         return torch.tanh(x)
     if act == Activation.LRELU:
-        return torch.where(x > 0, x, weak(0.1, x) * x)
+        return torch.where(x > 0, x, weak(LRELU_SLOPE, x) * x)
     if act == Activation.RAMP:
         return x * (x > 0) + weak(0.1, x) * x
     if act == Activation.SOFTPLUS:

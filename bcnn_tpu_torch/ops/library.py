@@ -1,6 +1,7 @@
-"""The hand-written kernels K1-K5 as `torch.library` custom ops, in the
+"""The hand-written kernels K1-K6 as `torch.library` custom ops, in the
 `bcnn_tpu_torch` namespace: `yolo_decode` (K1), `row_shift` (K2, both
-modes), `depthwise` (K3), `conv_int8` (K4), `grouped_int8` (K5).
+modes), `depthwise` (K3), `conv_int8` (K4), `grouped_int8` (K5),
+`bn_act` (K6).
 
 Each op is one node of a traced or exported graph (`torch.export`,
 `deploy.py`) and dispatches on its tensors' device: the CUDA
@@ -18,7 +19,8 @@ a Python function straight into the dispatcher, when the kernel modules
 are imported (`bcnn_tpu_torch.ops` imports them all); nothing is built
 then (`kernels.py` builds at the first CUDA launch). The public wrappers
 (`decode_fused`, `row_shift`, `col_shift`, `depthwise_fused`,
-`conv_int8_fused`, `grouped_int8_fused`) call the ops on both devices.
+`conv_int8_fused`, `grouped_int8_fused`, `bn_act`) call the ops on both
+devices.
 K3's, K4's and K5's flop formulas are registered with
 `torch.utils.flop_counter`, so that `FlopCounterMode`
 (`profiling.memory_report`) counts their work as it counts aten's convs.

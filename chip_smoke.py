@@ -10,7 +10,9 @@ against its plain PyTorch version on the card: K1 (YOLO decode), K2
 dequant/BN/activation/requant epilogue, bit for bit, on channels-last
 int8 x and the (O, k, k, C) weight, each shape's tile plan and split of
 K printed) at the shapes their paths give them, each warm and cold, and K3 and K4 on ragged shapes (K3
-with each fused activation); then the whole shear chain of rotation
+with each fused activation), and K6 (a conv's BN and activation, bit for
+bit in bf16 and fp32, at full YOLOv3's BN shapes at batch 64 and at the
+edges, beside a copy of the same bytes; phase 3f); then the whole shear chain of rotation
 augmentation (three K2 launches, no copy) against its CPU run. Then it drives the main
 paths (full width and depth, random weights from a seed):
   - YOLOv3-tiny serving (416x416, 80 classes): Session.detect_on_batch
@@ -82,7 +84,7 @@ paths (full width and depth, random weights from a seed):
     DP step, ZeRO-1, FSDP, Session(mesh=, zero=3) fed by
     BatchPipeline(sharding=), the DP scan, the replicated and sharded
     resident scans with rotation 10: K2) and MobileNet-v1's DP forward
-    at batch 64, fp32 (K3) and int8 (K4 + K5), bit-equal to
+    at batch 64, fp32 (K3, K6) and int8 (K4 + K5), bit-equal to
     predict_on_batch; each training form held to the single-device run
     that takes its own kink sides and max-pool picks; an FSDP checkpoint
     resumed on ZeRO-1 and on one device; then two gloo ranks share the
@@ -102,7 +104,8 @@ paths (full width and depth, random weights from a seed):
     run under cuDNN's deterministic algorithms, its memory flat;
   - pipeline stages (phase 17, `bcnn_tpu_torch.parallel.Pipeline`): one
     NCCL rank holding every stage runs MobileNet-v1's forward (224,
-    batch 64, 3 stages, 4 microbatches) fp32 (K3 on every stage) and
+    batch 64, 3 stages, 4 microbatches) fp32 (K3 and K6 on every stage)
+    and
     int8 (K4 and K5 on every stage, bit-equal to one device), and
     YOLOv3-tiny training (416, batch 32, 2 stages) at one microbatch and
     at four under GPipe and 1F1B, each update held to a float64 replay
@@ -110,8 +113,10 @@ paths (full width and depth, random weights from a seed):
     plain and accumulation steps; two gloo ranks on the card run the
     1F1B step a stage each.
 Each path runs with the launch counts set to 0 just before it and read
-just after; each phase prints its seconds. Every kernel is reached
-through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
+just after: K6 once a BN conv in every float forward outside TRAIN on
+the card (serving, exports, the DP, spatial and pipeline forwards), none
+in int8 forwards and training; each phase prints its seconds. Every
+kernel is reached through its torch.library op (bcnn_tpu_torch/ops/library.py). Any failure exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, its error against the plain version, its time
 warm and cold, the plain version's, its bound (the bytes it must move at
@@ -119,7 +124,7 @@ the card's memory rate, or its operations at the fp32 rate, K4's at the
 dense int8 rate, whichever is longer) and the time of one PyTorch call that computes the same
 function, where there is one (K3: the grouped conv, without the
 activation; K4: cuDNN's bf16 conv of the same values, PyTorch having no
-int8 conv on CUDA). Needs CUDA; imports no JAX.
+int8 conv on CUDA; K6: F.batch_norm then F.leaky_relu). Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -148,6 +153,8 @@ from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           plan_conv_int8)
 from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.ops import quant as tq
+from bcnn_tpu_torch.ops.bn_act import FUSED_ACT as K6_ACTS
+from bcnn_tpu_torch.ops.bn_act import bn_act, bn_act_ref
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.grouped_int8 import (grouped_int8_fused,
                                              grouped_int8_fused_ref,
@@ -909,7 +916,8 @@ def yolo_bf16_phase(gpu):
     """YOLOv3-tiny 416 at batch 8 with compute_dtype = act_dtype = bf16
     (bench.py's forward and detect), both detection branches: a warm-up
     and SERVE_STEADY requests each, the launch counts set to 0 before
-    each branch; the heads of two images against the port's CPU run."""
+    each branch, K6 on every BN conv; the heads of two images against
+    the port's CPU run. Returns K6's launches on the path."""
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
     net.compute_dtype = net.act_dtype = torch.bfloat16
     sess = Session(net, SEED, device="cuda")
@@ -917,18 +925,20 @@ def yolo_bf16_phase(gpu):
     sess.compile_net()
     x = np.random.RandomState(SEED + 6).rand(BATCH, 3, SIZE, SIZE).astype(
         np.float32)
+    k6 = 0
     for label, topk_first in (("decode-everything (K1)", False),
                               ("top-k-first", True)):
         zero_counts()
         req = lambda v: sess.detect_on_batch(  # noqa: E731
             v, topk_first=topk_first)
         outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-        want_k1 = 0 if topk_first else 2 * len(lat)
+        want = none_but(K1=0 if topk_first else 2 * len(lat),
+                        K6=k6_convs(net) * len(lat))
         got = counts()
-        if got["K1"] != want_k1 or got["K2"] or got["K3"] or got["K4"]:
-            raise RuntimeError(f"bf16 {label}: launches K1 {got['K1']}, "
-                               f"K2 {got['K2']}, K3 {got['K3']}, K4 "
-                               f"{got['K4']}")
+        if got != want:
+            raise RuntimeError(f"bf16 {label}: launches {got}, wanted "
+                               f"{want}")
+        k6 += got["K6"]
         for o in outs:
             check_detections(o, BATCH)
         dev = device_us(lambda: req(x), iters=5)
@@ -951,6 +961,7 @@ def yolo_bf16_phase(gpu):
         print(f"bf16 head {name} {tuple(g.shape)}: card vs CPU max_abs_err "
               f"{share:.3g} of the largest value (limit {BF16_HEAD_TOL}), "
               f"{float((g != c).float().mean()):.3g} of the values differ")
+    return k6
 
 
 def yolo_int8_phase(gpu):
@@ -990,8 +1001,8 @@ def yolo_int8_phase(gpu):
     if k4_launches != 13 * len(lat):
         raise RuntimeError(f"K4 launched {k4_launches} times in {len(lat)} "
                            "int8 requests")
-    if got["K1"] or got["K3"] or got["K2"]:
-        raise RuntimeError("the int8 path launched K1, K2 or K3")
+    if got["K1"] or got["K3"] or got["K2"] or got["K6"]:
+        raise RuntimeError(f"the int8 path launched {got}")
     for o in outs:
         check_detections(o, BATCH)
     dev = device_us(lambda: req(x), iters=5)
@@ -1047,8 +1058,8 @@ def mobilenet_phase(gpu, bf16=False):
     values in fp32), with He-scaled weights from a numpy seed: a
     warm-up, MB_REQUESTS requests (none at bf16) and MB_STEADY more,
     with the launch counts set to 0 before them; fc and softmax of the
-    first two images against the port's CPU run. Returns K3's launches
-    on the path."""
+    first two images against the port's CPU run; K6 on every BN conv.
+    Returns (K3, K6) launches on the path."""
     net = mobilenet_v1(MB_BATCH, MB_CLASSES)
     if bf16:
         net.compute_dtype = net.act_dtype = torch.bfloat16
@@ -1076,6 +1087,10 @@ def mobilenet_phase(gpu, bf16=False):
         raise RuntimeError(
             f"K3 launched {k3_launches} times in {forwards} forwards"
         )
+    k6_launches = library.launches("bn_act")
+    if k6_launches != k6_convs(net) * forwards:
+        raise RuntimeError(
+            f"K6 launched {k6_launches} times in {forwards} forwards")
     if library.launches("yolo_decode") or library.launches("row_shift") or \
             library.launches("conv_int8"):
         raise RuntimeError("the MobileNet path launched K1, K2 or K4")
@@ -1133,7 +1148,7 @@ def mobilenet_phase(gpu, bf16=False):
           + f"; peak memory {peak:.2f} GiB")
     for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {us / 3 / 1e3:8.3f} ms  {k[:90]}")
-    return k3_launches
+    return k3_launches, k6_launches
 
 
 def host_detections_agree(a, b):
@@ -1188,8 +1203,8 @@ def yolov3_phase(gpu):
     decode-everything request. Against the port's CPU run on two images:
     fp32 heads at the fp32 head tolerance, bf16 within BF16_HEAD_TOL of
     the largest value, int8 every int8 and bf16 tensor equal under one
-    quant dict; yolo_get_detections of one image equal. Returns (K1, K4)
-    launches on the path."""
+    quant dict; yolo_get_detections of one image equal; K6 on every BN
+    conv in fp32 and bf16. Returns (K1, K4, K6) launches on the path."""
     t_phase = time.perf_counter()
     net = yolov3(BATCH, SIZE, SIZE, CLASSES)
     heads = [net.tensors[n.src[0]].name for n in net.nodes
@@ -1228,7 +1243,7 @@ def yolov3_phase(gpu):
     x = np.random.RandomState(SEED + 8).rand(BATCH, 3, SIZE, SIZE).astype(
         np.float32)
     x2 = x[:2]
-    k1_total = k4_total = 0
+    k1_total = k4_total = k6_total = 0
     for prec in ("fp32", "bf16", "int8"):
         if prec != "fp32":
             net.compute_dtype = net.act_dtype = torch.bfloat16
@@ -1253,15 +1268,16 @@ def yolov3_phase(gpu):
                 v, topk_first=topk_first)
             outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
             got = counts()
-            k1, k4 = got["K1"], got["K4"]
-            want_k1 = 0 if topk_first else 3 * len(lat)
-            want_k4 = n_conv * len(lat) if prec == "int8" else 0
-            if (k1, k4) != (want_k1, want_k4) or got["K3"] or got["K2"]:
-                raise RuntimeError(f"full YOLOv3 {prec} {label}: launches K1 "
-                                   f"{k1}, K2 {got['K2']}, K3 "
-                                   f"{got['K3']}, K4 {k4}")
-            k1_total += k1
-            k4_total += k4
+            want = none_but(K1=0 if topk_first else 3 * len(lat),
+                            K4=n_conv * len(lat) if prec == "int8" else 0,
+                            K6=0 if prec == "int8"
+                            else k6_convs(net) * len(lat))
+            if got != want:
+                raise RuntimeError(f"full YOLOv3 {prec} {label}: launches "
+                                   f"{got}, wanted {want}")
+            k1_total += got["K1"]
+            k4_total += got["K4"]
+            k6_total += got["K6"]
             peak = torch.cuda.max_memory_allocated() / 2**30
             for o in outs:
                 check_detections(o, BATCH)
@@ -1344,7 +1360,7 @@ def yolov3_phase(gpu):
                   "card's path")
     net.compute_dtype = net.act_dtype = net.quant = None
     print(f"full YOLOv3 phase: {time.perf_counter() - t_phase:.1f} s")
-    return k1_total, k4_total
+    return k1_total, k4_total, k6_total
 
 
 def det_labels(rng, n):
@@ -2477,7 +2493,7 @@ MB_TRAIN, MB_TRAIN_STEPS, P10C_CLI_BATCHES = 32, 3, 6
 
 # each kernel's op (`ops.library`), whose launches the library counts
 K_OPS = {"K1": "yolo_decode", "K2": "row_shift", "K3": "depthwise",
-         "K4": "conv_int8", "K5": "grouped_int8"}
+         "K4": "conv_int8", "K5": "grouped_int8", "K6": "bn_act"}
 
 
 def zero_counts():
@@ -2486,6 +2502,18 @@ def zero_counts():
 
 def counts():
     return {k: library.launches(op) for k, op in K_OPS.items()}
+
+
+def none_but(**want):
+    """Each kernel's count: 0 but where `want` names it."""
+    return {k: want.get(k, 0) for k in K_OPS}
+
+
+def k6_convs(net):
+    """K6's launches in one float forward of `net` outside TRAIN on the
+    card: its BN convs with an activation K6 fuses."""
+    return sum(n.type.name == "CONV2D" and bool(n.param.get("batch_norm"))
+               and n.param["activation"] in K6_ACTS for n in net.nodes)
 
 
 def replayed_step(label, net, p_np, s_np, x, lab):
@@ -2648,9 +2676,9 @@ def replayed_step(label, net, p_np, s_np, x, lab):
 def timed_steps(label, sess, x, lab, steps, gpu, want_k2):
     """A warm-up step, then `steps` timed train_on_batch calls (host clock,
     the loss read back each step) with the launch counts set to 0 before
-    them; K1, K3 and K4 must stay at 0 and K2 at want_k2. Prints the
-    median, img/s, busy share, peak memory and device time by kind;
-    returns (median ms, K2 launches)."""
+    them; K2 must launch want_k2 times and every other kernel none.
+    Prints the median, img/s, busy share, peak memory and device time
+    by kind; returns (median ms, K2 launches)."""
     torch.cuda.reset_peak_memory_stats()
     sess.train_on_batch(x, lab)
     torch.cuda.synchronize()
@@ -2661,7 +2689,7 @@ def timed_steps(label, sess, x, lab, steps, gpu, want_k2):
         losses.append(float(sess.train_on_batch(x, lab)))
         times.append(1e3 * (time.perf_counter() - t0))
     got = counts()
-    if got != dict(K1=0, K2=want_k2, K3=0, K4=0, K5=0):
+    if got != none_but(K2=want_k2):
         raise RuntimeError(f"{label}: launches {got}, K2 {want_k2} wanted")
     if not all(np.isfinite(losses)) or min(losses) < 0:
         raise RuntimeError(f"{label}: losses {losses}")
@@ -2813,7 +2841,8 @@ def resnet18_phase(gpu):
     """Phase 10b: ResNet-18 at 224 px, 1000 classes (He-scaled seeded
     weights): served at batch R18_SERVE in fp32 and bf16 (fc and softmax
     of two images against the CPU port), trained at batch R18_TRAIN in
-    fp32 and bf16 + act16, one batch-2 step card vs CPU vs float64."""
+    fp32 and bf16 + act16, one batch-2 step card vs CPU vs float64.
+    Returns K6's launches in the serving (every BN conv)."""
     t_phase = time.perf_counter()
     net = resnet18(R18_SERVE, 1000)
     p_np, s_np = bridge.he_numpy_weights(net, SEED)
@@ -2826,6 +2855,7 @@ def resnet18_phase(gpu):
     cpu.compile_net()
     rng = np.random.RandomState(SEED + 12)
     x = rng.rand(R18_SERVE, 3, 224, 224).astype(np.float32)
+    k6 = 0
     for prec in ("fp32", "bf16"):
         net.compute_dtype = net.act_dtype = (
             torch.bfloat16 if prec == "bf16" else None)
@@ -2833,8 +2863,11 @@ def resnet18_phase(gpu):
         req = lambda v: sess.predict_on_batch(  # noqa: E731
             v, outputs=MB_OUTPUTS)[0]
         outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-        if any(counts().values()):
-            raise RuntimeError(f"ResNet-18 serving launched {counts()}")
+        got, want = counts(), none_but(K6=k6_convs(net) * len(lat))
+        if got != want:
+            raise RuntimeError(f"ResNet-18 serving launched {got}, wanted "
+                               f"{want}")
+        k6 += got["K6"]
         fc = outs[-1][0].float()
         if tuple(fc.shape) != (R18_SERVE, 1000, 1, 1) or not torch.isfinite(
                 fc).all():
@@ -2882,6 +2915,7 @@ def resnet18_phase(gpu):
     replayed_step("ResNet-18 fp32 step at batch 2, 224 px",
                   resnet18(2, 1000, mode=Mode.TRAIN), p_np, s_np, x2, lab2)
     print(f"phase 10b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k6
 
 
 def layers_net(quirk=False, bf16=False):
@@ -3199,6 +3233,162 @@ def check_k5():
     return rows
 
 
+# -- phase 3f: K6, a conv's BN and activation outside TRAIN ----------------
+
+# K6 against its plain version, bit for bit (NaNs and signed zeros too),
+# at full YOLOv3's 72 BN convs (13 shapes) at batch 64, timed there in
+# the bf16 serving cell's form (BN unfolded, LRELU); then edges: planes
+# of 1 and of 3 values, C = 1, odd planes, a misaligned x, special
+# values, and a batch past 2^31 values, which K6 runs as two launches
+K6_BATCH = 64
+K6_EDGES = [(3, 1, 1, 1), (2, 3, 13, 13), (2, 5, 3, 1), (1, 1, 7, 9),
+            (2, 255, 26, 26), (3, 1024, 13, 13), (2, 7, 2, 2)]
+# 2.16e9 bf16 values: two launches, the second from an image 14 bytes
+# past a 16-byte boundary (a head of one value)
+K6_BIG = (720, 3, 999, 1001)
+
+
+def k6_shapes(net):
+    """{(c, h, w): convs} of the BN convs of `net`, in order."""
+    shapes = {}
+    for node in net.nodes:
+        if node.type.name == "CONV2D" and node.param.get("batch_norm"):
+            d = net.tensors[node.dst[0]]
+            shapes[(d.c, d.h, d.w)] = shapes.get((d.c, d.h, d.w), 0) + 1
+    return shapes
+
+
+def k6_vectors(c, gen):
+    """(scales, biases, run_mean, run_var) fp32 on the card."""
+    u = lambda lo, hi: (lo + (hi - lo) * torch.rand(c, generator=gen)  # noqa
+                        ).cuda()
+    return u(0.8, 1.2), u(-0.1, 0.1), u(-0.5, 0.5), u(0.2, 2.0)
+
+
+def k6_bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def k6_equal(x, vecs, folded, act, what):
+    """K6 on x against its plain version: one launch counted, the same
+    shape, dtype and strides, the same bits."""
+    before = library.launches("bn_act")
+    got = bn_act(x, *vecs, folded, act)
+    want = bn_act_ref(x, *vecs, folded, act)
+    torch.cuda.synchronize()
+    if library.launches("bn_act") != before + (x.numel() > 0):
+        raise RuntimeError(f"K6 {what}: its launch was not counted")
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or got.stride() != want.stride()
+            or not torch.equal(k6_bits(got), k6_bits(want))):
+        diff = (got.float() - want.float()).abs().nan_to_num(0)
+        raise RuntimeError(
+            f"K6 {what} {tuple(x.shape)} {x.dtype} "
+            f"{'folded' if folded else 'unfolded'} {Activation(act).name} "
+            "is not bit-equal to its plain version: "
+            f"{int((k6_bits(got) != k6_bits(want)).sum())} values differ, "
+            f"max_abs_err {float(diff.max())}")
+
+
+def check_k6():
+    """Phase 3f: K6 against bn_act_ref on the card, bit for bit, in bf16
+    and fp32, folded and unfolded, with NONE, RELU and LRELU, at full
+    YOLOv3's 13 BN conv shapes at batch 64 and at the edges; each path
+    shape timed warm in turns (plain, kernel, library, library, kernel,
+    plain), the library being F.batch_norm then F.leaky_relu (the same
+    function in two calls, with its own rounding), then a copy of the
+    same bytes (what the card's memory allows a pass of one read and one
+    write), then cold and by the profiler. Returns the path rows (a
+    row's "n" is its convs in one request; the serving phases count the
+    launches on the paths)."""
+    gen = torch.Generator().manual_seed(SEED)
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    acts = (Activation.LRELU, Activation.RELU, Activation.NONE)
+    rows = []
+    for (c, h, w), convs in k6_shapes(yolov3(K6_BATCH, SIZE, SIZE,
+                                             CLASSES)).items():
+        vecs = k6_vectors(c, gen)
+        x = torch.randn(K6_BATCH, c, h, w, generator=gen).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            for folded in (False, True):
+                for act in acts:
+                    k6_equal(xd, vecs, folded, act, "YOLOv3")
+            del xd
+        xb = x.to(torch.bfloat16)
+        del x
+        kern = lambda: bn_act(xb, *vecs, False, Activation.LRELU)  # noqa
+        plain = lambda: bn_act_ref(xb, *vecs, False,  # noqa: E731
+                                   Activation.LRELU)
+        s, b, m, v = vecs
+        lib = lambda: F.leaky_relu(F.batch_norm(  # noqa: E731
+            xb, m, v, s, b, False, 0.0, 1e-6), 0.1)
+        out = torch.empty_like(xb)
+        copy = lambda: out.copy_(xb)  # noqa: E731  the same bytes moved
+        t = [cuda_ms(f, iters=i, warmup=wu) for f, i, wu in (
+            (plain, 3, 1), (kern, 50, 5), (lib, 20, 2), (lib, 20, 2),
+            (kern, 50, 5), (plain, 3, 1), (copy, 50, 5))]
+        dev = sum(device_us(kern, iters=10).values()) / 10
+        nbytes = 2 * xb.numel() * xb.element_size() + 4 * 4 * c
+        r = dict(shape=(K6_BATCH, c, h, w), n=convs, max_abs_err=0.0,
+                 ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
+                 library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
+                 copy_ms=t[6], bound=bound(nbytes, 0), mb=nbytes / 1e6,
+                 dev_ms=dev / 1e3 if dev else None)
+        rows.append(r)
+        del xb, out
+        print(f"K6 {r['shape']} x{convs} bf16 BN LRELU: bit-equal to its "
+              "plain version in bf16 and fp32, folded and unfolded, NONE, "
+              f"RELU, LRELU; {r['mb']:.1f} MB, bound "
+              f"{1e3 * r['bound'][0]:.1f} us ({r['bound'][1]}); warm: "
+              f"kernel {1e3 * r['ms']:.1f} us, plain "
+              f"{1e3 * r['plain_ms']:.1f} us, library (F.batch_norm, "
+              f"F.leaky_relu) {1e3 * r['library_ms']:.1f} us, copy of the "
+              f"same bytes {1e3 * r['copy_ms']:.1f} us; cold: kernel "
+              f"{1e3 * r['cold_ms']:.1f} us "
+              f"({r['bound'][0] / r['cold_ms']:.0%} of the bound); device "
+              f"(profiler) {fmt_device(dev * 10, 10)}", flush=True)
+    del flush
+    for i, shape in enumerate(K6_EDGES):
+        vecs = k6_vectors(shape[1], gen)
+        x = torch.randn(*shape, generator=gen).cuda()
+        special = torch.tensor([float("nan"), -0.0, float("inf"),
+                                -float("inf"), 1e-40])  # an fp32 subnormal
+        x.view(-1)[:5] = special[:x.numel()].cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            off = torch.empty(xd.numel() + 1, dtype=dtype,
+                              device="cuda")[1:].view(shape)
+            off.copy_(xd)  # one value off a 16-byte boundary
+            for xs, what in ((xd, "edge"), (off, "edge, misaligned x")):
+                for folded in (False, True):
+                    for act in acts:
+                        k6_equal(xs, vecs, folded, act, what)
+    vecs = k6_vectors(K6_BIG[1], gen)
+    x = torch.randn(K6_BIG, device="cuda", dtype=torch.bfloat16)
+    k6_equal(x, vecs, False, Activation.LRELU, "past 2^31 values")
+    del x
+    print(f"K6 edges {K6_EDGES} (NaN, -0, inf, subnormal; aligned and "
+          f"not) and {K6_BIG} (two launches): bit-equal in every form",
+          flush=True)
+    launches = sum(r["n"] for r in rows)
+    tot = {key: sum(r["n"] * (r[key][0] if key == "bound" else r[key])
+                    for r in rows)
+           for key in ("ms", "cold_ms", "plain_ms", "library_ms", "copy_ms",
+                       "bound")}
+    dev = [r["dev_ms"] for r in rows]
+    dev_s = ("not measured" if None in dev else
+             f"{sum(r['n'] * d for r, d in zip(rows, dev)):.4f} ms")
+    print(f"K6 per bf16 full YOLOv3 416 request ({launches} launches, batch "
+          f"{K6_BATCH}): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} "
+          f"ms, device {dev_s} (profiler), bound {tot['bound']:.4f} ms "
+          f"({tot['bound'] / tot['cold_ms']:.0%} of it cold); plain ops "
+          f"{tot['plain_ms']:.2f} ms; library (F.batch_norm, F.leaky_relu) "
+          f"{tot['library_ms']:.4f} ms warm; a copy of the same bytes "
+          f"(Tensor.copy_) {tot['copy_ms']:.4f} ms warm", flush=True)
+    return rows
+
+
 def int8_classifier_phase(gpu, name, net, p_np, s_np):
     """Phase 11: `net` (PREDICT, batch I8_BATCH, 224 px, 1000 classes) on
     He-scaled seeded weights, PTQ by ptq_synthetic on the CPU (one quant
@@ -3230,7 +3420,7 @@ def int8_classifier_phase(gpu, name, net, p_np, s_np):
     zero_counts()
     outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
     got = counts()
-    want = dict(K1=0, K2=0, K3=0, K4=n_k4 * len(lat), K5=n_dw * len(lat))
+    want = none_but(K4=n_k4 * len(lat), K5=n_dw * len(lat))
     if got != want:
         raise RuntimeError(f"int8 {name}: launches {got}, wanted {want}")
     for o in outs:
@@ -3354,8 +3544,8 @@ def qat_phase(gpu):
             v, topk_first=topk_first)
         outs, lat = serve(req, [xs] * (1 + SERVE_STEADY))
         got = counts()
-        want = dict(K1=0 if topk_first else 2 * len(lat), K2=0, K3=0,
-                    K4=13 * len(lat), K5=0)
+        want = none_but(K1=0 if topk_first else 2 * len(lat),
+                        K4=13 * len(lat))
         if got != want:
             raise RuntimeError(f"frozen QAT detect: launches {got}, wanted "
                                f"{want}")
@@ -3685,11 +3875,11 @@ def deploy_phase(gpu):
     (batch 2); a fresh process loads the int8 YOLOv3-tiny file; the CLI
     exports yolov3-tiny.cfg with --detect over a seeded .weights; a
     checkpoint resumes training bit for bit; profile_forward and
-    memory_report; the op's host cost. Returns the launches of K2-K5."""
+    memory_report; the op's host cost. Returns the launches of K2-K6."""
     t_phase = time.perf_counter()
-    launched = dict(K2=0, K3=0, K4=0, K5=0)
+    launched = dict.fromkeys(K_OPS, 0)
     with tempfile.TemporaryDirectory() as tmp:
-        # YOLOv3-tiny fp32: the detect program
+        # YOLOv3-tiny fp32: the detect program (K6 on each BN conv)
         net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
         sess = Session(net, SEED, device="cuda")
         sess.state = bn_stats(net)
@@ -3698,10 +3888,11 @@ def deploy_phase(gpu):
             BATCH, 3, SIZE, SIZE).astype(np.float32)
         served, te, tl = export_and_load(
             sess, os.path.join(tmp, "tiny.pt2"), detect=True)
-        _, out = exported_check(
+        got, out = exported_check(
             f"exported YOLOv3-tiny detect fp32, batch {BATCH}, {SIZE} px",
-            served, lambda v: sess.detect_on_batch(v), x, {}, gpu, te, tl,
-            exact_only=False)
+            served, lambda v: sess.detect_on_batch(v), x,
+            {"K6": k6_convs(net)}, gpu, te, tl, exact_only=False)
+        launched["K6"] += got["K6"]
         check_detections(out, BATCH)
         cpu = cpu_twin(yolov3_tiny(2, SIZE, SIZE, CLASSES), sess.params,
                        sess.state)
@@ -3735,7 +3926,8 @@ def deploy_phase(gpu):
               f"({int((c8[2] > 0).sum())} kept in two images)")
         fresh_process_check(path8, x, out8, tmp)
 
-        # MobileNet-v1 fp32 (K3 x 13) and int8 (K5 x 13, K4 x 15)
+        # MobileNet-v1 fp32 (K3 x 13, K6 on each BN conv) and int8
+        # (K5 x 13, K4 x 15)
         net = mobilenet_v1(MB_BATCH, MB_CLASSES)
         p_np, s_np = bridge.he_numpy_weights(net, SEED)
         sess = Session(net, SEED, device="cuda")
@@ -3750,8 +3942,9 @@ def deploy_phase(gpu):
             f"exported MobileNet-v1 forward fp32, batch {MB_BATCH}, "
             f"{MB_SIZE} px", served,
             lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0], xm,
-            {"K3": 13}, gpu, te, tl, exact_only=False)
+            {"K3": 13, "K6": k6_convs(net)}, gpu, te, tl, exact_only=False)
         launched["K3"] += got["K3"]
+        launched["K6"] += got["K6"]
         cm = served_on_cpu(
             cpu_twin(mobilenet_v1(2, MB_CLASSES), sess.params, sess.state),
             os.path.join(tmp, "mb_cpu.pt2"), xm[:2],
@@ -3819,6 +4012,11 @@ def deploy_phase(gpu):
         if not all(torch.equal(g, w) for g, w in zip(got_cli, want_cli)):
             raise RuntimeError("the CLI's artifact differs from the live "
                                "session of the cfg and weights")
+        got = counts()  # the artifact's call and the live one's
+        if got != none_but(K6=2 * k6_convs(live.net)):
+            raise RuntimeError(f"the CLI's artifact and its live session "
+                               f"launched {got}")
+        launched["K6"] += got["K6"]
         print(f"bcnn-cl export {os.path.basename(cfg)} --detect over a "
               f"seeded .weights: {t_cli:.2f} s "
               f"({os.path.getsize(out_cli) / 1e6:.1f} MB); served on the "
@@ -3840,8 +4038,8 @@ def deploy_phase(gpu):
 # fed by BatchPipeline(sharding=), the DP scan of P14_K steps, and the
 # replicated and sharded resident scans over P14_RECORDS raw records
 # with AUGMENT's rotation 10: K2), and MobileNet-v1's DP forward (224,
-# batch MB_BATCH) fp32 (K3) and int8 (K4 + K5). Each form is held to the
-# single-device path on the same inputs and seeds: a forward bit for bit;
+# batch MB_BATCH) fp32 (K3, K6) and int8 (K4 + K5). Each form is held to
+# the single-device path on the same inputs and seeds: a forward bit for bit;
 # a training form by a replay, the single-device run taking the DP run's
 # own kink sides and max-pool picks (`bcnn_tpu_torch.replay.impose`) so
 # that only rounding parts them (BN's global sums are taken as sum / n,
@@ -4073,7 +4271,7 @@ def parallel_phase(gpu):
                                          shard_zero_state)
 
     t_phase = time.perf_counter()
-    launched = dict(K2=0, K3=0, K4=0, K5=0)
+    launched = dict.fromkeys(K_OPS, 0)
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     tmp = tempfile.mkdtemp()
@@ -4169,8 +4367,7 @@ def parallel_phase(gpu):
                 idx, torch.Generator().manual_seed(SEED + 42)))
             got = counts()
             peaks[form] = p14_peak()
-            if got != dict(K1=0, K2=3 * P14_K * on_card(), K3=0, K4=0,
-                           K5=0):
+            if got != none_but(K2=3 * P14_K * on_card()):
                 raise RuntimeError(f"{form}: launches {got}")
             launched["K2"] += got["K2"]
             rp, _, _, rl = single_device(
@@ -4212,7 +4409,7 @@ def parallel_phase(gpu):
                 raise RuntimeError(f"the FSDP checkpoint resumed on "
                                    f"{label} differs")
 
-        # -- the DP forward of MobileNet-v1, fp32 (K3) and int8 (K4 + K5) --
+        # -- the DP forward of MobileNet-v1, fp32 (K3, K6), int8 (K4 + K5) -
         mnet = mobilenet_v1(MB_BATCH, 1000)
         if MB_SIZE != 224:  # a rehearsal's
             mnet.resize(MB_SIZE, MB_SIZE)
@@ -4228,7 +4425,7 @@ def parallel_phase(gpu):
         n_k4 = sum(n.type.name in ("CONV2D", "FULL_CONNECTED")
                    for n in mnet.nodes)
         fwd_ms = {}
-        for prec, want in (("fp32", dict(K3=n_dw)),
+        for prec, want in (("fp32", dict(K3=n_dw, K6=k6_convs(mnet))),
                            ("int8", dict(K4=n_k4, K5=n_dw))):
             if prec == "int8":
                 ptq_synthetic(mnet, msess)
@@ -4307,7 +4504,7 @@ def parallel_phase(gpu):
                                          torch.atleast_1d(a_l)],
                 rtol=STEP_LOSS_RTOL)
         for r, res in enumerate(ranks):
-            want = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+            want = none_but()
             if res["step"]["launches"] != want:
                 raise RuntimeError(f"gloo rank {r} step: "
                                    f"{res['step']['launches']}")
@@ -4336,7 +4533,8 @@ def parallel_phase(gpu):
           "at world size 1, median of 3 in turns, host clock); peak "
           "memory " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
           + f"; MobileNet-v1's DP forward, batch {MB_BATCH}, bit-equal to "
-          f"predict_on_batch: fp32 {fwd_ms['fp32']:.2f} ms ({n_dw} K3), "
+          f"predict_on_batch: fp32 {fwd_ms['fp32']:.2f} ms ({n_dw} K3, "
+          f"{k6_convs(mnet)} K6), "
           f"int8 {fwd_ms['int8']:.2f} ms ({n_k4} K4 + {n_dw} K5); the FSDP "
           "checkpoint resumed bit for bit on ZeRO-1 and on one device. "
           f"{P14_RANKS} gloo ranks on the one card, {P14_BATCH // P14_RANKS}"
@@ -4378,7 +4576,7 @@ def parallel_phase(gpu):
 # after its checkpoint at dispatch P15_KILL_AT, and resumed here: the
 # final checkpoints must be equal array for array. Every driver's
 # numbers are printed on a line of their own with the launches it
-# caused; K2, K3, K4 and K5 must each launch in the phase.
+# caused; K2, K3, K4, K5 and K6 must each launch in the phase.
 P15_DEV, P15_SIZE, P15_MB_SIZE = "cuda", SIZE, MB_SIZE
 P15_SERVE_BATCH, P15_MB_BATCH, P15_INT8_CPU_BATCH = BATCH, MB_BATCH, 2
 P15_BUCKETS, P15_BF16_BUCKETS, P15_CALLS = "1,8,64", "8", 30
@@ -4536,7 +4734,7 @@ def examples_phase(gpu):
                                 train_throughput, yolo_example)
 
     t_phase = time.perf_counter()
-    launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launched = dict.fromkeys(K_OPS, 0)
     dev = ["--device", P15_DEV]
     cpu = ["--device", "cpu"]
     tmp = tempfile.mkdtemp(prefix="p15_")
@@ -4719,7 +4917,7 @@ def examples_phase(gpu):
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
-    for k in ("K2", "K3", "K4", "K5"):
+    for k in ("K2", "K3", "K4", "K5", "K6"):
         if not launched[k]:
             raise RuntimeError(f"phase 15 launched no {k}")
     sec = time.perf_counter() - t_phase
@@ -4758,8 +4956,9 @@ P16_INT8_CPU_BATCH = 2
 # twice the CPU's own distance to a replay of its own, or one float32
 # spacing (`replayed_step`'s rule); MobileNet-v1 (224 px, batch MB_BATCH)
 # fp32 through the spatial forward within P16_FWD_RTOL of the one-device
-# forward with 13 K3 launches on each band, int8 MobileNet-v1 and int8
-# YOLOv3-tiny at 416 bit-equal to one device with K4 and K5 on each band.
+# forward with 13 K3 launches and one K6 a BN conv on each band, int8
+# MobileNet-v1 and int8 YOLOv3-tiny at 416 bit-equal to one device with
+# K4 and K5 on each band and no K6.
 P16_DEV, P16_BACKEND = "cuda:0", "nccl"
 P16_BATCH, P16_RANKS = 8, 2
 P16_FWD_RTOL, P16_FWD_ATOL = 1e-4, 1e-5
@@ -5088,7 +5287,7 @@ def model_axis_phase(gpu):
     from bcnn_tpu_torch.parallel import make_mesh_2d
 
     t_phase = time.perf_counter()
-    launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launched = dict.fromkeys(K_OPS, 0)
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     tmp = tempfile.mkdtemp(prefix="p16_")
@@ -5116,8 +5315,10 @@ def model_axis_phase(gpu):
             float(ref_step(q, dict(s0), init_opt_state(net, q), batch)[3])
             t_one.append(1e3 * (time.perf_counter() - t0))
         one_fwd = {}
+        k6_want = {}  # a rank's K6 launches: every BN conv on its band
         for f, (name, fnet, outs, int8) in zip(inp["fwd"],
                                                p16_forward_nets()):
+            k6_want[name] = 0 if int8 else k6_convs(fnet)
             fnet.quant = to_device(f["quant"], P16_DEV) if int8 else None
             p, s = to_device(f["p"], P16_DEV), to_device(f["s"], P16_DEV)
             x = torch.from_numpy(f["x"]).to(P16_DEV)
@@ -5154,6 +5355,9 @@ def model_axis_phase(gpu):
                                  rp, r["loss"], rl)
         fwd_a = p16_forwards(mesh, inp)
         for name, r in fwd_a.items():
+            if r["launches"]["K6"] != k6_want[name]:
+                raise RuntimeError(f"{name} on a 1x1 mesh launched "
+                                   f"{r['launches']}")
             for k, v in r["launches"].items():
                 launched[k] += v
             for g, w in zip(r["outs"], one_fwd[name][0]):
@@ -5228,6 +5432,9 @@ def model_axis_phase(gpu):
                 if "fp32" in name and got["launches"]["K3"] != 13:
                     raise RuntimeError(f"{name}: rank {r} launched K3 "
                                        f"{got['launches']['K3']} times")
+                if got["launches"]["K6"] != k6_want[name]:
+                    raise RuntimeError(f"{name}: rank {r} launched K6 "
+                                       f"{got['launches']['K6']} times")
                 if "int8" in name and not got["launches"]["K4"]:
                     raise RuntimeError(f"{name}: rank {r} launched no K4")
                 if "MobileNet-v1 int8" == name and not got["launches"]["K5"]:
@@ -5274,8 +5481,8 @@ def model_axis_phase(gpu):
 # (a) one NCCL rank holding every stage. MobileNet-v1 (224 px, batch
 # MB_BATCH, PREDICT) on split_stages' 3 stages and P17_MICRO
 # microbatches: fp32 within P17_FWD_RTOL of the one-device forward, int8
-# (ptq_synthetic) bit-equal to it, K3 (fp32), K4 and K5 (int8) launched
-# on every stage. YOLOv3-tiny (416 px, batch P17_BATCH, TRAIN) on
+# (ptq_synthetic) bit-equal to it, K3 and K6 (fp32), K4 and K5 (int8)
+# launched on every stage. YOLOv3-tiny (416 px, batch P17_BATCH, TRAIN) on
 # split_stages(net, 2): one microbatch against make_train_step, and
 # P17_MICRO under GPipe and 1F1B against make_train_step(accum_steps=
 # P17_MICRO); each update held to a float64 replay on the card of the
@@ -5539,12 +5746,15 @@ def p17_forwards():
         got = pipe.forward(ps, ss, {"input": x})
         pipe._run_stage = run_stage
         p17_sync()
-        kinds = ("K3",) if prec == "fp32" else ("K4", "K5")
-        layers = {"K3": 13, "K4": 15, "K5": 13}
+        kinds = ("K3", "K6") if prec == "fp32" else ("K4", "K5")
+        layers = {"K3": 13, "K4": 15, "K5": 13, "K6": k6_convs(net)}
         for k, launched in enumerate(per_stage):
             if not all(launched[n] for n in kinds):
                 raise RuntimeError(f"MobileNet-v1 {prec} pipeline: stage {k} "
                                    f"launched {launched}")
+        if prec == "int8" and any(ls["K6"] for ls in per_stage):
+            raise RuntimeError(f"the int8 MobileNet-v1 pipeline launched "
+                               f"{per_stage}")
         for n in kinds:
             total = sum(ls[n] for ls in per_stage)
             if total != layers[n] * P17_MICRO:
@@ -5592,7 +5802,7 @@ def pipeline_phase(gpu):
                                 init_method=f"file://{tmp}/store",
                                 world_size=1, rank=0)
         fwd = p17_forwards()
-        launched = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+        launched = dict.fromkeys(K_OPS, 0)
         for per_stage, _, _, _, _ in fwd.values():
             for ls in per_stage:
                 for k, v in ls.items():
@@ -5774,6 +5984,9 @@ def main() -> int:
 
     # -- phase 3e: K5 against its plain version on the card ---------------
     k5 = check_k5()
+
+    # -- phase 3f: K6 against its plain version on the card ---------------
+    k6 = check_k6()
     stamp("3")
 
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
@@ -5797,6 +6010,11 @@ def main() -> int:
         raise RuntimeError(
             f"K1 launched {k1_launches} times for {len(batches)} requests"
         )
+    k6_launches = library.launches("bn_act")
+    if k6_launches != 2 * len(batches) * k6_convs(net):
+        raise RuntimeError(
+            f"K6 launched {k6_launches} times for {2 * len(batches)} "
+            "requests")
 
     # -- phase 5: outputs ------------------------------------------------
     for a, b in zip(topk, full):
@@ -5848,19 +6066,20 @@ def main() -> int:
     stamp("4-6")
 
     # -- phase 6b: serve YOLOv3-tiny at bf16, then int8 -------------------
-    yolo_bf16_phase(gpu)
+    k6_launches += yolo_bf16_phase(gpu)
     k4_launches = yolo_int8_phase(gpu)
     stamp("6b")
 
     # -- phase 6c: serve MobileNet-v1 at 224, batch 64, fp32 and bf16 ------
-    k3_launches = mobilenet_phase(gpu)
-    mobilenet_phase(gpu, bf16=True)
+    k3_launches, k6_mb = mobilenet_phase(gpu)
+    k6_launches += k6_mb + mobilenet_phase(gpu, bf16=True)[1]
     stamp("6c")
 
     # -- phase 6d: serve full YOLOv3 from its cfg and a .weights file -----
-    k1_v3, k4_v3 = yolov3_phase(gpu)
+    k1_v3, k4_v3, k6_v3 = yolov3_phase(gpu)
     k1_launches += k1_v3
     k4_launches += k4_v3
+    k6_launches += k6_v3
     stamp("6d")
 
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
@@ -5878,7 +6097,7 @@ def main() -> int:
 
     # -- phase 10: train full YOLOv3; 10b ResNet-18; 10c the layers left ---
     k2_launches += yolov3_train_phase(gpu)
-    resnet18_phase(gpu)
+    k6_launches += resnet18_phase(gpu)
     layers_left_phase(gpu)
     stamp("10")
 
@@ -5902,6 +6121,7 @@ def main() -> int:
     k3_launches += p13["K3"]
     k4_launches += p13["K4"]
     k5_launches += p13["K5"]
+    k6_launches += p13["K6"]
     stamp("13")
 
     # -- phase 14: data parallel (one NCCL rank; two gloo ranks) ----------
@@ -5910,6 +6130,7 @@ def main() -> int:
     k3_launches += p14["K3"]
     k4_launches += p14["K4"]
     k5_launches += p14["K5"]
+    k6_launches += p14["K6"]
     stamp("14")
 
     # -- phase 15: the example drivers (examples_torch/) -------------------
@@ -5919,6 +6140,7 @@ def main() -> int:
     k3_launches += p15["K3"]
     k4_launches += p15["K4"]
     k5_launches += p15["K5"]
+    k6_launches += p15["K6"]
     stamp("15")
 
     # -- phase 16: the int8 study, short; the model axis ----------------
@@ -5930,6 +6152,7 @@ def main() -> int:
     k3_launches += p16["K3"]
     k4_launches += p16["K4"]
     k5_launches += p16["K5"]
+    k6_launches += p16["K6"]
     stamp("16")
 
     # -- phase 17: pipeline stages (one NCCL rank; two gloo ranks) --------
@@ -5937,6 +6160,7 @@ def main() -> int:
     k3_launches += p17["K3"]
     k4_launches += p17["K4"]
     k5_launches += p17["K5"]
+    k6_launches += p17["K6"]
     stamp("17")
 
     served = k1[:3]  # full YOLOv3's three heads (the first two tiny's)
@@ -5986,6 +6210,12 @@ def main() -> int:
         entry("grouped_int8", "bcnn_tpu_torch/csrc/grouped_int8.cu",
               "bcnn_tpu/ops/quant.py:302", k5_launches,
               k5[:len(K5_MOBILENET)], k5, True),
+        # no Pallas kernel: BN and the activation, which the JAX package
+        # leaves to XLA; its library yardstick is F.batch_norm then
+        # F.leaky_relu, the same function in two calls
+        entry("bn_act", "bcnn_tpu_torch/csrc/bn_act.cu",
+              "none (XLA's fusion of bcnn_tpu/ops/norm.py:batch_norm and "
+              "the activation)", k6_launches, k6, k6, True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

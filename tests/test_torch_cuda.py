@@ -1237,9 +1237,11 @@ def test_qat_step_on_the_card(cuda):
 
 def _op_cases(gen):
     """(name, op, launcher, args on the CPU, plain-version tolerance)
-    for each of the five ops at a small shape: None is bit for bit, else
+    for each of the six ops at a small shape (K6 folded, whose plain
+    version rounds alike on both devices): None is bit for bit, else
     (rtol, atol, atol relative to the largest output?), those of the
     tests of K1 and K3 above."""
+    from bcnn_tpu_torch.ops import bn_act as k6
     from bcnn_tpu_torch.ops import conv_int8 as k4
     from bcnn_tpu_torch.ops import depthwise as k3
     from bcnn_tpu_torch.ops import grouped_int8 as k5
@@ -1279,6 +1281,10 @@ def _op_cases(gen):
         ("grouped_int8", ops_.grouped_int8.default, k5.grouped_int8_cuda,
          (x5, w5, vec(32) * 1e-3, vec(32), 2, 1, 32, int(Activation.RELU),
           None, None, None, 0.05), None),
+        ("bn_act", ops_.bn_act.default, k6.bn_act_cuda,
+         (torch.randn(2, 48, 13, 13, generator=gen).to(torch.bfloat16),
+          vec(48), vec(48) - 1, vec(48), vec(48), True,
+          int(Activation.LRELU)), None),
     ]
 
 
@@ -1289,7 +1295,8 @@ def test_ops_on_the_card_equal_their_plain_versions_and_launchers(cuda):
     bit."""
     counters = {"yolo_decode": "yolo_decode", "row_shift": "row_shift",
                 "col_shift": "row_shift", "depthwise": "depthwise",
-                "conv_int8": "conv_int8", "grouped_int8": "grouped_int8"}
+                "conv_int8": "conv_int8", "grouped_int8": "grouped_int8",
+                "bn_act": "bn_act"}
     for name, op, launcher, args, tol in _op_cases(
             torch.Generator().manual_seed(11)):
         dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a
@@ -1432,3 +1439,151 @@ def test_pipeline_recompute_is_bit_equal_on_the_card(cuda):
         torch.backends.cudnn.deterministic = det
     for k, v in runs[0][0].items():
         assert torch.equal(v, runs[1][0][k]), k
+
+
+# ------------------------------------- K6: a conv's BN and activation --- #
+
+from bcnn_tpu_torch.ops import bn_act as k6  # noqa: E402
+
+K6_ACTS = [Activation.NONE, Activation.RELU, Activation.LRELU]
+# planes of 169 and 676 values with C of 3, 255 and 1,024; planes of 1
+# and 3 values, C = 1, planes under a vector
+K6_EDGES = [(2, 3, 13, 13), (1, 255, 13, 13), (1, 1024, 13, 13),
+            (2, 3, 26, 26), (1, 255, 26, 26), (1, 1024, 26, 26),
+            (3, 1, 1, 1), (2, 5, 3, 1), (1, 1, 7, 9), (2, 7, 2, 2)]
+
+
+def _k6_bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _k6_vectors(c, gen, device):
+    """(scales, biases, run_mean, run_var), fp32."""
+    return tuple(t.to(device) for t in (
+        torch.rand(c, generator=gen) + 0.5, torch.randn(c, generator=gen),
+        torch.randn(c, generator=gen), torch.rand(c, generator=gen) * 2))
+
+
+def _k6_same(x, vecs, folded, act):
+    """K6 through its op equals the plain ops on the card, bits and
+    strides; one launch counted."""
+    before = library.launches("bn_act")
+    got = k6.bn_act(x, *vecs, folded, act)
+    want = k6.bn_act_ref(x, *vecs, folded, act)
+    torch.cuda.synchronize()
+    assert library.launches("bn_act") == before + 1
+    assert got.dtype == want.dtype and got.stride() == want.stride()
+    assert torch.equal(_k6_bits(got), _k6_bits(want)), (
+        tuple(x.shape), x.dtype, folded, act)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_matches_plain_ops_at_every_yolov3_bn_conv(cuda, dtype, folded):
+    """Each of full YOLOv3 416's 72 BN conv outputs at batch 2, with
+    NONE, RELU and LRELU: bit for bit."""
+    from bcnn_tpu_torch.models import yolov3
+
+    net = yolov3(2, 416, 416, 80)
+    gen = torch.Generator().manual_seed(22)
+    convs = 0
+    for node in net.nodes:
+        if node.type.name != "CONV2D" or not node.param.get("batch_norm"):
+            continue
+        d = net.tensors[node.dst[0]]
+        x = (3 * torch.randn(2, d.c, d.h, d.w, generator=gen)).to(
+            dtype).to(cuda)
+        vecs = _k6_vectors(d.c, gen, cuda)
+        for act in K6_ACTS:
+            _k6_same(x, vecs, folded, act)
+        convs += 1
+    assert convs == 72
+
+
+@pytest.mark.parametrize("shape", K6_EDGES)
+def test_k6_matches_plain_ops_at_the_edges(cuda, shape):
+    """NaN, signed zeros, infinities and an fp32 subnormal; x on a
+    16-byte boundary and one value off it (all scalars); both dtypes,
+    folded and unfolded, each fused activation: bit for bit."""
+    gen = torch.Generator().manual_seed(shape[1])
+    x = 3 * torch.randn(shape, generator=gen)
+    x.view(-1)[:6] = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                                   -float("inf"), 1e-40])[:x.numel()]
+    vecs = _k6_vectors(shape[1], gen, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype).to(cuda)
+        off = torch.empty(xd.numel() + 1, dtype=dtype,
+                          device=cuda)[1:].view(shape)
+        off.copy_(xd)
+        assert off.data_ptr() % 16
+        for xs in (xd, off):
+            for folded in (False, True):
+                for act in K6_ACTS:
+                    _k6_same(xs, vecs, folded, act)
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 5, 5, generator=gen).to(cuda)
+    vecs = _k6_vectors(4, gen, cuda)
+    before = library.launches("bn_act")
+    with pytest.raises(TypeError):
+        k6.bn_act(x.double(), *vecs, False, Activation.LRELU)
+    with pytest.raises(ValueError):
+        k6.bn_act(x.transpose(2, 3), *vecs, False, Activation.LRELU)
+    with pytest.raises(TypeError):
+        k6.bn_act(x, *vecs, False, Activation.PRELU)
+    with pytest.raises(ValueError):
+        k6.bn_act(x, vecs[0][:3], *vecs[1:], False, Activation.LRELU)
+    with pytest.raises(ValueError):
+        k6.bn_act(x, vecs[0].double(), *vecs[1:], False, Activation.LRELU)
+    with pytest.raises(ValueError):
+        k6.bn_act(x, vecs[0].cpu(), *vecs[1:], False, Activation.LRELU)
+    assert library.launches("bn_act") == before
+    empty = k6.bn_act(x[:0], *vecs, False, Activation.LRELU)
+    assert empty.shape == (0, 4, 5, 5)
+    assert library.launches("bn_act") == before  # nothing to launch
+
+
+def test_k6_runs_each_bn_conv_of_a_bf16_detect_and_none_of_an_int8_one(
+        cuda, monkeypatch):
+    """Full YOLOv3 (96 px, batch 2): a bf16 detect launches K6 72 times,
+    with the detections of the plain ops on the card bit for bit; an
+    int8 one (K4 on every conv) none."""
+    from bcnn_tpu_torch.models import yolov3
+
+    net = yolov3(2, 96, 96, 4)
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    p, s = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0, residual_scale=0.1))
+    cpu = Session(net, 0, device="cpu")
+    cpu.params, cpu.state = p, s
+    cpu.compile_net()
+    sess = Session(net, 0, device=cuda)
+    sess.params = {k: v.to(cuda) for k, v in p.items()}
+    sess.state = {k: v.to(cuda) for k, v in s.items()}
+    sess.compile_net()
+    x = np.random.RandomState(0).rand(2, 3, 96, 96).astype(np.float32)
+    before = library.launches("bn_act")
+    got = sess.detect_on_batch(x, 0.3, 30)
+    torch.cuda.synchronize()
+    assert library.launches("bn_act") == before + 72
+    with monkeypatch.context() as m:
+        m.setattr(k6, "takes", lambda *a: False)
+        plain = sess.detect_on_batch(x, 0.3, 30)
+    assert library.launches("bn_act") == before + 72
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+    quant = ptq_synthetic(net, cpu)
+    net.quant = dict(quant, weights={
+        k: {kk: vv.to(cuda) for kk, vv in e.items()}
+        for k, e in quant["weights"].items()})
+    sess.state = {k: v.to(cuda) for k, v in cpu.state.items()}
+    try:
+        before, k4 = library.launches("bn_act"), library.launches("conv_int8")
+        sess.detect_on_batch(x, 0.3, 30)
+        torch.cuda.synchronize()
+        assert library.launches("bn_act") == before
+        assert library.launches("conv_int8") == k4 + 75
+    finally:
+        net.quant = None

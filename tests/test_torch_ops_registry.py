@@ -1,4 +1,4 @@
-"""The five kernels as `torch.library` ops (`bcnn_tpu_torch.ops.library`):
+"""The six kernels as `torch.library` ops (`bcnn_tpu_torch.ops.library`):
 `torch.library.opcheck` on each through its CPU implementation, at small
 shapes. opcheck runs the op against its schema (no input mutated or
 aliased), the fake implementation against the real one (shape, dtype
@@ -11,6 +11,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from bcnn_tpu_torch.ops import bn_act as k6
 from bcnn_tpu_torch.ops import conv_int8 as k4
 from bcnn_tpu_torch.ops import depthwise as k3
 from bcnn_tpu_torch.ops import grouped_int8 as k5
@@ -81,6 +82,12 @@ CASES = {
                                   k5_args(16, 0.05, g)),
     "grouped_int8_groups4_fp32": lambda g: (ops.grouped_int8.default,
                                             k5_args(4, None, g)),
+    "bn_act_bf16": lambda g: (ops.bn_act.default, (
+        torch.randn(2, 5, 13, 13, generator=g).to(torch.bfloat16),
+        *vecs(5, g)[:4], False, int(Activation.LRELU))),
+    "bn_act_fp32_folded": lambda g: (ops.bn_act.default, (
+        torch.randn(2, 5, 3, 1, generator=g), *vecs(5, g)[:4], True,
+        int(Activation.RELU))),
 }
 
 
@@ -128,6 +135,7 @@ def test_wrappers_reach_the_ops_on_the_cpu():
     img_c = img.transpose(1, 2).contiguous()  # (N, win, R, C)
     x = torch.randn(1, 4, 6, 6, generator=g)
     w, b = torch.randn(4, 1, 3, 3, generator=g), torch.zeros(4)
+    bn = vecs(4, g)[:4]
     (xq, wq, dq, bq, *_), (x5, w5, d5, b5, *_) = (k4_args("none", 0.1, g),
                                                   k5_args(16, 0.1, g))
     calls = [
@@ -141,6 +149,7 @@ def test_wrappers_reach_the_ops_on_the_cpu():
         (lambda: k5.grouped_int8_fused(x5, w5, d5, b5, 2, 1, 16,
                                        Activation.RELU, s_out=0.1),
          "grouped_int8"),
+        (lambda: k6.bn_act(x, *bn, False, Activation.LRELU), "bn_act"),
     ]
     for fn, name in calls:
         with Seen() as seen:

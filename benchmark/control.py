@@ -31,7 +31,6 @@ import torch  # noqa: E402
 
 from benchmark import check, harness, traffic  # noqa: E402
 from benchmark.program import Served, build_kernels  # noqa: E402
-from benchmark.reference import darknet, detect  # noqa: E402
 
 LOWER = {"int8": torch.bfloat16, "bf16": torch.float8_e4m3fn}
 
@@ -39,10 +38,11 @@ LOWER = {"int8": torch.bfloat16, "bf16": torch.float8_e4m3fn}
 def readings(name: str, seed: int, device="cuda") -> dict:
     cell = harness.load_cell(name)
     prec, size = cell["precision"], cell["cfg"]["input_size"]
+    ref = cell["ref"]
     layers, weights, calib, pool = harness.make_inputs(cell, seed, device)
     sched = traffic.Schedule(cell, seed)
     xs = [pool[sched.input_of(i)] for i in range(cell["check"]["requests"])]
-    params = [p for _, p in darknet.heads(layers)]
+    params = [p for _, p in ref.heads(layers)]
     d = cell["detect"]
     served = Served(cell["cfg"], cell, weights, calib.cpu().numpy(), device)
     outs = [served.detect(x) for x in xs]
@@ -53,23 +53,23 @@ def readings(name: str, seed: int, device="cuda") -> dict:
                      calib.cpu().numpy(), device)
         low_heads = [low.heads(x) for x in xs]
         low.free()
-    quant = darknet.calibrate(layers, weights, calib) if prec == "int8" \
+    quant = ref.calibrate(layers, weights, calib) if prec == "int8" \
         else None
-    quant4 = darknet.calibrate(layers, weights, calib, bits=4) \
+    quant4 = ref.calibrate(layers, weights, calib, bits=4) \
         if prec == "int8" else None
     block = cell["check"].get("block", 16)
     out = {"seed": seed, "heads": 0.0, "dets": 0.0, "select": 0,
            "control_heads": 0.0, "control_dets": 0.0, "control_select": 0}
     for i, x in enumerate(xs):
         xt = torch.as_tensor(x, device=device)
-        ref = check.ref_heads(layers, weights, xt, prec, quant, block)
+        rh = check.ref_heads(ref, layers, weights, xt, prec, quant, block)
         ph = [h.to(device) for h in heads[i]]
-        out["heads"] = check.worst(out["heads"], check.head_gap(ph, ref))
+        out["heads"] = check.worst(out["heads"], check.head_gap(ph, rh))
         g = lambda srv: check.det_numbers(  # noqa: E731
-            srv, ph, params, size, size, d["max_dets"], d["thresh"],
+            ref, srv, ph, params, size, size, d["max_dets"], d["thresh"],
             cell["check"]["margins"])
         gap, faults = g(outs[i])
-        rp = torch.sigmoid(detect.decode(ph, params, size, size)[1])
+        rp = torch.sigmoid(ref.decode(ph, params, size, size)[1])
         out["valid_least"] = min(out.get("valid_least", 1 << 30),
                                  int((rp > d["thresh"]).sum(1).min()))
         out["kept_most"] = max(out.get("kept_most", 0),
@@ -77,13 +77,14 @@ def readings(name: str, seed: int, device="cuda") -> dict:
         out["dets"] = check.worst(out["dets"], gap)
         out["select"] += faults
         if prec == "int8":
-            low_h = check.ref_heads(layers, weights, xt, prec, quant4, block)
+            low_h = check.ref_heads(ref, layers, weights, xt, prec, quant4,
+                                    block)
         else:
             low_h = [h.to(device) for h in low_heads[i]]
         out["control_heads"] = check.worst(out["control_heads"],
-                                           check.head_gap(low_h, ref))
-        low_det = detect.detections(ph, params, size, size, d["max_dets"],
-                                    d["thresh"], LOWER[prec])
+                                           check.head_gap(low_h, rh))
+        low_det = ref.detections(ph, params, size, size, d["max_dets"],
+                                 d["thresh"], LOWER[prec])
         gap, faults = g(low_det)
         out["control_dets"] = check.worst(out["control_dets"], gap)
         out["control_select"] += faults

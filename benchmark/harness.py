@@ -3,8 +3,9 @@ result line.
 
 Everything a cell, a configuration or a metric needs is found by name:
 `benchmark/workloads/<cell>.json`, `benchmark/configs/<config>.json`
-(and the frozen cfg it names), `benchmark/metrics/<metric>.py`, and the
-cell's metrics in `BENCHMARK.json` at the checkout's root.
+(and the frozen cfg and the plain reference it names),
+`benchmark/metrics/<metric>.py`, and the cell's metrics in
+`BENCHMARK.json` at the checkout's root.
 """
 
 from __future__ import annotations
@@ -16,25 +17,69 @@ import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from benchmark import check, roofline, trace, traffic
-from benchmark.reference import darknet
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "bcnn_tpu")
 
+# What a configuration's plain reference provides: the module
+# `benchmark/reference/<name>.py` that its `"reference"` key names. It
+# imports nothing of the program under test.
+#
+# - the layer list: `build(cfg_path, size)` the layers of the cfg at a
+#   square input (each with `shape` and `in_shape`, (C, H, W) of its
+#   output and of its first source, and `opts`, the cfg's options);
+#   `conv_layers(layers)` the convs' indices in cfg order;
+#   `conv_ops(layers, i, batch)` conv i's operations (2 x multiply-adds);
+#   `heads(layers)` (source layer, params) of each detection head;
+# - `make_weights(layers, seed, device)`: seeded weights, one dict a conv;
+# - `forward(layers, weights, x, quant)`: the raw heads of x, in float32
+#   (quant None) or by the integer scheme;
+# - the integer scheme: `calibrate(layers, weights, calib, bits=8)` a
+#   `Quant` (with `flow`, the tensors that flow as codes);
+#   `watch_tensors(layers)` the tensors that get a calibrated scale;
+# - the decode and the rule: `decode(heads, params, net_w, net_h)` every
+#   candidate (boxes, objectness logits, class logits);
+#   `detections(heads, params, net_w, net_h, max_dets, thresh, dtype)` a
+#   detection request's output; `NMS_THRESH`, the rule's IoU limit.
+REFERENCE = ("build", "conv_layers", "conv_ops", "heads", "make_weights",
+             "forward", "calibrate", "Quant", "watch_tensors", "decode",
+             "detections", "NMS_THRESH")
+
+
+def load_reference(config: str, name) -> ModuleType:
+    """The plain reference that configuration `config` names."""
+    if not (isinstance(name, str) and name.isidentifier()
+            and (HERE / "reference" / f"{name}.py").is_file()):
+        raise ValueError(f"configuration {config!r}: reference {name!r} is "
+                         "not an identifier <name> with a "
+                         "benchmark/reference/<name>.py")
+    ref = importlib.import_module(f"benchmark.reference.{name}")
+    missing = [n for n in REFERENCE if not hasattr(ref, n)]
+    if missing:
+        raise ValueError(f"configuration {config!r}: reference {name!r} "
+                         f"lacks {', '.join(missing)}")
+    return ref
+
 
 def load_cell(name: str) -> Dict:
+    """The cell's workload, with its configuration under "cfg" and the
+    configuration's plain reference under "ref"."""
     cell = json.loads((HERE / "workloads" / f"{name}.json").read_text())
-    cfg = json.loads(
-        (HERE / "configs" / f"{cell['config']}.json").read_text())
+    config = cell["config"]
+    cfg = json.loads((HERE / "configs" / f"{config}.json").read_text())
+    if "reference" not in cfg:
+        raise ValueError(f"configuration {config!r} names no reference")
     cfg["cfg_path"] = str(HERE / "configs" / cfg["cfg"])
     cell["name"], cell["cfg"] = name, cfg
+    cell["ref"] = load_reference(config, cfg["reference"])
     return cell
 
 
@@ -79,10 +124,10 @@ def make_inputs(cell: Dict, seed: int, device):
     """(weights, calibration batch, input pool) from the seed, made on
     the device in a few calls; the pool is copied to pageable host
     memory, where a client's frames are."""
-    cfg = cell["cfg"]
+    cfg, ref = cell["cfg"], cell["ref"]
     size = cfg["input_size"]
-    layers = darknet.build(cfg["cfg_path"], size)
-    weights = darknet.make_weights(layers, seed, device)
+    layers = ref.build(cfg["cfg_path"], size)
+    weights = ref.make_weights(layers, seed, device)
     gen = torch.Generator(device=device).manual_seed(seed ^ 0x1A9E)
     calib = torch.rand((cell.get("calib_images", 4), 3, size, size),
                        generator=gen, device=device)
@@ -185,14 +230,14 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
         numbers, limits)
 
     # -- the metrics --------------------------------------------------- #
-    batch = cell["batch"]
+    batch, ref = cell["batch"], cell["ref"]
     run = Run(cell, setup_s, reqs, win["window"])
-    run.ops_per_request = float(sum(roofline.conv_ops(layers, batch)))
+    run.ops_per_request = float(sum(roofline.conv_ops(ref, layers, batch)))
     run.peak_ops = roofline.PEAK_OPS[cell["precision"]]
     if cell["precision"] == "int8":
         flow = numbers.pop("_flow")
-        run.k4_bound_s = roofline.int8_conv_bound_s(layers, batch, flow)
-        run.k4_launches = len(darknet.conv_layers(layers))
+        run.k4_bound_s = roofline.int8_conv_bound_s(ref, layers, batch, flow)
+        run.k4_launches = len(ref.conv_layers(layers))
     if traced and tracer.events is not None:
         run.trace = trace.parse(tracer.events)
         run.traced = reqs[tracer.first:tracer.first + tracer.n]
@@ -226,21 +271,21 @@ def check_numbers(cell, layers, weights, calib, xs, served_outs,
                   prog_heads) -> Dict[str, float]:
     """The numbers compared (see `check`), and under "_flow" the
     reference's int8 flow plan."""
-    prec = cell["precision"]
-    quant = darknet.calibrate(layers, weights, calib) if prec == "int8" \
+    prec, ref = cell["precision"], cell["ref"]
+    quant = ref.calibrate(layers, weights, calib) if prec == "int8" \
         else None
     chk = cell["check"]
-    params = [p for _, p in darknet.heads(layers)]
+    params = [p for _, p in ref.heads(layers)]
     size = cell["cfg"]["input_size"]
     d = cell["detect"]
     heads_gap, dets, select = 0.0, 0.0, 0
     for x, srv, ph in zip(xs, served_outs, prog_heads):
         xt = torch.as_tensor(x, device=calib.device)
-        rh = check.ref_heads(layers, weights, xt, prec, quant,
+        rh = check.ref_heads(ref, layers, weights, xt, prec, quant,
                              chk.get("block", 16))
         heads_gap = check.worst(heads_gap, check.head_gap(ph, rh))
         ph = [h.to(calib.device) for h in ph]
-        gap, faults = check.det_numbers(srv, ph, params, size, size,
+        gap, faults = check.det_numbers(ref, srv, ph, params, size, size,
                                         d["max_dets"], d["thresh"],
                                         chk["margins"])
         dets, select = check.worst(dets, gap), select + faults

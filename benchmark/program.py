@@ -1,8 +1,9 @@
 """The system under test: the port (`bcnn_tpu_torch`) built for one cell.
 
 This is the only file of the benchmark that imports the port. It builds
-the net of the cell's configuration through the port's own entry
-(`models.yolov3`, which parses the configuration's frozen Darknet cfg),
+the net of the cell's configuration through the port's own entry, the
+builder of `bcnn_tpu_torch.models` that the configuration's `"program"`
+key names (called with the configuration's frozen Darknet cfg),
 hands it the benchmark's seeded weights, sets the cell's precision the
 way a user of the port does (bf16: `net.compute_dtype` and
 `net.act_dtype`; int8: the port's absmax PTQ, `ops.quant.calibrate` and
@@ -25,15 +26,16 @@ class Served:
 
     def __init__(self, config: Dict, cell: Dict, weights: List[Dict],
                  calib: np.ndarray, device):
-        from bcnn_tpu_torch import Mode, Session
-        from bcnn_tpu_torch.models import yolov3
+        from bcnn_tpu_torch import Mode, Session, models
         from bcnn_tpu_torch.types import LayerType
 
         size, batch = config["input_size"], cell["batch"]
-        if config["program"] != "yolov3":
-            raise ValueError(f"unknown program {config['program']!r}")
-        net = yolov3(batch, size, size, config["classes"], Mode.PREDICT,
-                     cfg_path=config["cfg_path"])
+        build = getattr(models, config["program"], None)
+        if not callable(build):
+            raise ValueError(f"unknown program {config['program']!r}: not "
+                             "a builder of bcnn_tpu_torch.models")
+        net = build(batch, size, size, config["classes"], Mode.PREDICT,
+                    cfg_path=config["cfg_path"])
         self.net = net
         self.sess = Session(net, 0, device=device).compile_net()
         convs = [n for n in net.nodes if n.type == LayerType.CONV2D]

@@ -16,22 +16,20 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from benchmark.reference import darknet
-
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
-def conv_ops(layers: List[darknet.Layer], batch: int) -> List[int]:
-    """Operations of each conv at `batch`, in cfg order."""
-    return [darknet.conv_ops(layers, i, batch)
-            for i in darknet.conv_layers(layers)]
+def conv_ops(ref, layers: List, batch: int) -> List[int]:
+    """Operations of each conv at `batch`, in cfg order, by the cell's
+    reference `ref` (`harness.REFERENCE`)."""
+    return [ref.conv_ops(layers, i, batch) for i in ref.conv_layers(layers)]
 
 
-def int8_conv_bytes(layers: List[darknet.Layer], batch: int,
+def int8_conv_bytes(ref, layers: List, batch: int,
                     flow: Dict[int, float]) -> List[int]:
     out = []
-    for i in darknet.conv_layers(layers):
+    for i in ref.conv_layers(layers):
         c, h, w = layers[i].in_shape
         o, oh, ow = layers[i].shape
         k = int(layers[i].opts["size"])
@@ -42,9 +40,10 @@ def int8_conv_bytes(layers: List[darknet.Layer], batch: int,
     return out
 
 
-def int8_conv_bound_s(layers: List[darknet.Layer], batch: int,
+def int8_conv_bound_s(ref, layers: List, batch: int,
                       flow: Dict[int, float]) -> float:
     """The least time of a request's int8 convs: the sum over convs of
     max(bytes / HBM peak, operations / int8 peak)."""
     return sum(max(b / PEAK_BYTES, o / PEAK_OPS["int8"]) for o, b in zip(
-        conv_ops(layers, batch), int8_conv_bytes(layers, batch, flow)))
+        conv_ops(ref, layers, batch),
+        int8_conv_bytes(ref, layers, batch, flow)))

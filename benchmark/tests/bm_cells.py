@@ -1,13 +1,16 @@
 """Small CPU copies of the benchmark's cells for the tests: the cell's
 own files with the input cut to `size` and the batch to `batch`, written
 as a temporary configuration and workload beside the real ones and
-removed afterwards."""
+removed afterwards; and the top-level modules a fresh interpreter
+loads."""
 
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import subprocess
+import sys
 import uuid
 
 from benchmark import harness
@@ -37,3 +40,15 @@ def small_cell(cell: str, size: int = 64, batch: int = 2, requests: int = 2,
     finally:
         for p in paths:
             os.remove(p)
+
+
+def modules_after(code: str) -> set:
+    """The top-level names in `sys.modules` once a fresh interpreter at
+    the checkout's root has run `code`."""
+    p = subprocess.run([sys.executable, "-c", code + (
+        "\nimport sys, json\n"
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")],
+        capture_output=True, text=True, cwd=str(harness.ROOT),
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert p.returncode == 0, p.stderr
+    return set(json.loads(p.stdout.strip().splitlines()[-1]))

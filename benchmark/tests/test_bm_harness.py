@@ -15,7 +15,7 @@ from bcnn_tpu_torch.ops import yolo
 
 from benchmark import harness
 from benchmark.program import Served
-from bm_cells import small_cell
+from bm_cells import modules_after, small_cell
 
 torch.set_num_threads(2)
 
@@ -181,16 +181,6 @@ def test_without_a_card_it_exits_nonzero_and_prints_nothing():
     assert p.stdout.strip() == ""
 
 
-def _modules_after(code: str) -> set:
-    p = subprocess.run([sys.executable, "-c", code + (
-        "\nimport sys, json\n"
-        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")],
-        capture_output=True, text=True, cwd=str(harness.ROOT),
-        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
-    assert p.returncode == 0, p.stderr
-    return set(json.loads(p.stdout.strip().splitlines()[-1]))
-
-
 def test_a_run_loads_neither_jax_nor_the_jax_package():
     code = (
         "import time, sys\n"
@@ -203,16 +193,18 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
         "        for traced in (False, True):\n"
         "            harness.run_cell(tag, 3, 0.3, traced,"
         " time.perf_counter(), device='cpu', bench=bench)\n" % ([A, E],))
-    mods = _modules_after(code)
+    mods = modules_after(code)
     assert "bcnn_tpu_torch" in mods  # the program did run
     assert not mods & set(harness.FORBIDDEN)
     # the harness's own check names what it finds
     assert harness.forbidden_modules() == [] or "jax" in sys.modules
 
 
-def test_the_reference_loads_nothing_of_the_port():
-    mods = _modules_after(
-        "import benchmark.reference.darknet, benchmark.reference.detect")
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in (harness.HERE / "reference").glob("*.py")))
+def test_the_reference_loads_nothing_of_the_port(name):
+    """Every module under benchmark/reference/, imported alone."""
+    mods = modules_after(f"import benchmark.reference.{name}")
     assert not mods & {"bcnn_tpu_torch", *harness.FORBIDDEN}
 
 

@@ -36,7 +36,7 @@ def test_heads_agree(config, prec):
     quant = darknet.calibrate(layers, weights, calib) if prec == "int8" \
         else None
     x = torch.as_tensor(pool[0])
-    ref = check.ref_heads(layers, weights, x, prec, quant, 2)
+    ref = check.ref_heads(cell["ref"], layers, weights, x, prec, quant, 2)
     assert check.head_gap(served.heads(pool[0]), ref) < TOL[config, prec]
 
 
@@ -75,7 +75,7 @@ def test_detections_follow_the_heads(prec):
     margins = harness.load_cell(
         "yolov3-416.detect-bf16.b64" if prec == "bf16"
         else "yolov3-416.detect-int8.b64")["check"]["margins"]
-    gap, faults = check.det_numbers(out, heads, params, 64, 64,
+    gap, faults = check.det_numbers(cell["ref"], out, heads, params, 64, 64,
                                     d["max_dets"], d["thresh"], margins)
     # the port decodes bf16 heads in bf16 (an objectness or score within
     # 2^-8 of its value, a box within 2^-8 relatively)
@@ -99,16 +99,16 @@ def test_the_selection_rule_is_greedy_nms_without_margins():
     none = {"sigmoid": 0.0, "exp": 0.0}
     ref = detect.detections(heads, params, 64, 64, d["max_dets"],
                             d["thresh"])
-    gap, faults = check.det_numbers(ref, heads, params, 64, 64,
+    gap, faults = check.det_numbers(cell["ref"], ref, heads, params, 64, 64,
                                     d["max_dets"], d["thresh"], none)
     assert gap < 1e-6 and faults == 0
     for drop in (0, -1):
         obj = ref[2].clone()
         kept = (obj[0] > 0).nonzero().flatten()
         obj[0, kept[drop]] = 0
-        _, faults = check.det_numbers((ref[0], ref[1], obj), heads, params,
-                                      64, 64, d["max_dets"], d["thresh"],
-                                      none)
+        _, faults = check.det_numbers(cell["ref"], (ref[0], ref[1], obj),
+                                      heads, params, 64, 64, d["max_dets"],
+                                      d["thresh"], none)
         assert faults >= 1
 
 
@@ -117,9 +117,9 @@ def test_lower_precision_fails_where_the_program_passes():
     place reads far above the program."""
     cell, layers, weights, calib, pool, served = built("yolov3-416", "int8")
     x = torch.as_tensor(pool[0])
-    ref = check.ref_heads(layers, weights, x, "int8",
+    ref = check.ref_heads(cell["ref"], layers, weights, x, "int8",
                           darknet.calibrate(layers, weights, calib), 2)
-    low = check.ref_heads(layers, weights, x, "int8",
+    low = check.ref_heads(cell["ref"], layers, weights, x, "int8",
                           darknet.calibrate(layers, weights, calib, bits=4), 2)
     prog = check.head_gap(served.heads(pool[0]), ref)
     assert check.head_gap(low, ref) > 3 * max(prog, 1e-4)

@@ -1,6 +1,8 @@
 """The yardstick: conv operations against Darknet's published totals and
 hand counts, and the int8 conv bound."""
 
+import json
+
 import pytest
 
 from benchmark import harness, roofline
@@ -11,13 +13,21 @@ from benchmark.reference import darknet
 PUBLISHED = {"yolov3-416": 65.86e9}
 
 
+def ref_of(config):
+    """The plain reference that the configuration names."""
+    cfg = json.loads(
+        (harness.HERE / "configs" / f"{config}.json").read_text())
+    return harness.load_reference(config, cfg["reference"])
+
+
 def layers_of(config):
-    return darknet.build(str(harness.HERE / "configs" / f"{config}.cfg"), 416)
+    return ref_of(config).build(
+        str(harness.HERE / "configs" / f"{config}.cfg"), 416)
 
 
 @pytest.mark.parametrize("config", sorted(PUBLISHED))
 def test_conv_operations_match_darknets_totals(config):
-    total = sum(roofline.conv_ops(layers_of(config), 1))
+    total = sum(roofline.conv_ops(ref_of(config), layers_of(config), 1))
     assert abs(total / PUBLISHED[config] - 1) < 0.01
 
 
@@ -30,8 +40,9 @@ def test_conv_operations_match_darknets_totals(config):
     ("yolov3-416", 58, 2 * 255 * 13 * 13 * 1024),
 ])
 def test_conv_operations_equal_hand_counts(config, conv, ops):
-    assert roofline.conv_ops(layers_of(config), 1)[conv] == ops
-    assert roofline.conv_ops(layers_of(config), 8)[conv] == 8 * ops
+    ref, layers = ref_of(config), layers_of(config)
+    assert roofline.conv_ops(ref, layers, 1)[conv] == ops
+    assert roofline.conv_ops(ref, layers, 8)[conv] == 8 * ops
 
 
 def test_the_int8_bound_counts_each_byte_once():
@@ -39,7 +50,7 @@ def test_the_int8_bound_counts_each_byte_once():
     # one scale for every tensor: the largest flow plan
     flow = darknet.plan_flow(
         layers, {t: 1.0 for t in darknet.watch_tensors(layers)})
-    b = roofline.int8_conv_bytes(layers, 8, flow)
+    b = roofline.int8_conv_bytes(ref_of("yolov3-416"), layers, 8, flow)
     # conv 0: x (8, 3, 416, 416) int8, w (32, 3, 3, 3), out (8, 32, 416,
     # 416) int8, five float32 vectors of 32
     assert b[0] == 8 * 3 * 416 * 416 + 32 * 27 + 8 * 32 * 416 * 416 \
@@ -47,5 +58,5 @@ def test_the_int8_bound_counts_each_byte_once():
     # a head writes float32 and has two vectors (scale, bias)
     assert b[74] == 8 * 256 * 52 * 52 + 255 * 256 + 8 * 255 * 52 * 52 * 4 \
         + 2 * 4 * 255
-    t = roofline.int8_conv_bound_s(layers, 8, flow)
+    t = roofline.int8_conv_bound_s(ref_of("yolov3-416"), layers, 8, flow)
     assert 0 < t < 1e-2

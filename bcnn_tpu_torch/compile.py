@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import debug, ops
-from .graph import Net, Node, TensorKind
+from .graph import Net, Node, TensorKind, pool_offset
 from .profiling import recording, span
 from .types import Activation, LayerType, Loss, Mode
 
@@ -90,6 +90,16 @@ def _data_srcs(node: Node):
     if node.type == LayerType.ELTWISE:
         return list(node.src[:2])
     return [node.src[0]] if node.src else []
+
+
+def _int8_mish(act: Activation, x: torch.Tensor) -> None:
+    """Raises ValueError for a quantized node with MISH on the card: K4's
+    and K5's epilogues do not fuse it, and the int8 flow has not been
+    calibrated across a non-monotone activation."""
+    if act == Activation.MISH and x.is_cuda:
+        raise ValueError("int8 serving on the card has no MISH: K4 and K5 "
+                         "do not fuse it (serve a Mish net in bf16 or "
+                         "fp32)")
 
 
 def build_grad_routing(net: Net):
@@ -313,8 +323,8 @@ class _Executor:
         net.bn_frozen_stats, the step-start running stats) and writes
         the new running stats into `state`. Outside TRAIN, BN and the
         activation are one K6 launch where `ops.bn_act.takes` the output
-        (on the card: bf16 or fp32, no autograd; NONE, RELU or LRELU),
-        on the output made contiguous and the vectors made fp32."""
+        (on the card: bf16 or fp32, no autograd; NONE, RELU, LRELU or
+        MISH), on the output made contiguous and the vectors made fp32."""
         p = node.param
         if p.get("batch_norm"):
             mean_k = self.key_of(node.src[extra["mean"]])
@@ -453,12 +463,14 @@ class _Executor:
         layout since it was made. inv = 1 / sqrt(var + eps) takes two
         correctly rounded ops where bcnn_tpu takes rsqrt, so the card
         and the CPU agree bit for bit. An activation neither kernel fuses
-        runs after it."""
+        runs after it, except MISH on the card, which raises
+        (`_int8_mish`)."""
         from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
         from .ops.grouped_int8 import grouped_int8_fused
 
         p = node.param
         act = p["activation"]
+        _int8_mish(act, x)
         fused = act in FUSED_ACT
         s_out = self.int8_flow.get(node.dst[0]) if fused else None
         bn = {}
@@ -490,6 +502,7 @@ class _Executor:
         from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
 
         act = node.param["activation"]
+        _int8_mish(act, x)
         fused = act in FUSED_ACT
         y = conv_int8_fused(
             x, w, d, self.p(node.src[2]), 1, pad,
@@ -690,7 +703,8 @@ class _Executor:
         p = node.param
         d = self.net.tensors[node.dst[0]]
         self.values[node.dst[0]] = ops.maxpool(
-            self.values[node.src[0]], p["size"], p["stride"], d.h, d.w
+            self.values[node.src[0]], p["size"], p["stride"], d.h, d.w,
+            pool_offset(p),
         )
 
     def _avgpool(self, node: Node):

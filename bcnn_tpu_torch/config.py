@@ -18,6 +18,15 @@
         indices, `padding=` literal with the SAME/VALID flip;
   - bcnn_add_layer (bcnn_net.c:971-1112): section name -> builder.
 
+Beyond bcnn, for Darknet cfgs that bcnn cannot read (YOLOv4): the
+activation `mish` (`Activation.MISH`; any other unknown name still
+falls back to RELU, as in the reference), a [yolo] section's
+`scale_x_y` (default 1), and, in the Darknet dialect, Darknet's max-pool
+(maxpool_layer.c): `padding` (default size - 1) pads the input, a
+window starts at i * stride - padding / 2, so odd windows are centred,
+and the output is (w + padding - size) / stride + 1. Pools whose window
+starts at 0 (every size-2 pool) build as in bcnn.
+
 As in `bcnn_tpu`, LRN's alpha / beta / k parse as floats where the
 reference takes atoi (:880-884). `load_net` with a weight file stages
 the loaded tensors (CPU, float32) on `net._loaded_params` /
@@ -54,6 +63,7 @@ _ACTIVATIONS = {
     "abs": Activation.ABS,
     "none": Activation.NONE,
     "linear": Activation.NONE,
+    "mish": Activation.MISH,  # the port's own: bcnn has no Mish
     # NB: "logistic" is NOT mapped — the reference's parser has no entry
     # for it and falls back to ReLU with a warning (bcnn_net.c:889-916);
     # replicated for config parity (verified by the randomized parity
@@ -133,6 +143,10 @@ class LayerParam:
     dst_id: Optional[str] = None
     anchors_mask: Optional[List[int]] = None
     anchors: Optional[List[float]] = None
+    # the port's own, for Darknet cfgs: a [yolo] section's scale_x_y, and
+    # the Darknet dialect's `padding=` as Darknet's max-pool reads it
+    scale_x_y: float = 1.0
+    darknet_padding: Optional[int] = None
 
 
 def _darknet_lid(section_idx: int, l: int) -> str:
@@ -155,6 +169,7 @@ def layer_param_set(
         if fmt == 1:
             lp.pad = int(val)
             lp.padding_type = Padding.SAME if lp.pad else Padding.VALID
+            lp.darknet_padding = lp.pad
     elif name == "pad":
         if fmt == 0:
             lp.pad = int(val)
@@ -223,6 +238,8 @@ def layer_param_set(
             f"lid{section_idx - 1}",
             _darknet_lid(section_idx, int(val)),
         ]
+    elif name == "scale_x_y":  # Darknet [yolo]
+        lp.scale_x_y = float(val)
     # unknown keys are silently ignored, like the reference
 
 
@@ -303,8 +320,10 @@ def net_set_param(net: Net, name: str, val: str) -> None:
         aug["no_input_norm"] = int(val)
 
 
-def add_layer(net: Net, section_name: str, lp: LayerParam) -> None:
-    """bcnn_add_layer dispatch (bcnn_net.c:971-1112)."""
+def add_layer(net: Net, section_name: str, lp: LayerParam,
+              fmt: int = 0) -> None:
+    """bcnn_add_layer dispatch (bcnn_net.c:971-1112); fmt 1 (Darknet)
+    builds a max-pool by Darknet's rule."""
     name = section_name
     if len(net.nodes) == 0:
         t0 = net.tensors[0]
@@ -346,8 +365,13 @@ def add_layer(net: Net, section_name: str, lp: LayerParam) -> None:
     elif name == "[softmax]":
         net.add_softmax_layer(src0, need_dst())
     elif name in ("[max]", "[maxpool]"):
+        darknet = None
+        if fmt == 1:
+            darknet = (lp.size - 1 if lp.darknet_padding is None
+                       else lp.darknet_padding)
         net.add_maxpool_layer(
-            lp.size, lp.stride, lp.padding_type, src0, need_dst()
+            lp.size, lp.stride, lp.padding_type, src0, need_dst(),
+            darknet_padding=darknet,
         )
     elif name == "[avgpool]":
         net.add_avgpool_layer(src0, need_dst())
@@ -363,11 +387,28 @@ def add_layer(net: Net, section_name: str, lp: LayerParam) -> None:
         net.add_yolo_layer(
             lp.boxes_per_cell, lp.num_classes, lp.num_coords,
             lp.num_anchors, lp.anchors_mask, lp.anchors, src0, need_dst(),
+            scale_x_y=lp.scale_x_y,
         )
     elif name == "[cost]":
         net.add_cost_layer(lp.loss, lp.cost, 1.0, src0, "label", need_dst())
     else:
         raise ValueError(f"Unknown Layer {name}")
+
+
+def add_sections(net: Net, sections: List[IniSection], fmt: int) -> None:
+    """The layers of a parsed config, sections[1:] (bcnn_load_net's loop,
+    bcnn_net.c:1181-1205): in the Darknet dialect (fmt 1) a section's
+    src and dst default to the implicit lid<N> names."""
+    for i in range(1, len(sections)):
+        lp = LayerParam()
+        for k, v in sections[i].keys:
+            layer_param_set(lp, i, k, v, fmt)
+        if fmt == 1:
+            if lp.src_id is None:
+                lp.src_id = [f"lid{i - 1}"]
+            if lp.dst_id is None:
+                lp.dst_id = f"lid{i}"
+        add_layer(net, sections[i].name, lp, fmt)
 
 
 def load_net(
@@ -400,17 +441,7 @@ def load_net(
         raise ValueError(f"Invalid config file {config_path}: empty [net]")
     for k, v in sections[0].keys:
         net_set_param(net, k, v)
-
-    for i in range(1, len(sections)):
-        lp = LayerParam()
-        for k, v in sections[i].keys:
-            layer_param_set(lp, i, k, v, fmt)
-        if fmt == 1:
-            if lp.src_id is None:
-                lp.src_id = [f"lid{i - 1}"]
-            if lp.dst_id is None:
-                lp.dst_id = f"lid{i}"
-        add_layer(net, sections[i].name, lp)
+    add_sections(net, sections, fmt)
 
     if model_path is not None:
         from .compile import init_params

@@ -30,11 +30,15 @@
 // 1e-6 in x's dtype; rsqrtf is the function torch's CUDA rsqrt calls for
 // a float. Activations: NONE; RELU as torch's clamp_min (a NaN kept, else
 // fmaxf(y, 0), in fp32); LRELU as torch.where(y > 0, y, T(slope * y)),
-// slope 0.1 in x's dtype.
+// slope 0.1 in x's dtype; MISH as torch's CUDA mish (F.mish), y taken to
+// fp32 and T(y * tanhf(log1pf(expf(y)))), the same three functions in the
+// same order, rounded once.
 //
 // What bounds it: bytes, one read and one write of each value (YOLOv3 at
 // 416, batch 64, bf16: its 72 BN convs move 9.80 GB, 2.93 ms at 3.35
-// TB/s). So the design moves each byte once, in 16-byte accesses, and
+// TB/s). MISH adds three accurate transcendentals a value (no fast-math:
+// torch's bits), which may put its launches nearer the card's fp32 issue
+// rate than its memory. So the design moves each byte once, in 16-byte accesses, and
 // keeps the instructions a byte few enough to stay under the memory:
 // - x is walked flat as 16-byte vectors (8 bf16 or 4 fp32 values),
 //   neighbouring threads on neighbouring vectors, kUnroll vectors a
@@ -73,6 +77,12 @@ constexpr int kUnroll = 4;       // vectors a thread loads before it computes
 constexpr int kNone = 0;
 constexpr int kRelu = 2;
 constexpr int kLrelu = 5;
+constexpr int kMish = 10;
+
+// torch's CUDA mish on a float: x * tanh(log1p(exp(x))), in that order
+__device__ __forceinline__ float mish(float x) {
+  return __fmul_rn(x, tanhf(log1pf(expf(x))));
+}
 
 // n / d for 0 <= n < 2^31 and 1 <= d < 2^31 (PyTorch's IntDivider)
 struct Divider {
@@ -191,6 +201,7 @@ __device__ __forceinline__ float apply(float x, const Consts& k,
   }
   if (kAct == kRelu) t = t != t ? t : fmaxf(t, 0.f);  // a NaN kept
   if (kAct == kLrelu) t = t > 0.f ? t : Tr::round(__fmul_rn(slope, t));
+  if (kAct == kMish) t = Tr::round(mish(t));
   return t;
 }
 
@@ -242,6 +253,12 @@ __device__ __forceinline__ unsigned apply2(unsigned t, unsigned m,
   if (kAct == kLrelu) {
     const unsigned q = bf2_mul(slope, t);
     t = ((lo > 0.f ? t : q) & 0xffffu) | ((hi > 0.f ? t : q) & 0xffff0000u);
+  }
+  if (kAct == kMish) {  // in fp32, each half rounded to bf16 once
+    using Tr = Traits<__nv_bfloat16>;
+    lo = Tr::round(mish(lo));
+    hi = Tr::round(mish(hi));
+    t = (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
   }
   return t;
 }
@@ -397,6 +414,8 @@ void launch(const Params& p, int act, unsigned work, int sms,
     launch_act<T, kFolded, kRelu>(p, work, sms, s);
   else if (act == kLrelu)
     launch_act<T, kFolded, kLrelu>(p, work, sms, s);
+  else if (act == kMish)
+    launch_act<T, kFolded, kMish>(p, work, sms, s);
   else
     launch_act<T, kFolded, kNone>(p, work, sms, s);
 }
@@ -406,17 +425,17 @@ void launch(const Params& p, int act, unsigned work, int sms,
 // x and y: (n, c, h*w = hw) contiguous, bf16 (bf16 != 0) or fp32, on the
 // device, y allocated by the caller; mean, var, scale, bias: fp32 (c,) on
 // the device (mean and var unread when folded). eps and slope: 1e-6 and
-// 0.1 in x's dtype. act: 0 (NONE), 2 (RELU) or 5 (LRELU). Launches on
-// `stream` (once for each run of whole images of fewer than 2^31 values)
-// and returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
-// it does not take.
+// 0.1 in x's dtype. act: 0 (NONE), 2 (RELU), 5 (LRELU) or 10 (MISH).
+// Launches on `stream` (once for each run of whole images of fewer than
+// 2^31 values) and returns cudaGetLastError(), or cudaErrorInvalidValue
+// for arguments it does not take.
 extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
                            const void* var, const void* scale,
                            const void* bias, long long n, int c,
                            long long hw, int bf16, int folded, int act,
                            float eps, float slope, void* stream) {
   if (n < 0 || c < 1 || hw < 1 || (long long)c * hw > INT_MAX ||
-      (act != kNone && act != kRelu && act != kLrelu))
+      (act != kNone && act != kRelu && act != kLrelu && act != kMish))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   int dev = 0, sms = 0;

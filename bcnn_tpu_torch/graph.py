@@ -600,21 +600,31 @@ class Net:
         self.add_node(node)
 
     def add_maxpool_layer(
-        self, size: int, stride: int, padding: Padding, src_id: str, dst_id: str
+        self, size: int, stride: int, padding: Padding, src_id: str,
+        dst_id: str, darknet_padding: Optional[int] = None,
     ):
         """bcnn_add_maxpool_layer (bcnn_maxpool_layer.c:41-143).
 
         Window origin is i*stride (never negative); out-of-range positions
         read -FLT_MAX (bcnn_maxpool_layer.c:163-183), so effective padding is
         high-side only.
+
+        darknet_padding (a Darknet cfg's pool, the port's own): Darknet's
+        rule (maxpool_layer.c) instead, the output (x + darknet_padding -
+        size) / stride + 1 and the window origin i*stride -
+        darknet_padding / 2. The param holds it where the rule differs
+        from bcnn's: a window origin below 0, or a padding other than 0
+        or size - 1 (those two give bcnn's VALID and SAME sizes).
         """
         node = Node(type=LayerType.MAXPOOL)
         self._resolve_src(node, src_id, "Maxpool layer")
-        s = self._src(node)
-        oh = _pool_out(s.h, size, stride, padding)
-        ow = _pool_out(s.w, size, stride, padding)
-        self._add_dst(node, dst_id, s.n, s.c, oh, ow)
         node.param = dict(size=size, stride=stride, padding=Padding(padding))
+        p = darknet_padding
+        if p is not None and (p // 2 or p not in (0, size - 1)):
+            node.param["darknet_padding"] = p
+        s = self._src(node)
+        self._add_dst(node, dst_id, s.n, s.c,
+                      *(_pool_out_of(x, node.param) for x in (s.h, s.w)))
         self.add_node(node)
 
     def add_avgpool_layer(self, src_id: str, dst_id: str):
@@ -724,12 +734,15 @@ class Net:
         anchors: Sequence[float],
         src_id: str,
         dst_id: str,
+        scale_x_y: float = 1.0,
     ):
         """bcnn_add_yolo_layer (bcnn_yolo.c:36-135).
 
         dst shape == src shape; anchors are a constant of the node; the
         label tensor is shaped (n, 1, 1, boxes*(4+1)) with the 50-box
-        layout (bcnn_yolo.c:68-73).
+        layout (bcnn_yolo.c:68-73). scale_x_y (the port's own, Darknet's
+        [yolo] key): a box centre is (cell + sigmoid(t) * s - (s - 1) /
+        2) / grid; the param holds it where it is not 1.
         """
         node = Node(type=LayerType.YOLOV3)
         self._resolve_src(node, src_id, "Yolo layer")
@@ -756,6 +769,8 @@ class Net:
             mask=list(mask) if mask is not None else list(range(total)),
             anchors=anchors,
         )
+        if scale_x_y != 1.0:
+            node.param["scale_x_y"] = float(scale_x_y)
         self.add_node(node)
 
     def add_cost_layer(
@@ -817,8 +832,7 @@ class Net:
                 d.w = p["stride"] * (s.w - 1) + p["size"] - 2 * p["pad"]
             elif ty == LayerType.MAXPOOL:
                 d.n = s.n
-                d.h = _pool_out(s.h, p["size"], p["stride"], p["padding"])
-                d.w = _pool_out(s.w, p["size"], p["stride"], p["padding"])
+                d.h, d.w = _pool_out_of(s.h, p), _pool_out_of(s.w, p)
             elif ty == LayerType.AVGPOOL:
                 d.n, d.h, d.w = s.n, 1, 1
             elif ty == LayerType.FULL_CONNECTED:
@@ -863,6 +877,20 @@ class Net:
 
     def state_specs(self) -> List[TensorSpec]:
         return [t for t in self.tensors if t.kind == TensorKind.STATE]
+
+
+def _pool_out_of(x: int, p: Dict) -> int:
+    """A max-pool node's output size from its param: Darknet's rule where
+    it holds "darknet_padding", else bcnn's."""
+    if "darknet_padding" in p:
+        return (x + p["darknet_padding"] - p["size"]) // p["stride"] + 1
+    return _pool_out(x, p["size"], p["stride"], p["padding"])
+
+
+def pool_offset(p: Dict) -> int:
+    """How far a max-pool node's windows start before i*stride: 0 in
+    bcnn's rule, darknet_padding / 2 in Darknet's."""
+    return p.get("darknet_padding", 0) // 2
 
 
 def _pool_out(x: int, size: int, stride: int, padding: Padding) -> int:

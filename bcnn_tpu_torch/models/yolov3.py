@@ -13,6 +13,7 @@ import os
 
 from ..graph import Net
 from ..types import Activation, FillerType, Mode, Padding
+from .darknet import darknet_net
 
 ANCHORS = [10, 14, 23, 27, 37, 58, 81, 82, 135, 169, 344, 319]
 
@@ -81,50 +82,9 @@ def yolov3(
     rewrites the [yolo] sections and the filter counts of the convs
     before them (Darknet's recipe edit); `cfg_path` points at another
     copy of the cfg."""
-    from ..config import (
-        LayerParam,
-        add_layer,
-        layer_param_set,
-        net_set_param,
-        parse_ini,
-    )
-
     cfg = cfg_path or os.path.join(
         os.path.dirname(__file__), "..", "..", "examples", "yolo",
         "yolov3.cfg",
     )
-    if not os.path.exists(cfg):
-        raise FileNotFoundError(
-            f"yolov3 recipe not found at {cfg}; pass cfg_path= pointing at "
-            "a yolov3.cfg (the repository keeps one in examples/yolo/)"
-        )
-    sections = parse_ini(cfg)
-    net = Net(mode)
-    for k, v in sections[0].keys:
-        net_set_param(net, k, v)
-    net.set_input_shape(width, height, 3, batch_size)
-
-    if classes != 80:
-        n_out = 3 * (classes + 5)
-        for i, sec in enumerate(sections):
-            if sec.name == "[yolo]":
-                sec.keys = [
-                    (k, str(classes) if k == "classes" else v)
-                    for k, v in sec.keys
-                ]
-                prev = sections[i - 1]
-                prev.keys = [
-                    (k, str(n_out) if k == "filters" else v)
-                    for k, v in prev.keys
-                ]
-
-    for i in range(1, len(sections)):
-        lp = LayerParam()
-        for k, v in sections[i].keys:
-            layer_param_set(lp, i, k, v, fmt=1)
-        if lp.src_id is None:
-            lp.src_id = [f"lid{i - 1}"]
-        if lp.dst_id is None:
-            lp.dst_id = f"lid{i}"
-        add_layer(net, sections[i].name, lp)
-    return net
+    return darknet_net("yolov3", cfg, batch_size, width, height, classes,
+                       mode)

@@ -13,7 +13,8 @@ nothing is cached from one call to the next.
 implementation is the plain version; its CUDA implementation,
 `bn_act_cuda`, launches the kernel or raises; nothing falls back. The
 kernel has no backward. `library.launches("bn_act")` counts its
-launches.
+launches, and `library.launches("bn_act", act.name)` those of one
+activation.
 
 `computes` is the one test of the function K6 computes (x's dtype and
 the activation); the launcher raises where it fails. `takes` is the
@@ -37,13 +38,14 @@ from . import library
 from .activations import LRELU_SLOPE, apply_activation, weak
 from .norm import EPS, batch_norm
 
-FUSED_ACT = (Activation.NONE, Activation.RELU, Activation.LRELU)
+FUSED_ACT = (Activation.NONE, Activation.RELU, Activation.LRELU,
+             Activation.MISH)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
 def computes(x: torch.Tensor, act: Activation) -> bool:
     """Whether K6 computes BN and then `act` on x: x bf16 or fp32, the
-    activation NONE, RELU or LRELU."""
+    activation NONE, RELU, LRELU or MISH."""
     return x.dtype in DTYPES and act in FUSED_ACT
 
 
@@ -74,7 +76,8 @@ def bn_act(
     act: Activation,
 ) -> torch.Tensor:
     """K6: `bn_act_ref` as one CUDA kernel for a CUDA x (bf16 or fp32,
-    contiguous NCHW; the vectors fp32 (C,); act NONE, RELU or LRELU),
+    contiguous NCHW; the vectors fp32 (C,); act NONE, RELU, LRELU or
+    MISH),
     through the op `bcnn_tpu_torch::bn_act` on either device. run_mean
     and run_var are unread when folded."""
     library.check_devices("bn_act", x, scales, biases, run_mean, run_var)
@@ -97,8 +100,9 @@ def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
             str(t.device) for t in (x, *vecs)))
     act = Activation(act)
     if not computes(x, act):
-        raise TypeError(f"bn_act: computes BN and NONE, RELU or LRELU on "
-                        f"bfloat16 or float32, not {act.name} on {x.dtype}")
+        raise TypeError(f"bn_act: computes BN and NONE, RELU, LRELU or "
+                        f"MISH on bfloat16 or float32, not {act.name} on "
+                        f"{x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("bn_act: x must be a contiguous NCHW tensor")
     n, c, h, w = x.shape
@@ -122,6 +126,7 @@ def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
             eps, slope, torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(rc, "bn_act")
+    library.count_kind("bn_act", act.name)
     return y
 
 

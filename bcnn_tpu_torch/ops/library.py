@@ -30,7 +30,9 @@ counter: a call that returns with an output counts one launch under the
 op's name (`launches("conv_int8")`; `reset_launches()` sets them all to
 0). A call that raises counts none, nor one whose outputs are empty:
 every launcher returns those without a launch. K2's row and column
-modes count under `row_shift`.
+modes count under `row_shift`. A launcher may count its launches by
+kind as well (`count_kind`; K6 by activation: `launches("bn_act",
+"MISH")`), beside the op's total.
 """
 
 from __future__ import annotations
@@ -43,16 +45,28 @@ from torch.utils.flop_counter import register_flop_formula
 NAMESPACE = "bcnn_tpu_torch"
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LAUNCHES: Dict[str, int] = {}
+_KINDS: Dict[str, Dict[str, int]] = {}
 
 
-def launches(name: str) -> int:
-    """Kernel launches of op `name` since the last `reset_launches`."""
-    return _LAUNCHES[name]
+def launches(name: str, kind: Optional[str] = None) -> int:
+    """Kernel launches of op `name` since the last `reset_launches`; with
+    `kind`, those its launcher counted under that kind."""
+    if kind is None:
+        return _LAUNCHES[name]
+    return _KINDS.get(name, {}).get(kind, 0)
+
+
+def count_kind(name: str, kind: str) -> None:
+    """One launch of op `name` counted under `kind` (its launcher calls
+    this once a launch; `_counted` counts the total)."""
+    kinds = _KINDS.setdefault(name, {})
+    kinds[kind] = kinds.get(kind, 0) + 1
 
 
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _KINDS.clear()
 
 
 def _counted(name: str, cuda: Callable) -> Callable:

@@ -9,6 +9,10 @@ padding. `F.max_pool2d(padding=...)` pads both sides and would shift the
 windows; `lid12` of YOLOv3-tiny (size 2, stride 1, SAME) needs exactly
 this one-sided pad.
 
+A Darknet cfg's pool (`graph.add_maxpool_layer(darknet_padding=)`)
+starts its windows `offset` = padding / 2 before i*stride: the input is
+padded with -inf by `offset` on the low side too.
+
 An int8 tensor (the int8 activation flow) pads with the int8 minimum, as
 the JAX package does (bcnn_tpu/ops/pool.py:108-118), and is pooled as an
 exact bf16 copy (every int8 value is exact there) cast back:
@@ -22,19 +26,22 @@ import torch.nn.functional as F
 
 
 def maxpool(
-    x: torch.Tensor, size: int, stride: int, out_h: int, out_w: int
+    x: torch.Tensor, size: int, stride: int, out_h: int, out_w: int,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """x: NCHW -> (N, C, out_h, out_w)."""
+    """x: NCHW -> (N, C, out_h, out_w); output (i, j)'s window starts at
+    (i*stride - offset, j*stride - offset)."""
     h, w = x.shape[2], x.shape[3]
-    pad_h = max(0, (out_h - 1) * stride + size - h)
-    pad_w = max(0, (out_w - 1) * stride + size - w)
-    if pad_h or pad_w:
-        fill = float("-inf") if x.is_floating_point() else torch.iinfo(
-            x.dtype).min
-        x = F.pad(x, (0, pad_w, 0, pad_h), value=fill)
-    if x.dtype == torch.int8:
-        return F.max_pool2d(x.to(torch.bfloat16), size, stride).to(torch.int8)
-    return F.max_pool2d(x, size, stride)
+    int8 = x.dtype == torch.int8
+    if int8:
+        x = x.to(torch.bfloat16)
+    pad_h = max(0, (out_h - 1) * stride + size - h - offset)
+    pad_w = max(0, (out_w - 1) * stride + size - w - offset)
+    if offset or pad_h or pad_w:
+        fill = torch.iinfo(torch.int8).min if int8 else float("-inf")
+        x = F.pad(x, (offset, pad_w, offset, pad_h), value=fill)
+    y = F.max_pool2d(x, size, stride)
+    return y.to(torch.int8) if int8 else y
 
 
 def global_avgpool(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,12 @@ index first, as `lax.top_k` does; `torch.topk` does not promise that.
 The greedy NMS keeps the reference's semantics (do_nms_obj,
 bcnn_yolo.c:511-545): candidates in objectness order, each alive one
 suppresses every later one whose IoU with it exceeds 0.45.
+
+A head whose param holds Darknet's `scale_x_y` s (YOLOv4; the port's
+own) centres a box at x = (col + sigmoid(tx) * s - (s - 1) / 2) / W,
+and likewise y. Only the top-k-first decode (`device_detect_topk`)
+takes it; the decode-everything paths (K1 and its plain version), the
+host decode and the training deltas raise on it (`unscaled`).
 """
 
 from __future__ import annotations
@@ -29,6 +35,15 @@ from .activations import in_f32, sigmoid
 
 NMS_THRESH = 0.45  # bcnn_yolo.c:626
 NOOBJ_IOU_THRESH = 0.5  # bcnn_yolo.c:310
+
+
+def unscaled(param: Dict, what: str) -> None:
+    """Raises ValueError where a head's box centres are scaled
+    (scale_x_y != 1): `what` has no form that scales them."""
+    s = param.get("scale_x_y", 1.0)
+    if s != 1.0:
+        raise ValueError(f"{what} has no scale_x_y; this head's is {s} "
+                         "(the top-k-first detection decodes it)")
 
 
 def yolo_head(x: torch.Tensor, num: int, classes: int) -> torch.Tensor:
@@ -119,6 +134,7 @@ def yolo_train_deltas(
     truths, a truth a later one overwrites included
     (`bcnn_tpu/ops/yolo.py:250-273`).
     """
+    unscaled(param, "the YOLO training deltas")
     num, classes = param["num"], param["classes"]
     anchors, mask, total = param["anchors"], param["mask"], param["total"]
     e = 5 + classes
@@ -326,6 +342,7 @@ def decode_layer(
     A*(5+K)) (the NCHW head transposed), to the detections whose
     objectness exceeds thresh: the fill loop of bcnn_yolo_get_detections
     (bcnn_yolo.c:604-639), in (location, anchor) order."""
+    unscaled(param, "the host decode")
     h, w, _ = y.shape
     num, classes = param["num"], param["classes"]
     yr = y.reshape(h, w, num, 5 + classes)
@@ -447,27 +464,29 @@ def device_decode_nms(
 
 def _candidate_table(meta, device) -> torch.Tensor:
     """(6, M) per-candidate col, row, grid w, grid h, anchor w, anchor h,
-    in the (head, location, anchor) order of the flattened heads."""
+    in the (head, location, anchor) order of the flattened heads; where
+    a head scales its box centres, (8, M) with each candidate's scale_x_y
+    s and -(s - 1) / 2 below them."""
     with span("bcnn.build.candidates"):
+        scaled = any(s != 1.0 for *_, s in meta)
         parts = []
-        for h, w, num, anchors, mask in meta:
+        for h, w, num, anchors, mask, s in meta:
             loc = np.arange(h * w)
             aw = np.asarray([anchors[2 * mi] for mi in mask], np.float32)
             ah = np.asarray([anchors[2 * mi + 1] for mi in mask],
                             np.float32)
             m = h * w * num
-            parts.append(
-                np.stack(
-                    [
-                        np.repeat(loc % w, num),
-                        np.repeat(loc // w, num),
-                        np.full(m, w),
-                        np.full(m, h),
-                        np.tile(aw, h * w),
-                        np.tile(ah, h * w),
-                    ]
-                ).astype(np.float32)
-            )
+            rows = [
+                np.repeat(loc % w, num),
+                np.repeat(loc // w, num),
+                np.full(m, w),
+                np.full(m, h),
+                np.tile(aw, h * w),
+                np.tile(ah, h * w),
+            ]
+            if scaled:
+                rows += [np.full(m, s), np.full(m, -0.5 * (s - 1))]
+            parts.append(np.stack(rows).astype(np.float32))
         return torch.as_tensor(np.concatenate(parts, axis=1),
                                device=device)
 
@@ -504,7 +523,8 @@ def device_detect_topk(
                 flat_heads.append(fh.reshape(n, h * w * num, e))
                 offsets.append(off)
                 sizes.append(h * w * num)
-                meta.append((h, w, num, prm["anchors"], prm["mask"]))
+                meta.append((h, w, num, prm["anchors"], prm["mask"],
+                             prm.get("scale_x_y", 1.0)))
                 off += h * w * num
 
             objl = torch.cat([fh[..., 4] for fh in flat_heads], dim=1)
@@ -523,11 +543,14 @@ def device_detect_topk(
                 sel = torch.where(inr[..., None], g, sel)
 
         with span("bcnn.decode"):
-            csel, rsel, gwsel, ghsel, awsel, ahsel = _candidate_table(
-                meta, topi.device
-            )[:, topi]
-            bx = (csel + sigmoid(sel[..., 0])) / gwsel
-            by = (rsel + sigmoid(sel[..., 1])) / ghsel
+            table = _candidate_table(meta, topi.device)[:, topi]
+            csel, rsel, gwsel, ghsel, awsel, ahsel = table[:6]
+            sx, sy = sigmoid(sel[..., 0]), sigmoid(sel[..., 1])
+            if len(table) > 6:  # scale_x_y: s * sigmoid - (s - 1) / 2
+                ssel, osel = table[6:]
+                sx, sy = sx * ssel + osel, sy * ssel + osel
+            bx = (csel + sx) / gwsel
+            by = (rsel + sy) / ghsel
             bw = in_f32(torch.exp, sel[..., 2]) * awsel / net_w
             bh = in_f32(torch.exp, sel[..., 3]) * ahsel / net_h
             bsel = torch.stack([bx, by, bw, bh], dim=-1)

@@ -23,7 +23,7 @@ import torch
 
 from .. import kernels
 from . import library
-from .yolo import _decode_grid, yolo_head
+from .yolo import _decode_grid, unscaled, yolo_head
 
 # the kernel passes the anchors of a head in its launch parameters
 MAX_ANCHORS = 16
@@ -35,6 +35,7 @@ def decode_grid_ref(
     """x: raw head (N, A*(5+K), H, W). Returns boxes (N, H*W*A, 4),
     obj (N, H*W*A) and probs (N, H*W*A, K), candidates in (location,
     anchor) order."""
+    unscaled(param, "the decode-everything decode")
     n, _, h, w = x.shape
     num, classes = param["num"], param["classes"]
     y = yolo_head(x, num, classes).reshape(n, num, 5 + classes, h, w)
@@ -56,6 +57,7 @@ def decode_fused(
     `bcnn_tpu_torch::yolo_decode` on either device. The op takes the
     head's anchors as (w, h) pairs in mask order."""
     library.check_devices("decode_fused", x)
+    unscaled(param, "K1")
     anchors, mask = param["anchors"], param["mask"]
     awh = [float(anchors[2 * mi + j]) for mi in mask for j in (0, 1)]
     return _K1(x, awh, param["classes"], float(net_w), float(net_h))

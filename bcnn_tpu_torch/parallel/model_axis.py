@@ -711,6 +711,10 @@ class _SpatialExecutor(_Executor):
         from .. import ops
 
         p = node.param
+        if "darknet_padding" in p:
+            raise NotImplementedError(
+                "the height bands take bcnn's max-pool windows, not a "
+                "Darknet cfg's padded ones")
         src = node.src[0]
         dst = self.net.tensors[node.dst[0]]
         bands = self.plan.bands(dst.h)

@@ -82,13 +82,13 @@ def pooling_nodes(net: Net) -> List[int]:
 
 
 def windows(x: torch.Tensor, size: int, stride: int, out_h: int,
-            out_w: int) -> torch.Tensor:
+            out_w: int, offset: int = 0) -> torch.Tensor:
     """x: NCHW -> (N, C, out_h, out_w, size * size), each max-pool
-    window's inputs, padded with -inf on the high side as `ops.maxpool`
-    pads."""
-    pad_h = max(0, (out_h - 1) * stride + size - x.shape[2])
-    pad_w = max(0, (out_w - 1) * stride + size - x.shape[3])
-    x = F.pad(x, (0, pad_w, 0, pad_h), value=float("-inf"))
+    window's inputs, padded with -inf as `ops.maxpool` pads (by `offset`
+    on the low side, and on the high side as the output needs)."""
+    pad_h = max(0, (out_h - 1) * stride + size - x.shape[2] - offset)
+    pad_w = max(0, (out_w - 1) * stride + size - x.shape[3] - offset)
+    x = F.pad(x, (offset, pad_w, offset, pad_h), value=float("-inf"))
     return x.unfold(2, size, stride).unfold(3, size, stride).flatten(-2)
 
 
@@ -129,11 +129,11 @@ def record(choices: Choices, when: Optional[Callable[[], bool]] = None):
             choices.kinks.append((x > 0).detach().cpu())
         return act0(x, act, slopes)
 
-    def maxpool(x, size, stride, out_h, out_w):
+    def maxpool(x, size, stride, out_h, out_w, offset=0):
         if keep():
             choices.picks.append(windows(x.detach(), size, stride, out_h,
-                                         out_w).argmax(-1).cpu())
-        return pool0(x, size, stride, out_h, out_w)
+                                         out_w, offset).argmax(-1).cpu())
+        return pool0(x, size, stride, out_h, out_w, offset)
 
     def fake_quant(x, scale):
         if keep():
@@ -179,8 +179,8 @@ def impose(choices: Choices):
         side = take(kinks, act.name, x.shape).to(x.device)
         return torch.where(side, x, KINKED[act] * x)
 
-    def maxpool(x, size, stride, out_h, out_w):
-        win = windows(x, size, stride, out_h, out_w)
+    def maxpool(x, size, stride, out_h, out_w, offset=0):
+        win = windows(x, size, stride, out_h, out_w, offset)
         pick = take(picks, "MAXPOOL", win.shape[:-1]).to(x.device)
         return win.gather(-1, pick.unsqueeze(-1)).squeeze(-1)
 

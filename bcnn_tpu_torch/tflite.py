@@ -417,6 +417,13 @@ def _host(net, params, state):
         net, state)
 
 
+def _bcnn_pool(prm) -> None:
+    """A max-pool both writers export: bcnn's windows, from i*stride."""
+    if "darknet_padding" in prm:
+        raise ValueError("a Darknet cfg's padded max-pool is not supported "
+                         "by tflite export")
+
+
 def write_tflite(net, params, state, out_path: Optional[str]) -> bytes:
     """Emit the net's PREDICT forward as a .tflite flatbuffer. Same op
     map as the TF-backed path (`build_tf_forward`) and as the reference's
@@ -604,6 +611,7 @@ def write_tflite(net, params, state, out_path: Optional[str]) -> bytes:
             m.add_op(RESHAPE, [fc, rshape2], [out], OPT_RESHAPE,
                      dict(new_shape=out_shape))
         elif t == LayerType.MAXPOOL:
+            _bcnn_pool(prm)
             k_, st = prm["size"], prm["stride"]
             ph = max(0, (d.h - 1) * st + k_ - in_shape[1])
             pw = max(0, (d.w - 1) * st + k_ - in_shape[2])
@@ -828,6 +836,7 @@ def build_tf_forward(net, params, state):
                 y = tf.reshape(y, (-1, 1, 1, y.shape[-1]))
             elif t == LayerType.MAXPOOL:
                 prm = node.param
+                _bcnn_pool(prm)
                 d = net.tensors[node.dst[0]]
                 xin = values[node.src[0]]
                 sh = xin.shape

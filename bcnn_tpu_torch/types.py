@@ -3,7 +3,7 @@
 They mirror the public enums of the bcnn C header (bcnn.h:90-236), so
 config files, serialized models and user code keep one meaning in both
 packages. `tests/test_torch_graph.py` holds every member to its
-`bcnn_tpu` counterpart.
+`bcnn_tpu` counterpart; `Activation.MISH` alone has none.
 """
 
 from __future__ import annotations
@@ -77,7 +77,9 @@ class LayerType(enum.IntEnum):
 
 class Activation(enum.IntEnum):
     """bcnn_activation (bcnn.h:164-175). LRELU has slope 0.1, the value
-    the C implementation uses, not the header's documented 0.01."""
+    the C implementation uses, not the header's documented 0.01. MISH
+    is the port's own (bcnn has none): Darknet's x * tanh(softplus(x)),
+    which YOLOv4's backbone uses."""
 
     NONE = 0
     TANH = 1
@@ -89,6 +91,7 @@ class Activation(enum.IntEnum):
     CLAMP = 7
     PRELU = 8
     LOGISTIC = 9
+    MISH = 10
 
 
 class Loss(enum.IntEnum):

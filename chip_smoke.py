@@ -29,6 +29,10 @@ paths (full width and depth, random weights from a seed):
     branch, card against CPU with one quant dict: every int8 tensor
     equal;
   - MobileNet-v1 at bf16 (K3 on the bf16-rounded values);
+  - full YOLOv4 (phase 6e, benchmark/configs/yolov4-608.cfg) at 608 px,
+    batch 8, fp32 and bf16: K6 on its 107 BN convs (72 MISH), the heads
+    against the benchmark's plain reference, int8 refused (K4 has no
+    Mish);
   - YOLOv3-tiny training: Session.train_on_batch at batch 32, SGD (lr 0.001,
     momentum 0.9, decay 0.0005), on uint8 images augmented on the card
     with flip, contrast, brightness and rotation 10 (three K2 launches a
@@ -146,7 +150,8 @@ from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
                                     make_train_step, output_value)
 from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
-from bcnn_tpu_torch.models import mobilenet_v1, resnet18, yolov3, yolov3_tiny
+from bcnn_tpu_torch.models import (mobilenet_v1, resnet18, yolov3,
+                                   yolov3_tiny, yolov4)
 from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
@@ -1189,6 +1194,100 @@ def host_thresh(cpu, x1, yolo_names):
         if obj[k] - obj[k + 1] >= 1e-4:
             return float((obj[k] + obj[k + 1]) / 2)
     raise RuntimeError("no objectness gap for the host detections")
+
+
+# full YOLOv4 (phase 6e): benchmark/configs/yolov4-608.cfg at its 608 px,
+# batch 8, with the benchmark reference's seeded weights; its fp32 heads
+# within YOLOV4_FP32_TOL of the reference's (||port - ref|| / ||ref||:
+# cuDNN's algorithms sum in their own orders, on both sides, through 110
+# convs), its bf16 heads within the benchmark cell's `heads` limit
+YOLOV4_BATCH, YOLOV4_SIZE = 8, 608
+YOLOV4_FP32_TOL = 1e-4
+
+
+def yolov4_phase(gpu):
+    """Full YOLOv4 (CSPDarknet53 with Mish, SPP, PANet, three heads with
+    scale_x_y) at 608 px, batch YOLOV4_BATCH, 80 classes: the benchmark's
+    program (`benchmark/program.Served`: models.yolov4 from the frozen
+    cfg, the reference's seeded weights) served in fp32 and bf16 on the
+    top-k-first branch, a warm-up and SERVE_STEADY requests each with the
+    launch counts set to 0 before them: one K6 launch a BN conv a request
+    (72 MISH, 35 LRELU) and no other kernel. The heads of two images
+    against the plain reference (`benchmark/reference/yolov4.py`, fp32,
+    TF32 off) at YOLOV4_FP32_TOL (fp32) and the cell's `heads` limit
+    (bf16). The decode-everything branch raises on the heads'
+    scale_x_y, and int8 serving raises naming MISH. Returns K6's
+    launches on the path, and those of its MISH form."""
+    from benchmark import harness
+    from benchmark.program import Served
+
+    cell = harness.load_cell("yolov4-608.detect-bf16.b64")
+    ref, cfg = cell["ref"], dict(cell["cfg"], input_size=YOLOV4_SIZE)
+    layers = ref.build(cfg["cfg_path"], YOLOV4_SIZE)
+    weights = ref.make_weights(layers, SEED, "cuda")
+    x = np.random.RandomState(SEED + 9).rand(
+        YOLOV4_BATCH, 3, YOLOV4_SIZE, YOLOV4_SIZE).astype(np.float32)
+    with torch.no_grad():
+        want = ref.forward(layers, weights, torch.as_tensor(x[:2]).cuda())
+    k6 = mish = 0
+    for prec, tol in (("fp32", YOLOV4_FP32_TOL),
+                      ("bf16", cell["check"]["limits"]["heads"])):
+        served = Served(cfg, dict(cell, batch=YOLOV4_BATCH, precision=prec),
+                        weights, None, "cuda")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        outs, lat = serve(served.detect, [x] * (1 + SERVE_STEADY))
+        n_bn = k6_convs(served.net)
+        got = counts()
+        by_act = {a: library.launches("bn_act", a)
+                  for a in ("MISH", "LRELU")}
+        if (n_bn != 107 or got != none_but(K6=n_bn * len(lat))
+                or by_act != {"MISH": 72 * len(lat),
+                              "LRELU": 35 * len(lat)}):
+            raise RuntimeError(f"YOLOv4 {prec}: launches {got}, by "
+                               f"activation {by_act}, {n_bn} BN convs")
+        k6 += got["K6"]
+        mish += by_act["MISH"]
+        for o in outs:
+            check_detections(o, YOLOV4_BATCH)
+        heads = served.heads(x[:2])
+        gaps = [float((h.cuda() - r).norm() / r.norm())
+                for h, r in zip(heads, want)]
+        if not max(gaps) <= tol:
+            raise RuntimeError(f"YOLOv4 {prec} heads against the reference: "
+                               f"{gaps} (limit {tol})")
+        print(f"YOLOv4 {prec} at {YOLOV4_SIZE} px, batch {YOLOV4_BATCH}: "
+              f"K6 {by_act['MISH'] // len(lat)} MISH + "
+              f"{by_act['LRELU'] // len(lat)} LRELU a request; heads "
+              f"against the reference {', '.join(f'{g:.3g}' for g in gaps)}"
+              f" (limit {tol}); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        busy_report(f"YOLOv4 detect_on_batch {prec}, batch {YOLOV4_BATCH}",
+                    lat, lat[1:], device_us(lambda: served.detect(x),
+                                            iters=5), 5, gpu)
+        if prec == "bf16":
+            try:
+                served.sess.detect_on_batch(x, topk_first=False)
+            except ValueError as e:
+                print(f"YOLOv4 decode-everything raises: {e}")
+            else:
+                raise RuntimeError("YOLOv4's decode-everything did not "
+                                   "raise on scale_x_y")
+        served.free()
+    calib = torch.rand(4, 3, YOLOV4_SIZE, YOLOV4_SIZE,
+                       generator=torch.Generator().manual_seed(SEED)).numpy()
+    served = Served(cfg, dict(cell, batch=YOLOV4_BATCH, precision="int8"),
+                    weights, calib, "cuda")
+    try:
+        served.detect(x)
+    except ValueError as e:
+        if "MISH" not in str(e):
+            raise
+        print(f"YOLOv4 int8 raises: {e}")
+    else:
+        raise RuntimeError("YOLOv4 int8 served on the card without MISH")
+    served.free()
+    return k6, mish
 
 
 def yolov3_phase(gpu):
@@ -3236,11 +3335,23 @@ def check_k5():
 # -- phase 3f: K6, a conv's BN and activation outside TRAIN ----------------
 
 # K6 against its plain version, bit for bit (NaNs and signed zeros too),
-# at full YOLOv3's 72 BN convs (13 shapes) at batch 64, timed there in
-# the bf16 serving cell's form (BN unfolded, LRELU); then edges: planes
+# at full YOLOv3 416's 72 BN convs (13 shapes) and YOLOv4 608's 107 (13
+# shapes; x spread 12-fold, so that Mish meets |y| past 20) at batch 64,
+# each (shape, activation) of a net timed in the bf16 serving cells' form
+# (BN unfolded; LRELU, or MISH in YOLOv4's backbone); then edges: planes
 # of 1 and of 3 values, C = 1, odd planes, a misaligned x, special
 # values, and a batch past 2^31 values, which K6 runs as two launches
 K6_BATCH = 64
+# (label, net, activations checked at its shapes, x's spread)
+K6_NETS = (("full YOLOv3 416",
+            lambda: yolov3(K6_BATCH, SIZE, SIZE, CLASSES),
+            (Activation.LRELU, Activation.RELU, Activation.NONE), 1.0),
+           ("YOLOv4 608", lambda: yolov4(K6_BATCH, 608, 608, CLASSES),
+            (Activation.MISH, Activation.LRELU), 12.0))
+# the library's form of each timed activation, after F.batch_norm
+K6_LIBRARY = {Activation.LRELU: ("F.leaky_relu",
+                                 lambda y: F.leaky_relu(y, 0.1)),
+              Activation.MISH: ("F.mish", F.mish)}
 K6_EDGES = [(3, 1, 1, 1), (2, 3, 13, 13), (2, 5, 3, 1), (1, 1, 7, 9),
             (2, 255, 26, 26), (3, 1024, 13, 13), (2, 7, 2, 2)]
 # 2.16e9 bf16 values: two launches, the second from an image 14 bytes
@@ -3249,12 +3360,14 @@ K6_BIG = (720, 3, 999, 1001)
 
 
 def k6_shapes(net):
-    """{(c, h, w): convs} of the BN convs of `net`, in order."""
+    """{((c, h, w), activation): convs} of the BN convs of `net`, in
+    order."""
     shapes = {}
     for node in net.nodes:
         if node.type.name == "CONV2D" and node.param.get("batch_norm"):
             d = net.tensors[node.dst[0]]
-            shapes[(d.c, d.h, d.w)] = shapes.get((d.c, d.h, d.w), 0) + 1
+            key = ((d.c, d.h, d.w), Activation(node.param["activation"]))
+            shapes[key] = shapes.get(key, 0) + 1
     return shapes
 
 
@@ -3270,13 +3383,17 @@ def k6_bits(t):
 
 
 def k6_equal(x, vecs, folded, act, what):
-    """K6 on x against its plain version: one launch counted, the same
-    shape, dtype and strides, the same bits."""
-    before = library.launches("bn_act")
+    """K6 on x against its plain version: one launch counted, in the
+    total and under its activation, the same shape, dtype and strides,
+    the same bits."""
+    name = Activation(act).name
+    before = (library.launches("bn_act"), library.launches("bn_act", name))
     got = bn_act(x, *vecs, folded, act)
     want = bn_act_ref(x, *vecs, folded, act)
     torch.cuda.synchronize()
-    if library.launches("bn_act") != before + (x.numel() > 0):
+    one = x.numel() > 0
+    if (library.launches("bn_act"), library.launches("bn_act", name)) != (
+            before[0] + one, before[1] + one):
         raise RuntimeError(f"K6 {what}: its launch was not counted")
     if (got.shape != want.shape or got.dtype != want.dtype
             or got.stride() != want.stride()
@@ -3284,45 +3401,46 @@ def k6_equal(x, vecs, folded, act, what):
         diff = (got.float() - want.float()).abs().nan_to_num(0)
         raise RuntimeError(
             f"K6 {what} {tuple(x.shape)} {x.dtype} "
-            f"{'folded' if folded else 'unfolded'} {Activation(act).name} "
+            f"{'folded' if folded else 'unfolded'} {name} "
             "is not bit-equal to its plain version: "
             f"{int((k6_bits(got) != k6_bits(want)).sum())} values differ, "
             f"max_abs_err {float(diff.max())}")
 
 
-def check_k6():
-    """Phase 3f: K6 against bn_act_ref on the card, bit for bit, in bf16
-    and fp32, folded and unfolded, with NONE, RELU and LRELU, at full
-    YOLOv3's 13 BN conv shapes at batch 64 and at the edges; each path
-    shape timed warm in turns (plain, kernel, library, library, kernel,
-    plain), the library being F.batch_norm then F.leaky_relu (the same
-    function in two calls, with its own rounding), then a copy of the
-    same bytes (what the card's memory allows a pass of one read and one
-    write), then cold and by the profiler. Returns the path rows (a
-    row's "n" is its convs in one request; the serving phases count the
-    launches on the paths)."""
-    gen = torch.Generator().manual_seed(SEED)
-    flush = torch.empty(FLUSH_FLOATS, device="cuda")
-    acts = (Activation.LRELU, Activation.RELU, Activation.NONE)
-    rows = []
-    for (c, h, w), convs in k6_shapes(yolov3(K6_BATCH, SIZE, SIZE,
-                                             CLASSES)).items():
+def k6_rows(label, net, checked, spread, gen, flush):
+    """K6 at each BN conv shape of `net` at batch K6_BATCH: bit-equal to
+    bn_act_ref with each of `checked`, in bf16 and fp32, folded and
+    unfolded, on x ~ spread * N(0, 1); then each (shape, activation) the
+    net has, timed warm in turns in bf16, BN unfolded (plain, kernel,
+    library, library, kernel, plain), the library being F.batch_norm
+    then the activation's own function (with its own rounding between),
+    then a copy of the same bytes (what the card's memory allows a pass
+    of one read and one write), then cold and by the profiler. Returns
+    the rows (a row's "n" is its convs in one request, its "act" the
+    activation)."""
+    shapes = k6_shapes(net)
+    xgen = torch.Generator("cuda").manual_seed(SEED)
+    rows, seen = [], set()
+    for ((c, h, w), act), convs in shapes.items():
         vecs = k6_vectors(c, gen)
-        x = torch.randn(K6_BATCH, c, h, w, generator=gen).cuda()
-        for dtype in (torch.bfloat16, torch.float32):
-            xd = x.to(dtype)
-            for folded in (False, True):
-                for act in acts:
-                    k6_equal(xd, vecs, folded, act, "YOLOv3")
-            del xd
+        x = spread * torch.randn(K6_BATCH, c, h, w, device="cuda",
+                                 generator=xgen)
+        if (c, h, w) not in seen:
+            seen.add((c, h, w))
+            for dtype in (torch.bfloat16, torch.float32):
+                xd = x.to(dtype)
+                for folded in (False, True):
+                    for a in checked:
+                        k6_equal(xd, vecs, folded, a, label)
+                del xd
         xb = x.to(torch.bfloat16)
         del x
-        kern = lambda: bn_act(xb, *vecs, False, Activation.LRELU)  # noqa
-        plain = lambda: bn_act_ref(xb, *vecs, False,  # noqa: E731
-                                   Activation.LRELU)
+        kern = lambda: bn_act(xb, *vecs, False, act)  # noqa: E731
+        plain = lambda: bn_act_ref(xb, *vecs, False, act)  # noqa: E731
         s, b, m, v = vecs
-        lib = lambda: F.leaky_relu(F.batch_norm(  # noqa: E731
-            xb, m, v, s, b, False, 0.0, 1e-6), 0.1)
+        lib_name, lib_act = K6_LIBRARY[act]
+        lib = lambda: lib_act(F.batch_norm(  # noqa: E731
+            xb, m, v, s, b, False, 0.0, 1e-6))
         out = torch.empty_like(xb)
         copy = lambda: out.copy_(xb)  # noqa: E731  the same bytes moved
         t = [cuda_ms(f, iters=i, warmup=wu) for f, i, wu in (
@@ -3330,24 +3448,62 @@ def check_k6():
             (kern, 50, 5), (plain, 3, 1), (copy, 50, 5))]
         dev = sum(device_us(kern, iters=10).values()) / 10
         nbytes = 2 * xb.numel() * xb.element_size() + 4 * 4 * c
-        r = dict(shape=(K6_BATCH, c, h, w), n=convs, max_abs_err=0.0,
-                 ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
-                 library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
-                 copy_ms=t[6], bound=bound(nbytes, 0), mb=nbytes / 1e6,
+        r = dict(shape=(K6_BATCH, c, h, w), act=act, n=convs,
+                 max_abs_err=0.0, ms=(t[1] + t[4]) / 2,
+                 plain_ms=(t[0] + t[5]) / 2, library_ms=(t[2] + t[3]) / 2,
+                 cold_ms=cold_ms(kern, flush), copy_ms=t[6],
+                 bound=bound(nbytes, 0), mb=nbytes / 1e6,
                  dev_ms=dev / 1e3 if dev else None)
         rows.append(r)
         del xb, out
-        print(f"K6 {r['shape']} x{convs} bf16 BN LRELU: bit-equal to its "
-              "plain version in bf16 and fp32, folded and unfolded, NONE, "
-              f"RELU, LRELU; {r['mb']:.1f} MB, bound "
-              f"{1e3 * r['bound'][0]:.1f} us ({r['bound'][1]}); warm: "
-              f"kernel {1e3 * r['ms']:.1f} us, plain "
-              f"{1e3 * r['plain_ms']:.1f} us, library (F.batch_norm, "
-              f"F.leaky_relu) {1e3 * r['library_ms']:.1f} us, copy of the "
+        print(f"K6 {label} {r['shape']} x{convs} bf16 BN {act.name}: "
+              "bit-equal to its plain version in bf16 and fp32, folded and "
+              f"unfolded, {', '.join(a.name for a in checked)}; "
+              f"{r['mb']:.1f} MB, bound {1e3 * r['bound'][0]:.1f} us "
+              f"({r['bound'][1]}); warm: kernel {1e3 * r['ms']:.1f} us, "
+              f"plain {1e3 * r['plain_ms']:.1f} us, library (F.batch_norm, "
+              f"{lib_name}) {1e3 * r['library_ms']:.1f} us, copy of the "
               f"same bytes {1e3 * r['copy_ms']:.1f} us; cold: kernel "
               f"{1e3 * r['cold_ms']:.1f} us "
               f"({r['bound'][0] / r['cold_ms']:.0%} of the bound); device "
               f"(profiler) {fmt_device(dev * 10, 10)}", flush=True)
+    for act in sorted({a for _, a in shapes}, key=lambda a: a.name):
+        k6_total(f"{label}'s {act.name} form",
+                 [r for r in rows if r["act"] == act])
+    return rows
+
+
+def k6_total(what, rows):
+    """Prints K6's times over `rows`, one request's convs of a form."""
+    launches = sum(r["n"] for r in rows)
+    tot = {key: sum(r["n"] * (r[key][0] if key == "bound" else r[key])
+                    for r in rows)
+           for key in ("ms", "cold_ms", "plain_ms", "library_ms", "copy_ms",
+                       "bound")}
+    dev = [r["dev_ms"] for r in rows]
+    dev_s = ("not measured" if None in dev else
+             f"{sum(r['n'] * d for r, d in zip(rows, dev)):.4f} ms")
+    print(f"K6 per bf16 {what} ({launches} launches a request, batch "
+          f"{K6_BATCH}): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} "
+          f"ms, device {dev_s} (profiler), bound {tot['bound']:.4f} ms "
+          f"({tot['bound'] / tot['cold_ms']:.0%} of it cold); plain ops "
+          f"{tot['plain_ms']:.2f} ms; library (F.batch_norm, then the "
+          f"activation) {tot['library_ms']:.4f} ms warm; a copy of the "
+          f"same bytes (Tensor.copy_) {tot['copy_ms']:.4f} ms warm",
+          flush=True)
+
+
+def check_k6():
+    """Phase 3f: K6 against bn_act_ref on the card, bit for bit, at full
+    YOLOv3 416's and YOLOv4 608's BN conv shapes at batch 64 (k6_rows)
+    and at the edges, in bf16 and fp32, folded and unfolded, with every
+    activation K6 fuses. Returns the timed rows (YOLOv3's LRELU form,
+    YOLOv4's MISH form); the serving phases count the launches on the
+    paths."""
+    gen = torch.Generator().manual_seed(SEED)
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    rows = {label: k6_rows(label, build(), checked, spread, gen, flush)
+            for label, build, checked, spread in K6_NETS}
     del flush
     for i, shape in enumerate(K6_EDGES):
         vecs = k6_vectors(shape[1], gen)
@@ -3362,31 +3518,18 @@ def check_k6():
             off.copy_(xd)  # one value off a 16-byte boundary
             for xs, what in ((xd, "edge"), (off, "edge, misaligned x")):
                 for folded in (False, True):
-                    for act in acts:
+                    for act in K6_ACTS:
                         k6_equal(xs, vecs, folded, act, what)
     vecs = k6_vectors(K6_BIG[1], gen)
     x = torch.randn(K6_BIG, device="cuda", dtype=torch.bfloat16)
-    k6_equal(x, vecs, False, Activation.LRELU, "past 2^31 values")
+    for act in (Activation.LRELU, Activation.MISH):
+        k6_equal(x, vecs, False, act, "past 2^31 values")
     del x
     print(f"K6 edges {K6_EDGES} (NaN, -0, inf, subnormal; aligned and "
           f"not) and {K6_BIG} (two launches): bit-equal in every form",
           flush=True)
-    launches = sum(r["n"] for r in rows)
-    tot = {key: sum(r["n"] * (r[key][0] if key == "bound" else r[key])
-                    for r in rows)
-           for key in ("ms", "cold_ms", "plain_ms", "library_ms", "copy_ms",
-                       "bound")}
-    dev = [r["dev_ms"] for r in rows]
-    dev_s = ("not measured" if None in dev else
-             f"{sum(r['n'] * d for r, d in zip(rows, dev)):.4f} ms")
-    print(f"K6 per bf16 full YOLOv3 416 request ({launches} launches, batch "
-          f"{K6_BATCH}): warm {tot['ms']:.4f} ms, cold {tot['cold_ms']:.4f} "
-          f"ms, device {dev_s} (profiler), bound {tot['bound']:.4f} ms "
-          f"({tot['bound'] / tot['cold_ms']:.0%} of it cold); plain ops "
-          f"{tot['plain_ms']:.2f} ms; library (F.batch_norm, F.leaky_relu) "
-          f"{tot['library_ms']:.4f} ms warm; a copy of the same bytes "
-          f"(Tensor.copy_) {tot['copy_ms']:.4f} ms warm", flush=True)
-    return rows
+    return (rows["full YOLOv3 416"],
+            [r for r in rows["YOLOv4 608"] if r["act"] == Activation.MISH])
 
 
 def int8_classifier_phase(gpu, name, net, p_np, s_np):
@@ -5986,7 +6129,7 @@ def main() -> int:
     k5 = check_k5()
 
     # -- phase 3f: K6 against its plain version on the card ---------------
-    k6 = check_k6()
+    k6, k6_mish = check_k6()
     stamp("3")
 
     # -- phase 4: serve YOLOv3-tiny at 416 on both branches ---------------
@@ -6081,6 +6224,11 @@ def main() -> int:
     k4_launches += k4_v3
     k6_launches += k6_v3
     stamp("6d")
+
+    # -- phase 6e: serve full YOLOv4 at 608, fp32 and bf16 ----------------
+    p6e, mish_launches = yolov4_phase(gpu)
+    k6_launches += p6e
+    stamp("6e")
 
     # -- phase 7: train YOLOv3-tiny at 416, batch 32 ----------------------
     k2_launches, prebuilt_ms = train_phase(gpu)
@@ -6216,6 +6364,12 @@ def main() -> int:
         entry("bn_act", "bcnn_tpu_torch/csrc/bn_act.cu",
               "none (XLA's fusion of bcnn_tpu/ops/norm.py:batch_norm and "
               "the activation)", k6_launches, k6, k6, True),
+        # K6's MISH form at YOLOv4 608's 72 backbone convs; its launches
+        # are phase 6e's MISH ones (within bn_act's), its library
+        # yardstick F.batch_norm then F.mish
+        entry("bn_act_mish", "bcnn_tpu_torch/csrc/bn_act.cu",
+              "none (XLA's fusion of bcnn_tpu/ops/norm.py:batch_norm and "
+              "the activation)", mish_launches, k6_mish, k6_mish, True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

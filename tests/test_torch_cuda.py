@@ -1445,7 +1445,8 @@ def test_pipeline_recompute_is_bit_equal_on_the_card(cuda):
 
 from bcnn_tpu_torch.ops import bn_act as k6  # noqa: E402
 
-K6_ACTS = [Activation.NONE, Activation.RELU, Activation.LRELU]
+K6_ACTS = [Activation.NONE, Activation.RELU, Activation.LRELU,
+           Activation.MISH]
 # planes of 169 and 676 values with C of 3, 255 and 1,024; planes of 1
 # and 3 values, C = 1, planes under a vector
 K6_EDGES = [(2, 3, 13, 13), (1, 255, 13, 13), (1, 1024, 13, 13),
@@ -1498,6 +1499,35 @@ def test_k6_matches_plain_ops_at_every_yolov3_bn_conv(cuda, dtype, folded):
             _k6_same(x, vecs, folded, act)
         convs += 1
     assert convs == 72
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_mish_matches_plain_ops_at_every_yolov4_bn_shape(cuda, dtype,
+                                                           folded):
+    """Each shape of YOLOv4 608's 107 BN conv outputs at batch 2, with
+    MISH and LRELU, x spread so that BN gives |y| past Darknet's softplus
+    cut of 20, and NaN, +-inf, +-20, +-25 and +-100 among the values:
+    bit for bit."""
+    from bcnn_tpu_torch.models import yolov4
+
+    net = yolov4(2, 608, 608, 80)
+    shapes = {tuple(net.tensors[n.dst[0]].shape[1:]) for n in net.nodes
+              if n.type.name == "CONV2D" and n.param.get("batch_norm")}
+    assert len(shapes) == 13
+    gen = torch.Generator().manual_seed(24)
+    for c, h, w in sorted(shapes):
+        x = 12 * torch.randn(2, c, h, w, generator=gen)
+        x.view(-1)[:10] = torch.tensor([
+            float("nan"), float("inf"), -float("inf"), 20.0, -20.0, 25.0,
+            -25.0, 100.0, -100.0, -0.0])
+        vecs = _k6_vectors(c, gen, cuda)
+        xd = x.to(dtype).to(cuda)
+        for act in (Activation.MISH, Activation.LRELU):
+            _k6_same(xd, vecs, folded, act)
+        before = library.launches("bn_act", "MISH")
+        k6.bn_act(xd, *vecs, folded, Activation.MISH)
+        assert library.launches("bn_act", "MISH") == before + 1
 
 
 @pytest.mark.parametrize("shape", K6_EDGES)
@@ -1585,5 +1615,61 @@ def test_k6_runs_each_bn_conv_of_a_bf16_detect_and_none_of_an_int8_one(
         torch.cuda.synchronize()
         assert library.launches("bn_act") == before
         assert library.launches("conv_int8") == k4 + 75
+    finally:
+        net.quant = None
+
+
+def _yolov4_sessions(cuda, size=96):
+    """YOLOv4 at `size`, batch 2, bf16, with seeded weights: (net, CPU
+    session, card session)."""
+    from bcnn_tpu_torch.models import yolov4
+
+    net = yolov4(2, size, size, 80)
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    p, s = bridge.params_from_numpy(
+        net, *bridge.he_numpy_weights(net, 0, residual_scale=0.1))
+    cpu = Session(net, 0, device="cpu")
+    cpu.params, cpu.state = p, s
+    cpu.compile_net()
+    sess = Session(net, 0, device=cuda)
+    sess.params = {k: v.to(cuda) for k, v in p.items()}
+    sess.state = {k: v.to(cuda) for k, v in s.items()}
+    sess.compile_net()
+    return net, cpu, sess
+
+
+def test_yolov4_bf16_detect_runs_k6_on_each_bn_conv(cuda, monkeypatch):
+    """YOLOv4 (96 px, batch 2): a bf16 detect launches K6 107 times, 72
+    of them MISH and 35 LRELU, with the detections of the plain ops on
+    the card bit for bit."""
+    _, _, sess = _yolov4_sessions(cuda)
+    x = np.random.RandomState(1).rand(2, 3, 96, 96).astype(np.float32)
+    library.reset_launches()
+    got = sess.detect_on_batch(x, 0.3, 30)
+    torch.cuda.synchronize()
+    assert library.launches("bn_act") == 107
+    assert library.launches("bn_act", "MISH") == 72
+    assert library.launches("bn_act", "LRELU") == 35
+    with monkeypatch.context() as m:
+        m.setattr(k6, "takes", lambda *a: False)
+        plain = sess.detect_on_batch(x, 0.3, 30)
+    assert library.launches("bn_act") == 107
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+def test_yolov4_int8_on_the_card_raises_naming_mish(cuda):
+    """K4 does not fuse Mish: int8 serving of YOLOv4 on the card raises
+    before it detects (the CPU runs Mish after its int8 conv)."""
+    net, cpu, sess = _yolov4_sessions(cuda)
+    quant = ptq_synthetic(net, cpu)
+    net.quant = dict(quant, weights={
+        k: {kk: vv.to(cuda) for kk, vv in e.items()}
+        for k, e in quant["weights"].items()})
+    sess.state = {k: v.to(cuda) for k, v in cpu.state.items()}
+    x = np.random.RandomState(2).rand(2, 3, 96, 96).astype(np.float32)
+    try:
+        with pytest.raises(ValueError, match="MISH"):
+            sess.detect_on_batch(x, 0.3, 30)
     finally:
         net.quant = None

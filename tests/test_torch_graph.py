@@ -31,12 +31,16 @@ ENUMS = [
 ]
 
 
+# the port's members that bcnn_tpu lacks: Mish, for Darknet cfgs (YOLOv4)
+PORT_ONLY = {"Activation": [("MISH", 10)]}
+
+
 @pytest.mark.parametrize("name", ENUMS)
 def test_enums_match_bcnn_tpu(name):
     ref, port = getattr(jtypes, name), getattr(ttypes, name)
     assert [(m.name, m.value) for m in port] == [
         (m.name, m.value) for m in ref
-    ]
+    ] + PORT_ONLY.get(name, [])
 
 
 def test_detection_max_boxes_matches():

@@ -20,8 +20,9 @@ zero=3 the parameters too (FSDP). `save_checkpoint` gathers the shards
 and rank 0 writes the single-device file; `load_checkpoint` resumes at
 any world size.
 Forwards outside training run under `torch.inference_mode()`. Inputs and
-outputs are NCHW. Inputs are uploaded as fp32; the executor honours the
-net's compute_dtype, act_dtype and quant (`compile._Executor`).
+outputs are NCHW. Inputs are uploaded as fp32, a large host batch through
+the session's pinned ring (`upload.py`); the executor honours the net's
+compute_dtype, act_dtype and quant (`compile._Executor`).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from .compile import (
 from .graph import Net
 from .profiling import span
 from .types import LayerType, Mode
+from .upload import Uploader
 
 
 class Session:
@@ -66,6 +68,8 @@ class Session:
             raise RuntimeError(
                 f"Session(device={device!r}): CUDA is not available"
             )
+        # the host batches' way to the device, with its pinned ring
+        self._upload = Uploader(self.device)
         self.net = net
         self.seed = seed
         self.params: Dict[str, torch.Tensor] = {}
@@ -233,9 +237,10 @@ class Session:
         return x_buffer
 
     def _input(self, x) -> torch.Tensor:
+        """x on the device as fp32, through the session's pinned ring
+        where x is a large contiguous host batch (`upload.Uploader`)."""
         with span("bcnn.upload"):
-            return torch.as_tensor(x, dtype=torch.float32,
-                                   device=self.device)
+            return self._upload(x)
 
     def _default_output_name(self) -> str:
         for node in reversed(self.net.nodes):

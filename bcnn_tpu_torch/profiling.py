@@ -13,6 +13,10 @@
     calling thread:
       `bcnn.detect`   `Session.detect_on_batch`, the request's root;
       `bcnn.upload`   `Session._input`, the host batch to the device;
+                      inside it `bcnn.upload.stage`, each chunk's host
+                      copy into the pinned ring (`upload.stage`; the
+                      staged uploads, direct uploads and chunks are
+                      counted by `upload.counts()`);
       `bcnn.execute`  `compile._Executor.run`, one pass (or a pipeline
                       stage's range of nodes);
       `bcnn.node.<type>`  each node of the pass (`conv2d`, `eltwise`,

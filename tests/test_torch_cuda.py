@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from bcnn_tpu_torch import Session, bridge, ops
+from bcnn_tpu_torch import Session, bridge, ops, upload
 from bcnn_tpu_torch.ops import depthwise as dw
 from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.models import mobilenet_v1, yolov3_tiny
@@ -1673,3 +1673,97 @@ def test_yolov4_int8_on_the_card_raises_naming_mish(cuda):
             sess.detect_on_batch(x, 0.3, 30)
     finally:
         net.quant = None
+
+
+# -- the staged upload (upload.py): a host batch through the pinned ring --
+
+
+def _frames(shape, dtype, seed):
+    rs = np.random.RandomState(seed)
+    if dtype == np.uint8:
+        return rs.randint(0, 256, shape).astype(np.uint8)
+    return (rs.randn(*shape) * 100).astype(dtype)
+
+
+def _upload_session(cuda):
+    """A session whose `_input` is tested (the net plays no part)."""
+    return Session(yolov3_tiny(2, 64, 64, 4), 0, device=cuda)
+
+
+def _chunks(x):
+    return -(-4 * x.size // upload.CHUNK_BYTES)
+
+
+@pytest.mark.parametrize("size", [416, 608])  # YOLOv3's, YOLOv4's
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8, np.float64])
+def test_staged_upload_is_as_tensor_bit_for_bit(cuda, size, dtype):
+    sess = _upload_session(cuda)
+    x = _frames((32, 3, size, size), dtype, size)
+    upload.reset_counts()
+    got = sess._input(x)
+    assert upload.counts() == {"staged": 1, "direct": 0,
+                               "chunks": _chunks(x), "pin_failed": 0}
+    assert _chunks(x) >= 3
+    want = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_staged_upload_survives_the_caller_overwriting_its_batch(cuda):
+    """Every read of the batch is done when `_input` returns, though its
+    copies to the card wait behind a slow kernel."""
+    sess = _upload_session(cuda)
+    x = _frames((32, 3, 416, 416), np.float32, 1)
+    keep = torch.from_numpy(x.copy())
+    torch.cuda._sleep(200_000_000)
+    got = sess._input(x)
+    x[...] = -1.0
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), keep)
+
+
+def test_staged_upload_of_the_same_array_mutated_sends_the_new_values(cuda):
+    sess = _upload_session(cuda)
+    x = _frames((32, 3, 416, 416), np.float32, 2)
+    old = torch.from_numpy(x.copy())
+    first = sess._input(x)
+    x *= 2.0
+    second = sess._input(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first.cpu(), old)
+    assert torch.equal(second.cpu(), torch.from_numpy(x))
+
+
+def test_staged_uploads_back_to_back_behind_a_slow_stream(cuda):
+    """Two staged uploads queued behind a long kernel reuse the ring's
+    slots only after the copies that read them ran."""
+    sess = _upload_session(cuda)
+    a = _frames((32, 3, 608, 608), np.float32, 3)
+    b = _frames((32, 3, 608, 608), np.uint8, 4)
+    upload.reset_counts()
+    torch.cuda._sleep(200_000_000)
+    ga, gb = sess._input(a), sess._input(b)
+    torch.cuda.synchronize()
+    assert torch.equal(ga.cpu(), torch.from_numpy(a))
+    assert torch.equal(gb.cpu(), torch.from_numpy(b).float())
+    assert upload.counts()["staged"] == 2
+
+
+def test_detect_on_a_staged_host_batch_equals_detect_on_the_card(cuda):
+    sess = Session(yolov3_tiny(32, 416, 416, 4), 0,
+                   device=cuda).compile_net()
+    x = np.random.RandomState(5).rand(32, 3, 416, 416).astype(np.float32)
+    upload.reset_counts()
+    got = sess.detect_on_batch(x, 0.3, 30)  # the ring is made here
+    assert upload.counts() == {"staged": 1, "direct": 0,
+                               "chunks": _chunks(x), "pin_failed": 0}
+    want = sess.detect_on_batch(torch.from_numpy(x).to(cuda), 0.3, 30)
+    assert upload.counts()["direct"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the ring made under inference_mode serves an upload outside it
+    (heads,), _ = sess.predict_on_batch(x)
+    (on_card,), _ = sess.predict_on_batch(torch.from_numpy(x).to(cuda))
+    assert upload.counts()["staged"] == 2
+    assert torch.equal(heads, on_card)

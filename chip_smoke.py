@@ -14,7 +14,9 @@ with each fused activation), and K6 (a conv's BN and activation, bit for
 bit in bf16 and fp32, at full YOLOv3's BN shapes at batch 64 and at the
 edges, beside a copy of the same bytes; phase 3f); then the whole shear chain of rotation
 augmentation (three K2 launches, no copy) against its CPU run. Then it drives the main
-paths (full width and depth, random weights from a seed):
+paths (full width and depth, random weights from a seed), each serving
+path checked and its launches counted, not timed (the benchmark,
+benchmark/run.py, times serving):
   - YOLOv3-tiny serving (416x416, 80 classes): Session.detect_on_batch
     at batch 8 on both detection branches, checked against the port's
     CPU run;
@@ -128,7 +130,9 @@ the card's memory rate, or its operations at the fp32 rate, K4's at the
 dense int8 rate, whichever is longer) and the time of one PyTorch call that computes the same
 function, where there is one (K3: the grouped conv, without the
 activation; K4: cuDNN's bf16 conv of the same values, PyTorch having no
-int8 conv on CUDA; K6: F.batch_norm then F.leaky_relu). Needs CUDA; imports no JAX.
+int8 conv on CUDA; K6: F.batch_norm then F.leaky_relu). The kernel
+timers are tools/card_timing.py's, the peaks benchmark/roofline.py's.
+Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -171,6 +175,9 @@ from bcnn_tpu_torch.ops.row_shift import (col_shift, col_shift_ref,
 from bcnn_tpu_torch.ops.yolo_decode import decode_fused, decode_grid_ref
 from bcnn_tpu_torch.serialization import save_weights_darknet
 from bcnn_tpu_torch.types import Activation, Mode
+from benchmark.roofline import PEAK_BYTES, PEAK_OPS
+from tools.card_timing import (FLUSH_FLOATS, cold_ms, cuda_ms, device_us,
+                               gpu_line)
 
 SEED = 0
 BATCH, SIZE, CLASSES = 8, 416, 80
@@ -229,9 +236,9 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # GPU heads against the CPU port: the repo's fp32 detection tolerance
 HEAD_RTOL, HEAD_ATOL = 1e-4, 1e-4
 # MobileNet-v1 serving: batch 64 at 224 px (examples/inference_benchmark
-# .py's default batch), one warm-up, then 3 requests, then 20 more timed
+# .py's default batch), one warm-up, then 3 requests
 MB_BATCH, MB_SIZE, MB_CLASSES = 64, 224, 1000
-MB_REQUESTS, MB_STEADY = 3, 20
+MB_REQUESTS = 3
 MB_OUTPUTS = ["fc", "softmax"]
 # K3 against its plain version: tests/test_dw_pallas.py's atol 1e-4 for
 # the TPU kernel, taken relative to the largest output
@@ -254,11 +261,6 @@ K3_RAGGED = [
     (1, 3, 40, 300, 3, 2, 1, Activation.RELU),
     (70, 16, 7, 7, 3, 1, 1, Activation.LRELU),
 ]
-
-
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 FLOP/s outside
-# the tensor cores, dense int8 operations/s on the tensor cores
-HBM_BYTES_S, FP32_FLOP_S, INT8_OP_S = 3.35e12, 67e12, 1979e12
 # K4 rows beyond the 13 convs of YOLOv3-tiny 416 at batch 8 (each checked
 # in its path's form and in the other one): ragged shapes, (n, c, h, w,
 # o, k, stride, pad)
@@ -278,7 +280,6 @@ K4_RAGGED = [
 # 2^-5 of the largest value; MobileNet-v1's logits within 2^-4 of the
 # largest (13 layers more, K3's fp32 bias before one bf16 round).
 BF16_HEAD_TOL, BF16_FC_TOL = 2.0**-5, 2.0**-4
-SERVE_STEADY = 20
 # full YOLOv3's weights: He-scaled, each residual branch's BN scales times
 # 0.1, so that 23 residual adds keep the heads O(1)
 # (tests/test_torch_yolov3.py); the host-exact detections of one image
@@ -299,88 +300,15 @@ T16_LOSS_RTOL = 2.0**-5
 # remat and accum_steps=2 within one bf16 rounding (2^-7) of each
 # tensor's largest update from the step they stand for
 FORMS_BATCH, SCAN_K, FORM_TOL = 32, 4, 2.0**-7
-# a write of this many floats between launches empties the 50 MB L2
-FLUSH_FLOATS = 64 * 2**20  # 256 MB
-# cycles of the sleep queued before each timed call (about 0.5 ms at
-# 1.98 GHz): one K5 call takes 90-100 us of host time through its
-# wrapper, and a cover of 100 us let the host's time into the CUDA-event
-# times (tools/kernel_repeat.py)
-SLEEP_CYCLES = 1_000_000
 
 
-def bound(nbytes, flops, rate=FP32_FLOP_S):
+def bound(nbytes, flops, rate=PEAK_OPS["fp32"]):
     """(ms, "bytes" or "operations"): the least time the card could take
     to move nbytes once and do flops operations at `rate` (fp32 by
     default)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def gpu_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters=200, warmup=10) -> float:
-    """Mean device time of fn() in ms, from CUDA events around iters calls
-    queued behind a sleep on the card, so that the host's launch time
-    does not show between the calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(iters * SLEEP_CYCLES)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_ms(fn, flush, reps=9) -> float:
-    """Median device time of one fn() in ms, each call timed by its own
-    events after a write of `flush` (larger than L2), so that it reads
-    its inputs from device memory; queued behind a sleep on the card, so
-    that the host's launch time does not show."""
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_us(fn, iters=20):
-    """Device time by kernel name (µs summed over iters calls) from
-    torch.profiler; empty if the profiler saw no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return out
 
 
 def fmt_device(total_us, iters):
@@ -874,7 +802,7 @@ def check_k4():
                  plain_ms=(t[0] + t[5]) / 2, library_ms=(t[2] + t[3]) / 2,
                  cold_ms=cold_ms(kern, flush),
                  library_cold_ms=cold_ms(lib, flush),
-                 bound=bound(nbytes, ops, INT8_OP_S), mb=nbytes / 1e6,
+                 bound=bound(nbytes, ops, PEAK_OPS["int8"]), mb=nbytes / 1e6,
                  gop=ops / 1e9)
         paths[name.split(":")[0]].append(r)
         del x, wt, xb, wb, out, args
@@ -898,29 +826,16 @@ def check_k4():
     return paths["yolov3_tiny"], paths["yolov3"], rows
 
 
-def busy_report(label, lat, steady, dev, iters, gpu):
-    med = statistics.median(steady)
-    busy = sum(dev.values()) / iters / 1e3
-    print(f"{label} on {gpu}: requests "
-          + ", ".join(f"{v:.2f}" for v in lat)
-          + f" ms (the first warms up); median {med:.2f} ms, min "
-          f"{min(steady):.2f} ms; device busy "
-          + (f"{busy:.2f} ms per request ({100 * busy / med:.0f}% of the "
-             "median)" if busy else "not measured"))
-    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"    {us / iters / 1e3:8.3f} ms  {k[:90]}")
-
-
 def check_detections(out, n):
     for t, shape in zip(out, [(n, 100, 4), (n, 100, CLASSES), (n, 100)]):
         if tuple(t.shape) != shape or not torch.isfinite(t.float()).all():
             raise RuntimeError(f"bad detection output {tuple(t.shape)}")
 
 
-def yolo_bf16_phase(gpu):
+def yolo_bf16_phase():
     """YOLOv3-tiny 416 at batch 8 with compute_dtype = act_dtype = bf16
     (bench.py's forward and detect), both detection branches: a warm-up
-    and SERVE_STEADY requests each, the launch counts set to 0 before
+    request and one after it each, the launch counts set to 0 before
     each branch, K6 on every BN conv; the heads of two images against
     the port's CPU run. Returns K6's launches on the path."""
     net = yolov3_tiny(BATCH, SIZE, SIZE, CLASSES)
@@ -936,9 +851,9 @@ def yolo_bf16_phase(gpu):
         zero_counts()
         req = lambda v: sess.detect_on_batch(  # noqa: E731
             v, topk_first=topk_first)
-        outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-        want = none_but(K1=0 if topk_first else 2 * len(lat),
-                        K6=k6_convs(net) * len(lat))
+        outs, _ = serve(req, [x, x])
+        want = none_but(K1=0 if topk_first else 2 * len(outs),
+                        K6=k6_convs(net) * len(outs))
         got = counts()
         if got != want:
             raise RuntimeError(f"bf16 {label}: launches {got}, wanted "
@@ -946,10 +861,6 @@ def yolo_bf16_phase(gpu):
         k6 += got["K6"]
         for o in outs:
             check_detections(o, BATCH)
-        dev = device_us(lambda: req(x), iters=5)
-        busy_report(f"detect_on_batch bf16 {label}, batch {BATCH}, {SIZE} "
-                    f"px; {SERVE_STEADY} requests after the warm-up",
-                    lat, lat[1:], dev, 5, gpu)
     heads = ["lid16", "lid23"]
     g_heads, _ = sess.predict_on_batch(x, outputs=heads)
     cpu = Session(net, SEED, device="cpu")
@@ -969,11 +880,11 @@ def yolo_bf16_phase(gpu):
     return k6
 
 
-def yolo_int8_phase(gpu):
+def yolo_int8_phase():
     """YOLOv3-tiny 416 at batch 8, bench.py's int8 program: bf16 compute
     and storage, ptq_synthetic (run on the CPU once, so that card and CPU
     share the quant dict), detect on the top-k-first branch: a warm-up
-    and SERVE_STEADY requests with the launch counts set to 0 before
+    request and one after it with the launch counts set to 0 before
     them, 13 K4 launches a request; then two images through the card and
     the CPU: every int8 flow tensor and both raw heads equal, and the
     detections. Returns K4's launches on the path."""
@@ -1000,23 +911,16 @@ def yolo_int8_phase(gpu):
 
     zero_counts()
     req = lambda v: sess.detect_on_batch(v)  # noqa: E731
-    outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+    outs, _ = serve(req, [x, x])
     got = counts()
     k4_launches = got["K4"]
-    if k4_launches != 13 * len(lat):
-        raise RuntimeError(f"K4 launched {k4_launches} times in {len(lat)} "
+    if k4_launches != 13 * len(outs):
+        raise RuntimeError(f"K4 launched {k4_launches} times in {len(outs)} "
                            "int8 requests")
     if got["K1"] or got["K3"] or got["K2"] or got["K6"]:
         raise RuntimeError(f"the int8 path launched {got}")
     for o in outs:
         check_detections(o, BATCH)
-    dev = device_us(lambda: req(x), iters=5)
-    k4_dev = sum(v for k, v in dev.items() if "conv_int8" in k) / 5e3
-    busy_report(f"detect_on_batch int8 (PTQ, int8 activation flow, bf16 "
-                f"heads), top-k-first, batch {BATCH}, {SIZE} px, "
-                f"{SERVE_STEADY} requests after the warm-up; K4 "
-                f"{k4_dev:.3f} ms of device time a request", lat, lat[1:],
-                dev, 5, gpu)
 
     x2 = x[:2]
     with torch.inference_mode():
@@ -1057,14 +961,14 @@ def yolo_int8_phase(gpu):
     return k4_launches
 
 
-def mobilenet_phase(gpu, bf16=False):
+def mobilenet_phase(bf16=False):
     """MobileNet-v1 PREDICT at batch 64, 224 px, 1000 classes, fp32 (or,
     with bf16, compute_dtype = act_dtype = bf16: K3 on the bf16-rounded
     values in fp32), with He-scaled weights from a numpy seed: a
-    warm-up, MB_REQUESTS requests (none at bf16) and MB_STEADY more,
-    with the launch counts set to 0 before them; fc and softmax of the
-    first two images against the port's CPU run; K6 on every BN conv.
-    Returns (K3, K6) launches on the path."""
+    warm-up and MB_REQUESTS requests (one at bf16), with the launch
+    counts set to 0 before them; fc and softmax of the first two images
+    against the port's CPU run; K6 on every BN conv. Returns (K3, K6)
+    launches on the path."""
     net = mobilenet_v1(MB_BATCH, MB_CLASSES)
     if bf16:
         net.compute_dtype = net.act_dtype = torch.bfloat16
@@ -1078,16 +982,12 @@ def mobilenet_phase(gpu, bf16=False):
                for _ in range(1 if bf16 else MB_REQUESTS + 1)]
     if bf16:  # the first one warms up; the card vs CPU check reads [1]
         batches.append(batches[0])
-    torch.cuda.reset_peak_memory_stats()
 
     zero_counts()
-    def classify(x):
-        return sess.predict_on_batch(x, outputs=MB_OUTPUTS)[0]
-
-    outs, lat = serve(classify, batches)
-    _, steady = serve(classify, [batches[1]] * MB_STEADY)
+    outs, _ = serve(
+        lambda x: sess.predict_on_batch(x, outputs=MB_OUTPUTS)[0], batches)
     k3_launches = library.launches("depthwise")
-    forwards = len(batches) + MB_STEADY
+    forwards = len(batches)
     if k3_launches != 13 * forwards:
         raise RuntimeError(
             f"K3 launched {k3_launches} times in {forwards} forwards"
@@ -1133,26 +1033,6 @@ def mobilenet_phase(gpu, bf16=False):
     print(f"top-1 {fc_g.argmax(1).tolist()} on the card, "
           f"{fc_c.argmax(1).tolist()} on the CPU, margin to the second "
           f"{(top2[:, 0] - top2[:, 1]).tolist()}")
-
-    med = statistics.median(steady)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    x = batches[1]
-    dev = device_us(lambda: classify(x), iters=3)
-    busy = sum(dev.values()) / 3 / 1e3
-    k3_dev = sum(v for k, v in dev.items() if "depthwise_kernel" in k) / 3e3
-    print(f"predict_on_batch MobileNet-v1, batch {MB_BATCH}, {MB_SIZE} px, "
-          f"{MB_CLASSES} classes, "
-          f"{'bf16' if bf16 else 'fp32 (TF32 off)'} on {gpu}: requests "
-          + ", ".join(f"{v:.2f}" for v in lat)
-          + f" ms (the first warms up); {MB_STEADY} more: median "
-          f"{med:.2f} ms, min {min(steady):.2f} ms = "
-          f"{MB_BATCH / med * 1e3:.1f} images/s; device busy "
-          + (f"{busy:.2f} ms per request ({100 * busy / med:.0f}% of the "
-             f"median), K3 {k3_dev:.3f} ms of it" if busy
-             else "not measured")
-          + f"; peak memory {peak:.2f} GiB")
-    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"    {us / 3 / 1e3:8.3f} ms  {k[:90]}")
     return k3_launches, k6_launches
 
 
@@ -1205,12 +1085,12 @@ YOLOV4_BATCH, YOLOV4_SIZE = 8, 608
 YOLOV4_FP32_TOL = 1e-4
 
 
-def yolov4_phase(gpu):
+def yolov4_phase():
     """Full YOLOv4 (CSPDarknet53 with Mish, SPP, PANet, three heads with
     scale_x_y) at 608 px, batch YOLOV4_BATCH, 80 classes: the benchmark's
     program (`benchmark/program.Served`: models.yolov4 from the frozen
     cfg, the reference's seeded weights) served in fp32 and bf16 on the
-    top-k-first branch, a warm-up and SERVE_STEADY requests each with the
+    top-k-first branch, a warm-up request and one after it each with the
     launch counts set to 0 before them: one K6 launch a BN conv a request
     (72 MISH, 35 LRELU) and no other kernel. The heads of two images
     against the plain reference (`benchmark/reference/yolov4.py`, fp32,
@@ -1236,14 +1116,14 @@ def yolov4_phase(gpu):
                         weights, None, "cuda")
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        outs, lat = serve(served.detect, [x] * (1 + SERVE_STEADY))
+        outs, _ = serve(served.detect, [x, x])
         n_bn = k6_convs(served.net)
         got = counts()
         by_act = {a: library.launches("bn_act", a)
                   for a in ("MISH", "LRELU")}
-        if (n_bn != 107 or got != none_but(K6=n_bn * len(lat))
-                or by_act != {"MISH": 72 * len(lat),
-                              "LRELU": 35 * len(lat)}):
+        if (n_bn != 107 or got != none_but(K6=n_bn * len(outs))
+                or by_act != {"MISH": 72 * len(outs),
+                              "LRELU": 35 * len(outs)}):
             raise RuntimeError(f"YOLOv4 {prec}: launches {got}, by "
                                f"activation {by_act}, {n_bn} BN convs")
         k6 += got["K6"]
@@ -1257,14 +1137,11 @@ def yolov4_phase(gpu):
             raise RuntimeError(f"YOLOv4 {prec} heads against the reference: "
                                f"{gaps} (limit {tol})")
         print(f"YOLOv4 {prec} at {YOLOV4_SIZE} px, batch {YOLOV4_BATCH}: "
-              f"K6 {by_act['MISH'] // len(lat)} MISH + "
-              f"{by_act['LRELU'] // len(lat)} LRELU a request; heads "
+              f"K6 {by_act['MISH'] // len(outs)} MISH + "
+              f"{by_act['LRELU'] // len(outs)} LRELU a request; heads "
               f"against the reference {', '.join(f'{g:.3g}' for g in gaps)}"
               f" (limit {tol}); peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        busy_report(f"YOLOv4 detect_on_batch {prec}, batch {YOLOV4_BATCH}",
-                    lat, lat[1:], device_us(lambda: served.detect(x),
-                                            iters=5), 5, gpu)
         if prec == "bf16":
             try:
                 served.sess.detect_on_batch(x, topk_first=False)
@@ -1290,14 +1167,14 @@ def yolov4_phase(gpu):
     return k6, mish
 
 
-def yolov3_phase(gpu):
+def yolov3_phase():
     """Full YOLOv3 from examples/yolo/yolov3.cfg (Darknet-53, 75 convs,
     23 shortcuts, three heads) at 416 px, batch 8, 80 classes: a Darknet
     .weights file written by save_weights_darknet from seeded weights
     into a temporary directory, loaded by Session.load_weights (BN
     folded), served in fp32, bf16 and int8 (ptq_synthetic, int8
     activations through the shortcuts, K4 on all 75 convs), each on both
-    detection branches: a warm-up and SERVE_STEADY requests with the
+    detection branches: a warm-up request and one after it with the
     launch counts set to 0 before each, K1 three times a
     decode-everything request. Against the port's CPU run on two images:
     fp32 heads at the fp32 head tolerance, bf16 within BF16_HEAD_TOL of
@@ -1362,33 +1239,23 @@ def yolov3_phase(gpu):
         for label, topk_first in (("decode-everything (K1)", False),
                                   ("top-k-first", True)):
             zero_counts()
-            torch.cuda.reset_peak_memory_stats()
-            req = lambda v: sess.detect_on_batch(  # noqa: E731
-                v, topk_first=topk_first)
-            outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+            outs, _ = serve(
+                lambda v: sess.detect_on_batch(v, topk_first=topk_first),
+                [x, x])
             got = counts()
-            want = none_but(K1=0 if topk_first else 3 * len(lat),
-                            K4=n_conv * len(lat) if prec == "int8" else 0,
+            want = none_but(K1=0 if topk_first else 3 * len(outs),
+                            K4=n_conv * len(outs) if prec == "int8" else 0,
                             K6=0 if prec == "int8"
-                            else k6_convs(net) * len(lat))
+                            else k6_convs(net) * len(outs))
             if got != want:
                 raise RuntimeError(f"full YOLOv3 {prec} {label}: launches "
                                    f"{got}, wanted {want}")
             k1_total += got["K1"]
             k4_total += got["K4"]
             k6_total += got["K6"]
-            peak = torch.cuda.max_memory_allocated() / 2**30
             for o in outs:
                 check_detections(o, BATCH)
             last[topk_first] = outs[-1]
-            dev = device_us(lambda: req(x), iters=5)
-            k4_dev = sum(v for k, v in dev.items() if "conv_int8" in k) / 5e3
-            busy_report(f"full YOLOv3 detect_on_batch {prec} {label}, batch "
-                        f"{BATCH}, {SIZE} px, {SERVE_STEADY} requests after "
-                        f"the warm-up; peak memory {peak:.2f} GiB"
-                        + (f"; K4 {k4_dev:.3f} ms of device time a request"
-                           if prec == "int8" else ""), lat, lat[1:], dev, 5,
-                        gpu)
         if prec == "fp32":
             same_detections(last[True], last[False])
 
@@ -2959,10 +2826,9 @@ def resnet18_phase(gpu):
         net.compute_dtype = net.act_dtype = (
             torch.bfloat16 if prec == "bf16" else None)
         zero_counts()
-        req = lambda v: sess.predict_on_batch(  # noqa: E731
-            v, outputs=MB_OUTPUTS)[0]
-        outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
-        got, want = counts(), none_but(K6=k6_convs(net) * len(lat))
+        outs, _ = serve(
+            lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0], [x, x])
+        got, want = counts(), none_but(K6=k6_convs(net) * len(outs))
         if got != want:
             raise RuntimeError(f"ResNet-18 serving launched {got}, wanted "
                                f"{want}")
@@ -2980,11 +2846,9 @@ def resnet18_phase(gpu):
         elif err > BF16_FC_TOL * scale:
             raise RuntimeError(f"ResNet-18 bf16 fc: {err:.3g} of "
                                f"{scale:.3g}")
-        dev = device_us(lambda: req(x), iters=5)
-        busy_report(f"ResNet-18 predict_on_batch {prec}, batch {R18_SERVE}, "
-                    f"224 px, {SERVE_STEADY} requests after the warm-up; fc "
-                    f"of two images vs the CPU port max_abs_err {err:.3g} "
-                    f"(largest {scale:.3g})", lat, lat[1:], dev, 5, gpu)
+        print(f"ResNet-18 predict_on_batch {prec}, batch {R18_SERVE}, 224 "
+              f"px: fc of two images vs the CPU port max_abs_err {err:.3g} "
+              f"(largest {scale:.3g})")
     net.compute_dtype = net.act_dtype = None
     del sess, cpu
 
@@ -3301,7 +3165,7 @@ def check_k5():
         r.update(ms=(t[1] + t[4]) / 2, plain_ms=(t[0] + t[5]) / 2,
                  library_ms=(t[2] + t[3]) / 2, cold_ms=cold_ms(kern, flush),
                  library_cold_ms=cold_ms(lib, flush),
-                 bound=bound(nbytes, ops, INT8_OP_S), mb=nbytes / 1e6,
+                 bound=bound(nbytes, ops, PEAK_OPS["int8"]), mb=nbytes / 1e6,
                  gop=ops / 1e9, dev_ms=k_dev / 1e3 if k_dev else None)
         del x, wt, xb, wb, out, args
         print(f"K5 {shape[:9]} {bn or 'no BN'} {act.name}: bit-equal, int8 "
@@ -3532,11 +3396,11 @@ def check_k6():
             [r for r in rows["YOLOv4 608"] if r["act"] == Activation.MISH])
 
 
-def int8_classifier_phase(gpu, name, net, p_np, s_np):
+def int8_classifier_phase(name, net, p_np, s_np):
     """Phase 11: `net` (PREDICT, batch I8_BATCH, 224 px, 1000 classes) on
     He-scaled seeded weights, PTQ by ptq_synthetic on the CPU (one quant
     dict for card and CPU), served through predict_on_batch: a warm-up
-    and SERVE_STEADY requests with the launch counts set to 0 before them,
+    request and one after it with the launch counts set to 0 before them,
     K4 on every conv and the FC, K5 on every depthwise layer; then two
     images card against CPU: every int8 tensor equal, the logits within
     the effect of the FC input codes that differ (at most one an
@@ -3558,12 +3422,11 @@ def int8_classifier_phase(gpu, name, net, p_np, s_np):
     n_k4 = sum(n.type.name in ("CONV2D", "FULL_CONNECTED") for n in net.nodes)
     x = np.random.RandomState(SEED + 21).rand(
         I8_BATCH, 3, 224, 224).astype(np.float32)
-    torch.cuda.reset_peak_memory_stats()
-    req = lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0]  # noqa
     zero_counts()
-    outs, lat = serve(req, [x] * (1 + SERVE_STEADY))
+    outs, _ = serve(
+        lambda v: sess.predict_on_batch(v, outputs=MB_OUTPUTS)[0], [x, x])
     got = counts()
-    want = none_but(K4=n_k4 * len(lat), K5=n_dw * len(lat))
+    want = none_but(K4=n_k4 * len(outs), K5=n_dw * len(outs))
     if got != want:
         raise RuntimeError(f"int8 {name}: launches {got}, wanted {want}")
     for o in outs:
@@ -3571,18 +3434,6 @@ def int8_classifier_phase(gpu, name, net, p_np, s_np):
             if tuple(t.shape) != (I8_BATCH, 1000, 1, 1) or not bool(
                     torch.isfinite(t).all()):
                 raise RuntimeError(f"int8 {name}: bad output {t.shape}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    dev = device_us(lambda: req(x), iters=5)
-    k4_dev = sum(v for k, v in dev.items() if "conv_int8" in k) / 5e3
-    k5_dev = sum(v for k, v in dev.items() if "grouped_int8" in k) / 5e3
-    busy_report(f"int8 {name} predict_on_batch (PTQ, int8 activation "
-                f"flow), batch {I8_BATCH}, 224 px, 1000 classes, "
-                f"{SERVE_STEADY} requests after the warm-up; {n_k4} K4 and "
-                f"{n_dw} K5 launches a request, K4 {k4_dev:.3f} ms and K5 "
-                f"{k5_dev:.3f} ms of device time a request; peak memory "
-                f"{peak:.2f} GiB", lat, lat[1:], dev, 5, gpu)
-    for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"    {us / 5 / 1e3:8.3f} ms  {k[:90]}")
 
     x2 = x[:2]
     with torch.inference_mode():
@@ -3635,9 +3486,9 @@ def qat_phase(gpu):
     TRAIN_STEPS timed steps; one batch-2 step card vs CPU, each held to a
     float64 replay of its own choices (fake-quant codes included); then
     Session.freeze_qat and the frozen net served at int8 on both
-    detection branches at batch BATCH (13 K4 launches a request, K1 two
-    on decode-everything), every int8 tensor equal card vs CPU. Returns
-    (K1, K2, K4) launches."""
+    detection branches at batch BATCH, a warm-up request and one after it
+    each (13 K4 launches a request, K1 two on decode-everything), every
+    int8 tensor equal card vs CPU. Returns (K1, K2, K4) launches."""
     t_phase = time.perf_counter()
     sess = train_session(TRAIN_BATCH, "cuda")
     sess.net.qat = True
@@ -3683,23 +3534,18 @@ def qat_phase(gpu):
     launches = {}
     for topk_first in (True, False):
         zero_counts()
-        req = lambda v: card.detect_on_batch(  # noqa: E731
-            v, topk_first=topk_first)
-        outs, lat = serve(req, [xs] * (1 + SERVE_STEADY))
+        outs, _ = serve(
+            lambda v: card.detect_on_batch(v, topk_first=topk_first),
+            [xs, xs])
         got = counts()
-        want = none_but(K1=0 if topk_first else 2 * len(lat),
-                        K4=13 * len(lat))
+        want = none_but(K1=0 if topk_first else 2 * len(outs),
+                        K4=13 * len(outs))
         if got != want:
             raise RuntimeError(f"frozen QAT detect: launches {got}, wanted "
                                f"{want}")
         for o in outs:
             check_detections(o, BATCH)
         launches[topk_first] = got
-        dev = device_us(lambda: req(xs), iters=5)
-        busy_report(f"frozen QAT YOLOv3-tiny detect_on_batch int8, "
-                    f"{'top-k-first' if topk_first else 'decode-everything (K1)'}"
-                    f", batch {BATCH}, {SIZE} px, {SERVE_STEADY} requests "
-                    "after the warm-up", lat, lat[1:], dev, 5, gpu)
     cpu = Session(serve_net, SEED, device="cpu")
     cpu.params = {k: v.cpu() for k, v in card.params.items()}
     cpu.state = {k: v.cpu() for k, v in card.state.items()}
@@ -6142,10 +5988,10 @@ def main() -> int:
                for _ in range(REQUESTS + 1)]  # the first one warms up
 
     zero_counts()
-    full, lat_full = serve(
+    full, _ = serve(
         lambda x: sess.detect_on_batch(x, topk_first=False), batches)
     k1_launches = library.launches("yolo_decode")
-    topk, lat_topk = serve(
+    topk, _ = serve(
         lambda x: sess.detect_on_batch(x, topk_first=True), batches)
     if library.launches("yolo_decode") != k1_launches:
         raise RuntimeError("the top-k-first branch launched K1")
@@ -6182,51 +6028,27 @@ def main() -> int:
         print(f"head {tuple(g.shape)} GPU vs CPU max_abs_err "
               f"{float((g - c).abs().max()):.3g}")
 
-    # -- phase 6: report -------------------------------------------------
-    x = batches[1]
-    for label, topk_first, lat in (
-        ("decode-everything (K1)", False, lat_full),
-        ("top-k-first", True, lat_topk),
-    ):
-        _, steady = serve(
-            lambda x: sess.detect_on_batch(x, topk_first=topk_first),
-            [x] * 20)
-        med = statistics.median(steady)
-        dev = device_us(
-            lambda: sess.detect_on_batch(x, topk_first=topk_first), iters=5
-        )
-        busy = sum(dev.values()) / 5 / 1e3
-        print(f"detect_on_batch {label}, batch {BATCH}, {SIZE} px, "
-              f"{CLASSES} classes on {gpu}: requests "
-              + ", ".join(f"{v:.2f}" for v in lat)
-              + f" ms (the first warms up); 20 more: median {med:.2f} ms, "
-              f"min {min(steady):.2f} ms; device busy "
-              + (f"{busy:.2f} ms per request ({100 * busy / med:.0f}% of "
-                 "the median)" if busy else "not measured"))
-        for k, us in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"    {us / 5 / 1e3:8.3f} ms  {k[:90]}")
-
-    stamp("4-6")
+    stamp("4-5")
 
     # -- phase 6b: serve YOLOv3-tiny at bf16, then int8 -------------------
-    k6_launches += yolo_bf16_phase(gpu)
-    k4_launches = yolo_int8_phase(gpu)
+    k6_launches += yolo_bf16_phase()
+    k4_launches = yolo_int8_phase()
     stamp("6b")
 
     # -- phase 6c: serve MobileNet-v1 at 224, batch 64, fp32 and bf16 ------
-    k3_launches, k6_mb = mobilenet_phase(gpu)
-    k6_launches += k6_mb + mobilenet_phase(gpu, bf16=True)[1]
+    k3_launches, k6_mb = mobilenet_phase()
+    k6_launches += k6_mb + mobilenet_phase(bf16=True)[1]
     stamp("6c")
 
     # -- phase 6d: serve full YOLOv3 from its cfg and a .weights file -----
-    k1_v3, k4_v3, k6_v3 = yolov3_phase(gpu)
+    k1_v3, k4_v3, k6_v3 = yolov3_phase()
     k1_launches += k1_v3
     k4_launches += k4_v3
     k6_launches += k6_v3
     stamp("6d")
 
     # -- phase 6e: serve full YOLOv4 at 608, fp32 and bf16 ----------------
-    p6e, mish_launches = yolov4_phase(gpu)
+    p6e, mish_launches = yolov4_phase()
     k6_launches += p6e
     stamp("6e")
 
@@ -6252,10 +6074,10 @@ def main() -> int:
     # -- phase 11: int8 MobileNet-v1 and ResNet-18; 12: QAT ---------------
     mb_net = mobilenet_v1(I8_BATCH, 1000)
     k4_mb, k5_launches = int8_classifier_phase(
-        gpu, "MobileNet-v1", mb_net, *bridge.he_numpy_weights(mb_net, SEED))
+        "MobileNet-v1", mb_net, *bridge.he_numpy_weights(mb_net, SEED))
     r18_net = resnet18(I8_BATCH, 1000)
     k4_r18, _ = int8_classifier_phase(
-        gpu, "ResNet-18", r18_net, *bridge.he_numpy_weights(r18_net, SEED))
+        "ResNet-18", r18_net, *bridge.he_numpy_weights(r18_net, SEED))
     stamp("11")
     k1_q, k2_q, k4_q = qat_phase(gpu)
     k1_launches += k1_q

@@ -519,7 +519,7 @@ def test_k4_raises_on_an_nchw_int8_x_or_w(cuda):
 
 def test_k4_takes_an_output_past_2_31_values(cuda):
     """An unsplit launch whose int8 output holds more than 2^31 values
-    (bench_torch's serve batch of 1024 has such a first conv): it
+    (YOLOv3-tiny's first conv at 416 px and batch 1024 has one): it
     launches, and its last rows equal the plain version's on the input
     rows they read."""
     h = w = 11600  # M * O = 11600^2 * 16 > 2^31

@@ -7,7 +7,9 @@ in [-0.1, 0.1]) in both packages: the zero stats init_params gives would
 multiply every BN layer by rsqrt(1e-6) = 1000. Heads match at rtol 1e-4,
 atol 1e-4, the repo's fp32 detection tolerance (docs/STATUS.md)."""
 
+import ast
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -35,6 +37,12 @@ torch.set_num_threads(1)
 RTOL, ATOL = 1e-4, 1e-4
 BATCH, SIZE, CLASSES = 2, 88, 4
 HEADS = ["lid17", "lid24"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the scripts that drive the port on the card, each imported (not run)
+CARD_SCRIPTS = ["tools/card_timing.py", "chip_smoke.py",
+                "tools/k1k2_compare.py", "tools/k3_compare.py",
+                "tools/k4_compare.py", "tools/k5_compare.py",
+                "tools/kernel_repeat.py", "tools/upload_compare.py"]
 
 
 def bn_stats(specs, seed=0):
@@ -222,6 +230,81 @@ def test_no_jax_in_the_port(tmp_path):
         capture_output=True, text=True, env=env, cwd=root, timeout=120,
     )
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
+
+
+@pytest.fixture(scope="module")
+def card_imports():
+    """One fresh interpreter with no CUDA device imports each card script
+    in turn: {path: (error or None, jax modules it loaded, whether CUDA
+    was initialised after it)}."""
+    code = textwrap.dedent(
+        """
+        import importlib.util, json, os, sys
+        import torch
+        out = {}
+        for path in sys.argv[1:]:
+            name = os.path.splitext(os.path.basename(path))[0]
+            before = set(sys.modules)
+            try:
+                spec = importlib.util.spec_from_file_location(name, path)
+                mod = importlib.util.module_from_spec(spec)
+                sys.modules[name] = mod
+                spec.loader.exec_module(mod)
+                err = None
+            except Exception as e:
+                err = f"{type(e).__name__}: {e}"
+            jax = sorted(m for m in set(sys.modules) - before
+                         if m == "jax" or m.startswith(("jax.", "bcnn_tpu.")))
+            out[path] = (err, jax, torch.cuda.is_initialized())
+        print(json.dumps(out))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code, *CARD_SCRIPTS],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("path", CARD_SCRIPTS)
+def test_card_script_imports_without_jax_or_cuda(card_imports, path):
+    """Each script that drives the port on the card imports on a machine
+    without one, loads no JAX and leaves CUDA uninitialised: the work is
+    under its main()."""
+    assert card_imports[path] == [None, [], False]
+
+
+def test_card_timers_live_in_one_module():
+    """Every sleep queued before a timed call takes its cycles from
+    tools/card_timing.SLEEP_CYCLES, and no card script but
+    tools/card_timing.py times with CUDA events (tools/upload_compare.py's
+    `timed` excepted: it times a host call's return and sync, not a
+    kernel)."""
+    paths = ["chip_smoke.py"] + sorted(
+        os.path.join("tools", f) for f in os.listdir(os.path.join(ROOT, "tools"))
+        if f.endswith(".py"))
+    sleeps, events = {}, []
+    for path in paths:
+        tree = ast.parse(open(os.path.join(ROOT, path)).read())
+        shared = path == os.path.join("tools", "card_timing.py") or any(
+            isinstance(n, ast.ImportFrom) and n.module == "tools.card_timing"
+            and "SLEEP_CYCLES" in [a.name for a in n.names]
+            for n in ast.walk(tree))
+        for n in ast.walk(tree):
+            if not (isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute)):
+                continue
+            if n.func.attr == "_sleep":
+                names = {x.id for x in ast.walk(n) if isinstance(x, ast.Name)}
+                sleeps[f"{path}:{n.lineno}"] = (
+                    shared and "SLEEP_CYCLES" in names)
+            if n.func.attr == "Event" and any(
+                    k.arg == "enable_timing" for k in n.keywords):
+                events.append(path)
+    assert sleeps and all(sleeps.values()), sleeps
+    assert set(events) == {os.path.join("tools", "card_timing.py"),
+                           os.path.join("tools", "upload_compare.py")}, events
 
 
 def test_cuda_session_raises_without_cuda():

@@ -4,10 +4,9 @@ YOLO decode K1 (csrc/yolo_decode.cu) on one GPU against other builds of
 them, at the shapes of the port's paths: K2's three shears of one
 training step (batch 32, 416 px, rotation 10) and the whole shear chain,
 K1 on YOLOv3-tiny's two heads at batch 8. Every build runs in this one
-process, in turns (A, B, ..., B, A), warm (launches queued back to back
-behind a sleep on the card) and cold (each launch after a 256 MB write,
-timed by its own events); then the profiler's device time by kernel name
-for each chain and each K1 build.
+process, in turns (A, B, ..., B, A), warm and cold (tools/card_timing.py's
+cuda_ms and cold_ms); then the profiler's device time by kernel name for
+each chain and each K1 build.
 
     mkdir -p _checkout
     git show <commit>:bcnn_tpu_torch/csrc/row_shift.cu > _checkout/k2_old.cu
@@ -42,8 +41,9 @@ from bcnn_tpu_torch.data.device_augment import _shear_bounds  # noqa: E402
 from bcnn_tpu_torch.ops import row_shift as k2  # noqa: E402
 from bcnn_tpu_torch.ops.yolo_decode import (  # noqa: E402
     decode_fused, decode_grid_ref)
-from chip_smoke import device_us  # noqa: E402
-from k3_compare import cold, warm  # noqa: E402
+from benchmark.roofline import PEAK_BYTES  # noqa: E402
+from tools.card_timing import (  # noqa: E402
+    FLUSH_FLOATS, cold_ms, cuda_ms, device_us, gpu_line)
 
 OUT = ROOT / "_checkout" / "k1k2_compare"
 FILL = 128.0
@@ -125,8 +125,8 @@ def turns(fns, flush):
     t_c = dict.fromkeys(fns, 0.0)
     order = list(fns)
     for name in order + order[::-1]:
-        t_w[name] += warm(fns[name]) / 2
-        t_c[name] += cold(fns[name], flush) / 2
+        t_w[name] += cuda_ms(fns[name], iters=30, warmup=3) / 2
+        t_c[name] += cold_ms(fns[name], flush) / 2
     return t_w, t_c
 
 
@@ -192,7 +192,7 @@ def compare_k2(old, variants, flush):
         t_w, t_c = turns(fns, flush)
         nbytes = 4 * (img.numel() + d.numel() + out.numel())
         show(f"K2 {label} {tuple(img.shape)}", t_w, t_c,
-             nbytes / 3.35e12 * 1e6)
+             nbytes / PEAK_BYTES * 1e6)
         for name in fns:
             acc = total.setdefault(name, [0.0, 0.0])
             acc[0] += t_w[name]
@@ -206,7 +206,7 @@ def compare_k2(old, variants, flush):
     nbytes = 4 * (mid.numel() + want_r3.numel() * 2 + want_r2.numel() * 2
                   + want_out.numel())
     show("shear chain (three passes; old: and two transposing copies)",
-         t_w, t_c, nbytes / 3.35e12 * 1e6)
+         t_w, t_c, nbytes / PEAK_BYTES * 1e6)
     for name, fn in chains.items():
         by_name(f"chain {name}", fn)
 
@@ -240,7 +240,7 @@ def compare_k1(old, flush):
                 torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-6)
         t_w, t_c = turns(fns, flush)
         nbytes = 4 * (x.numel() + sum(w.numel() for w in want))
-        show(f"K1 {tuple(x.shape)}", t_w, t_c, nbytes / 3.35e12 * 1e6)
+        show(f"K1 {tuple(x.shape)}", t_w, t_c, nbytes / PEAK_BYTES * 1e6)
         for name, fn in fns.items():
             by_name(f"K1 {name} {tuple(x.shape)}", fn)
 
@@ -254,15 +254,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k1k2_compare: CUDA is not available", file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    print(gpu_line())
     old_k2 = build(args.old_k2, ["bcnn_row_shift"]) if args.old_k2 else None
     old_k1 = build(args.old_k1, ["bcnn_yolo_decode"]) if args.old_k1 else None
     variants = {src.stem: build(src, ["bcnn_row_shift", "bcnn_col_shift"])
                 for src in args.variant_k2}
-    flush = torch.empty(64 * 2**20, device="cuda")
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     compare_k2(old_k2, variants, flush)
     compare_k1(old_k1, flush)
     return 0

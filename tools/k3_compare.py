@@ -3,8 +3,7 @@
 GPU against other builds of it, and against every candidate tile plan,
 at the nine depthwise shapes of MobileNet-v1 at batch 64 (k 3, pad 1,
 ReLU). Every build runs in this one process, in turns (A, B, ..., B,
-A), warm (launches queued back to back behind a sleep on the card) and
-cold (each launch after a 256 MB write, timed by its own events).
+A), warm and cold (tools/card_timing.py's cuda_ms and cold_ms).
 
     git show <commit>:bcnn_tpu_torch/csrc/depthwise.cu > _checkout/k3_old.cu
     python3 tools/k3_compare.py --old _checkout/k3_old.cu \\
@@ -24,7 +23,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import itertools
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +36,9 @@ sys.path.insert(0, str(ROOT))
 from bcnn_tpu_torch import kernels  # noqa: E402
 from bcnn_tpu_torch.ops import depthwise as dw  # noqa: E402
 from bcnn_tpu_torch.types import Activation  # noqa: E402
+from benchmark.roofline import PEAK_BYTES  # noqa: E402
+from tools.card_timing import (  # noqa: E402
+    FLUSH_FLOATS, cold_ms, cuda_ms, gpu_line)
 
 OUT = ROOT / "_checkout" / "k3_compare"
 # (n, c, h, w, stride, launches a forward)
@@ -58,36 +59,6 @@ def build(src: Path, argtypes) -> ctypes.CDLL:
     lib.bcnn_depthwise.argtypes = argtypes
     lib.bcnn_depthwise.restype = ctypes.c_int
     return lib
-
-
-def warm(fn, iters=30) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(iters * 200_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold(fn, flush, reps=9) -> float:
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(200_000)  # the host queues the call meanwhile
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def sweep_plans(n, c, h, w, s):
@@ -115,16 +86,13 @@ def main() -> int:
         print("k3_compare: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    print(gpu_line())
     lib = kernels.library()
     p, i = ctypes.c_void_p, ctypes.c_int
     old = build(args.old, [p] * 4 + [i] * 8 + [p]) if args.old else None
     variants = {src.stem: build(src, lib.bcnn_depthwise.argtypes)
                 for src in args.variant}
-    flush = torch.empty(64 * 2**20, device="cuda")
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     gen = torch.Generator().manual_seed(0)
     total: dict[str, list[float]] = {}
     for n, c, h, w, s, per_fwd in SHAPES:
@@ -160,13 +128,13 @@ def main() -> int:
         t_w = dict.fromkeys(order, 0.0)
         t_c = dict.fromkeys(order, 0.0)
         for name in order + order[::-1]:
-            t_w[name] += warm(fns[name]) / 2
-            t_c[name] += cold(fns[name], flush) / 2
+            t_w[name] += cuda_ms(fns[name], iters=30, warmup=3) / 2
+            t_c[name] += cold_ms(fns[name], flush) / 2
         for name in order:
             acc = total.setdefault(name, [0.0, 0.0])
             acc[0] += per_fwd * t_w[name]
             acc[1] += per_fwd * t_c[name]
-        bound = 4 * (x.numel() + want.numel()) / 3.35e12 * 1e6
+        bound = 4 * (x.numel() + want.numel()) / PEAK_BYTES * 1e6
         print(f"{(n, c, h, w)} s{s}, bound {bound:.1f} us | warm "
               + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in t_w.items())
               + " | cold "
@@ -195,7 +163,8 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(y, want):
                 raise RuntimeError(f"plan {plan} computes another output")
-            res.append((cold(run, flush, 5), warm(run, 10), plan))
+            res.append((cold_ms(run, flush, 5),
+                        cuda_ms(run, iters=10, warmup=3), plan))
         res.sort(key=lambda r: r[0])
         mine = dw.plan_tiles(n, c, h, w, 3, s, 1)
         mine_ms = [(k + 1, r[0]) for k, r in enumerate(res) if r[2] == mine]

@@ -4,9 +4,8 @@ GPU against an older build of it, at the 13 convs of YOLOv3-tiny 416 at
 batch 8 in the form the int8 path runs them (BN, LRELU and int8 out on
 the trunk; linear fp32 out on the two heads), beside the bound and
 cuDNN's bf16 conv of the same values. Every build runs in this one
-process, in turns (old, repo, library, library, repo, old), warm
-(launches queued back to back behind a sleep on the card) and cold (each
-launch after a 256 MB write, timed by its own events).
+process, in turns (old, repo, library, library, repo, old), warm and
+cold (tools/card_timing.py's cuda_ms and cold_ms).
 
     git show <commit>:bcnn_tpu_torch/csrc/conv_int8.cu > _checkout/k4_old.cu
     python3 tools/k4_compare.py --old _checkout/k4_old.cu [--sweep] \\
@@ -28,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -43,9 +41,11 @@ from bcnn_tpu_torch import kernels  # noqa: E402
 from bcnn_tpu_torch.models import yolov3_tiny  # noqa: E402
 from bcnn_tpu_torch.ops import conv_int8 as k4  # noqa: E402
 from bcnn_tpu_torch.types import Activation  # noqa: E402
+from benchmark.roofline import PEAK_BYTES, PEAK_OPS  # noqa: E402
+from tools.card_timing import (  # noqa: E402
+    FLUSH_FLOATS, cold_ms, cuda_ms, gpu_line)
 
 OUT = ROOT / "_checkout" / "k4_compare"
-HBM_BYTES_S, INT8_OP_S = 3.35e12, 1979e12
 
 
 def path_shapes(batch=8, size=416, classes=80):
@@ -96,36 +96,6 @@ def ptxas_report() -> str:
          str(kernels.SRC_DIR / "conv_int8.cu")],
         capture_output=True, text=True, check=True)
     return res.stderr.strip()
-
-
-def warm(fn, iters=50) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(iters * 200_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold(fn, flush, reps=9) -> float:
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(200_000)  # the host queues the call meanwhile
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def make_args(shape, trunk, gen):
@@ -198,16 +168,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k4_compare: CUDA is not available", file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    print(gpu_line())
     if args.ptxas:
         print(ptxas_report())
     lib = kernels.library()
     old = build_old(args.old) if args.old else None
     variants = {src.stem: build_variant(src) for src in args.variant}
-    flush = torch.empty(64 * 2**20, device="cuda")
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     gen = torch.Generator().manual_seed(0)
     sms = kernels.sm_count(torch.device("cuda"))
     total: dict[str, list[float]] = {}
@@ -261,18 +228,18 @@ def main() -> int:
         t_w = dict.fromkeys(order, 0.0)
         t_c = dict.fromkeys(order, 0.0)
         for key in order + order[::-1]:
-            t_w[key] += warm(fns[key]) / 2
-            t_c[key] += cold(fns[key], flush) / 2
+            t_w[key] += cuda_ms(fns[key], iters=50, warmup=5) / 2
+            t_c[key] += cold_ms(fns[key], flush) / 2
         for key in order:
             acc = total.setdefault(key, [0.0, 0.0])
             acc[0] += t_w[key]
             acc[1] += t_c[key]
         nbytes = x.numel() + wt.numel() + got.numel() * got.element_size()
         ops = 2 * got.shape[0] * got.shape[2] * got.shape[3] * o * c * k * k
-        bound = 1e3 * max(nbytes / HBM_BYTES_S, ops / INT8_OP_S)
+        bound = 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_OPS["int8"])
         bound_total += bound
         print(f"{name} {shape}: bound {1e3 * bound:.2f} us "
-              f"({'bytes' if nbytes / HBM_BYTES_S >= ops / INT8_OP_S else 'operations'})"
+              f"({'bytes' if nbytes / PEAK_BYTES >= ops / PEAK_OPS["int8"] else 'operations'})"
               " | warm " + ", ".join(f"{key} {1e3 * v:.1f}"
                                      for key, v in t_w.items())
               + " | cold " + ", ".join(f"{key} {1e3 * v:.1f}"
@@ -293,7 +260,8 @@ def main() -> int:
                 if not torch.equal(out, want):
                     raise RuntimeError(f"{name}: plan {cand} computes "
                                        "another output")
-                res.append((warm(run, 20), cold(run, flush, 5), cand))
+                res.append((cuda_ms(run, iters=20, warmup=5),
+                            cold_ms(run, flush, 5), cand))
             res.sort(key=lambda r: r[0])
             rank = [i for i, r in enumerate(res) if r[2] == plan]
             print(f"    {len(res)} plans; plan_conv_int8's is "

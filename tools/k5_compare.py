@@ -6,9 +6,8 @@ at the nine depthwise shapes of MobileNet-v1 at batch 64 (k 3, pad 1,
 RELU, int8 out; per shape and per forward, at the launches a forward
 makes) and at the grouped shape (8, 256, 26, 26) in 4 groups (BN, LRELU).
 Every build runs in this one process, in turns (old, repo, library,
-library, repo, old), warm (launches queued back to back behind a sleep on
-the card) and cold (each launch after a 256 MB write, timed by its own
-events).
+library, repo, old), warm and cold (tools/card_timing.py's cuda_ms and
+cold_ms).
 
     git show 5292da2:bcnn_tpu_torch/csrc/grouped_int8.cu > _checkout/k5_old.cu
     python3 tools/k5_compare.py --old _checkout/k5_old.cu [--sweep] [--ptxas] \
@@ -34,7 +33,6 @@ import argparse
 import collections
 import ctypes
 import re
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -48,9 +46,11 @@ sys.path.insert(0, str(ROOT))
 from bcnn_tpu_torch import kernels  # noqa: E402
 from bcnn_tpu_torch.ops import grouped_int8 as k5  # noqa: E402
 from bcnn_tpu_torch.types import Activation  # noqa: E402
+from benchmark.roofline import PEAK_BYTES, PEAK_OPS  # noqa: E402
+from tools.card_timing import (  # noqa: E402
+    FLUSH_FLOATS, cold_ms, cuda_ms, gpu_line)
 
 OUT = ROOT / "_checkout" / "k5_compare"
-HBM_BYTES_S, INT8_OP_S = 3.35e12, 1979e12
 # (n, c, h, w, o, k, stride, pad, groups, bn, act, launches a forward)
 SHAPES = [(64, c, hw, hw, c, 3, s, 1, c, None, Activation.RELU, m)
           for c, hw, s, m in [(32, 112, 1, 1), (64, 112, 2, 1),
@@ -174,36 +174,6 @@ def ptxas_report() -> str:
     return "\n".join(lines)
 
 
-def warm(fn, iters=50) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(iters * 200_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold(fn, flush, reps=9) -> float:
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(200_000)  # the host queues the call meanwhile
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def make_args(shape, gen):
     """x channels-last, w in K5's layout, the vectors, on the card, d
     scaled so that y spreads over the codes of s_out = 2/127."""
@@ -249,16 +219,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k5_compare: CUDA is not available", file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    print(gpu_line())
     if args.ptxas:
         print(ptxas_report())
     kernels.library()
     old = build_old(args.old) if args.old else None
     variants = {src.stem: build_variant(src) for src in args.variant}
-    flush = torch.empty(64 * 2**20, device="cuda")
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
     gen = torch.Generator().manual_seed(0)
     sms = kernels.sm_count(torch.device("cuda"))
     total: dict[str, list[float]] = {}
@@ -320,11 +287,11 @@ def main() -> int:
         t_w = dict.fromkeys(order, 0.0)
         t_c = dict.fromkeys(order, 0.0)
         for key in order + order[::-1]:
-            t_w[key] += warm(fns[key]) / 2
-            t_c[key] += cold(fns[key], flush) / 2
+            t_w[key] += cuda_ms(fns[key], iters=50, warmup=5) / 2
+            t_c[key] += cold_ms(fns[key], flush) / 2
         nbytes = x.numel() + wt.numel() + got.numel() + 4 * 5 * o
         ops = 2 * got.numel() * (c // groups) * k * k
-        bound = 1e3 * max(nbytes / HBM_BYTES_S, ops / INT8_OP_S)
+        bound = 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_OPS["int8"])
         if shape is not GROUPED:
             bound_total += per_fwd * bound
             for key in order:
@@ -351,7 +318,8 @@ def main() -> int:
                 if not torch.equal(out, want):
                     raise RuntimeError(f"{shape[:9]}: plan {cand} computes "
                                        "another output")
-                res.append((warm(run, 20), cold(run, flush, 5), cand))
+                res.append((cuda_ms(run, iters=20, warmup=5),
+                            cold_ms(run, flush, 5), cand))
             res.sort(key=lambda r: r[1])
             rank = [i for i, r in enumerate(res) if r[2] == plan]
             print(f"    {len(res)} plans; plan_grouped_int8's is "

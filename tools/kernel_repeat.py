@@ -8,7 +8,7 @@ of 200, timed alone on the host clock, the card kept busy), then runs
 chip_smoke.check_k3 and check_k5 as the whole script runs them: every
 output held to the plain version, then timed warm, cold and by the
 profiler. The CUDA-event times hide the host only while one call's host
-time stays under the sleep queued before it (chip_smoke.SLEEP_CYCLES a
+time stays under the sleep queued before it (card_timing.SLEEP_CYCLES a
 call); the profiler's device time never counts it. A summary line a
 repeat gives the times a MobileNet-v1 forward (its 13 launches).
 
@@ -34,6 +34,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from bcnn_tpu_torch import kernels  # noqa: E402
 from bcnn_tpu_torch.ops.grouped_int8 import grouped_int8_fused  # noqa: E402
+from tools.card_timing import SLEEP_CYCLES, gpu_line  # noqa: E402
 
 HOST_CALLS = 200
 
@@ -53,7 +54,7 @@ def k5_host_us():
         cs.SEED))
     grouped_int8_fused(*args, **kw)
     torch.cuda.synchronize()
-    torch.cuda._sleep(HOST_CALLS * cs.SLEEP_CYCLES)
+    torch.cuda._sleep(HOST_CALLS * SLEEP_CYCLES)
     times = []
     for _ in range(HOST_CALLS):
         t0 = time.perf_counter()
@@ -74,7 +75,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_repeat: CUDA is not available", file=sys.stderr)
         return 1
-    print(cs.gpu_line(), torch.__version__, torch.version.cuda, flush=True)
+    print(gpu_line(), torch.__version__, torch.version.cuda, flush=True)
     kernels.library()
     for i in range(a.repeats):
         med, top = k5_host_us()

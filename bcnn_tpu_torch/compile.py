@@ -19,7 +19,11 @@ forward for the backward. Conventions:
     with net.qat, the 0-d "qat_amax/<idx>" ranges;
   - `values`: tensor index -> tensor; activations have NCHW shapes
     throughout, conv weights OIHW; the int8 flow's activations are held
-    channels-last (NHWC in memory), the layout K4 reads and writes.
+    channels-last (NHWC in memory), the layout K4 reads and writes, and
+    so are the bf16 activations of an executor that `channels_last_layout`
+    picks for it (bf16 inference on the card), the layout cuDNN's Hopper
+    bf16 convs read and write; what callers see (`output_value`, the YOLO
+    heads' inputs) is NCHW.
 """
 
 from __future__ import annotations
@@ -35,6 +39,52 @@ from .types import Activation, LayerType, Loss, Mode
 
 # each node's span (`profiling.span`), named once a layer type
 _NODE_SPAN = {t: f"bcnn.node.{t.name.lower()}" for t in LayerType}
+
+# the nodes with a channels-last form (`channels_last_layout`): the conv
+# (cuDNN, then K6 or the bias and activation), the shortcut add, the route
+# (`torch.cat` on dim 1), max pooling (Darknet's pad, then
+# `F.max_pool2d`), the upsample and the YOLO heads (NCHW for their reader)
+_CHANNELS_LAST_NODES = frozenset({
+    LayerType.CONV2D, LayerType.ELTWISE, LayerType.CONCAT,
+    LayerType.MAXPOOL, LayerType.UPSAMPLE, LayerType.YOLOV3})
+_LAYOUT_COUNTS = {"executors": 0, "nodes": 0, "to_channels_last": 0,
+                  "to_nchw": 0}
+
+
+def layout_counts() -> Dict[str, int]:
+    """Since the last `reset_layout_counts`: the executor passes run
+    channels-last ("executors"), the nodes they ran ("nodes"), and the
+    layout conversions they made: into channels-last (a conv's input that
+    came NCHW: the net's input, at its cast to bf16) and back to NCHW (a
+    YOLO head's input, a value `output_value` hands out)."""
+    return dict(_LAYOUT_COUNTS)
+
+
+def reset_layout_counts() -> None:
+    for k in _LAYOUT_COUNTS:
+        _LAYOUT_COUNTS[k] = 0
+
+
+def channels_last_layout(net: Net, mode: Mode, device_type: str,
+                         plain: bool = True) -> bool:
+    """Whether an executor holds the net's activations channels-last:
+    on a CUDA device, outside TRAIN, at bf16 compute and activations
+    (act_dtype holds in PREDICT only), with no int8 quantization, in the
+    plain executor (`plain`: not the model axis's, which slice and gather
+    channels and rows), and where every node has a channels-last form
+    (`_CHANNELS_LAST_NODES`: not K3's depthwise, the FC, avgpool, ...).
+    Else NCHW, as every value was before. Same ops either way; only the
+    strides differ."""
+    bf16 = torch.bfloat16
+    return (device_type == "cuda" and plain and mode == Mode.PREDICT
+            and getattr(net, "compute_dtype", None) == bf16
+            and getattr(net, "act_dtype", None) == bf16
+            and not getattr(net, "quant", None)
+            and all(n.type in _CHANNELS_LAST_NODES for n in net.nodes))
+
+
+def _channels_last(x: torch.Tensor) -> bool:
+    return x.is_contiguous(memory_format=torch.channels_last)
 
 
 def init_params(
@@ -221,6 +271,12 @@ class _Executor:
             )
             self.qat_watch = set(watch_tensors(net))
             self._qat_seen: set = set()
+        # the activations' layout, chosen once from what the executor
+        # sees: the device of its parameters, the net, the mode, its kind
+        dev = next(iter(params.values()), None)
+        self.channels_last = channels_last_layout(
+            net, mode, dev.device.type if dev is not None else "cpu",
+            plain=type(self) is _Executor)
 
     def key_of(self, idx: int) -> str:
         return self.net.tensors[idx].key
@@ -231,6 +287,10 @@ class _Executor:
     def run(self, lo: int = 0, hi: Optional[int] = None, taps_in=None):
         """Nodes [lo, hi), the pass's span `bcnn.execute` and each node's
         `bcnn.node.<type>` where a profiler records (`profiling.span`)."""
+        if self.channels_last:
+            _LAYOUT_COUNTS["executors"] += 1
+            _LAYOUT_COUNTS["nodes"] += (
+                len(self.net.nodes) if hi is None else hi) - lo
         with span("bcnn.execute"):
             return self._run(lo, hi, taps_in)
 
@@ -324,7 +384,9 @@ class _Executor:
         the new running stats into `state`. Outside TRAIN, BN and the
         activation are one K6 launch where `ops.bn_act.takes` the output
         (on the card: bf16 or fp32, no autograd; NONE, RELU, LRELU or
-        MISH), on the output made contiguous and the vectors made fp32."""
+        MISH), on the output as it is where it is contiguous NCHW or
+        channels-last (K6's two forms), else made contiguous, and the
+        vectors made fp32."""
         p = node.param
         if p.get("batch_norm"):
             mean_k = self.key_of(node.src[extra["mean"]])
@@ -347,8 +409,9 @@ class _Executor:
                     vecs = [v if v.dtype == torch.float32
                             else v.to(y.dtype).float()
                             for v in (scales, biases, mean, var)]
-                    return ops.bn_act.bn_act(y.contiguous(), *vecs, folded,
-                                             act)
+                    if not (y.is_contiguous() or _channels_last(y)):
+                        y = y.contiguous()
+                    return ops.bn_act.bn_act(y, *vecs, folded, act)
                 y = ops.batch_norm(y, scales, biases, mean, var,
                                    folded=folded)
         else:
@@ -523,9 +586,12 @@ class _Executor:
             w = self.p(node.src[1])
             if self._qat_on(node):
                 x, w = self._qat_xw(node, x, w)
+            if self.channels_last and not _channels_last(x):
+                _LAYOUT_COUNTS["to_channels_last"] += 1  # in the bf16 cast
             y = self._out_rows(ops.conv2d(
                 x, w, p["stride"], p["pad"],
                 p["num_groups"], self.compute_dtype, self.act_dtype,
+                channels_last=self.channels_last,
             ))
             extra = {"mean": 3, "var": 4, "scales": 5,
                      "slopes": 6 if p.get("batch_norm") else 3}
@@ -852,8 +918,13 @@ class _Executor:
         p["net_w"] = self.net.tensors[0].w
         p["net_h"] = self.net.tensors[0].h
         # the head in fp32 whatever the activation dtype (bcnn_tpu/
-        # compile.py:685); a float64 net stays in float64
+        # compile.py:685); a float64 net stays in float64. A channels-last
+        # input goes NCHW once, in place, so that the detection program's
+        # decode reads it as every other net's
         x = self.values[node.src[0]]
+        if self.channels_last and not x.is_contiguous():
+            x = self.values[node.src[0]] = x.contiguous()
+            _LAYOUT_COUNTS["to_nchw"] += 1
         y, aux = yolo_ops.yolo_forward(
             x if x.dtype in ops.activations.WIDE else x.to(torch.float32),
             self.values.get(1),
@@ -968,12 +1039,15 @@ def execute(
 
 
 def output_value(ex: _Executor, i: int) -> torch.Tensor:
-    """Tensor i as the caller sees it: NCHW, the executor's own layout;
-    an int8-flow tensor dequantized with its planned scale
-    (`bcnn_tpu/compile.py:765-771`)."""
+    """Tensor i as the caller sees it: NCHW (a value of a channels-last
+    executor made contiguous); an int8-flow tensor dequantized with its
+    planned scale (`bcnn_tpu/compile.py:765-771`)."""
     v = ex.values[i]
     if v.dtype == torch.int8:
         v = v.to(torch.float32) * ex.int8_flow[i]
+    elif ex.channels_last and not v.is_contiguous():
+        v = v.contiguous()
+        _LAYOUT_COUNTS["to_nchw"] += 1
     return v
 
 

@@ -9,8 +9,9 @@
 // writes the result once. Its plain version is
 // bcnn_tpu_torch/ops/bn_act.py:bn_act_ref, those same torch ops.
 //
-// What it computes, on x (N, C, H, W) contiguous, bf16 or fp32, with the
-// per-channel vectors fp32 (C,), the plain version's values bit for bit:
+// What it computes, on x (N, C, H, W) contiguous NCHW or channels-last
+// (NHWC in memory), bf16 or fp32, with the per-channel vectors fp32 (C,),
+// the plain version's values bit for bit, y in x's layout:
 //   unfolded: m, v, s, b = T(run_mean), T(run_var), T(scales), T(biases)
 //             inv = T(rsqrtf(T(v + eps)))
 //             y = T(T(T(T(x - m) * inv) * s) + b)
@@ -59,8 +60,22 @@
 // - the elements before x's first 16-byte boundary and after its last
 //   whole vector go one a thread; where x and y are not equally aligned,
 //   every element does.
+// The channels-last form (bn_act_kernel_nhwc) has the same arithmetic;
+// a value's channel is its innermost index, i % C:
+// - where C is a multiple of the vector (8 bf16 or 4 fp32 values; every
+//   BN conv of YOLOv3 and YOLOv4) and x and y lie on 16-byte boundaries,
+//   each vector holds consecutive channels of one pixel, so no vector
+//   straddles. Each block first forms the C channels' constants once, in
+//   x's dtype, into a shared table (one array a constant), then a vector
+//   takes its channels' constants as one 16-byte shared load each: in
+//   bf16 the words of channel pairs, as the bf16x2 steps take them. The
+//   walk of the vectors and the grid are the NCHW form's;
+// - otherwise (C = 3, a misaligned x, a table past 48 KB) every value
+//   goes one a thread, its channel by the divider, its constants derived
+//   from the vectors as the NCHW form's scalars derive them.
 // The launcher cuts the batch into runs of whole images of fewer than
-// 2^31 values, so that every index is 32-bit.
+// 2^31 values, so that every index is 32-bit; in either layout an image
+// is one contiguous run of C * H * W values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +87,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;       // vectors a thread loads before it computes
+constexpr int kTableKb = 48;     // the channels-last form's largest table
 
 // bcnn_tpu_torch/types.py:Activation
 constexpr int kNone = 0;
@@ -111,6 +127,8 @@ struct Params {
   unsigned nvec;  // whole 16-byte vectors after them
   unsigned hw, c;
   bool straddles;  // some vector holds values of two planes
+  // NCHW: by_c divides planes by c. Channels-last: by_c divides values
+  // by c, or with nvec vectors by c / V
   Divider by_hw, by_c;
   float eps, slope;  // in x's dtype
 };
@@ -384,56 +402,178 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(Params p) {
   }
 }
 
-// blocks of the kernel resident on an SM, asked once
+// a channels-last vector of V channels' values, in place, with those
+// channels' constants m, inv, s, b as 16 bytes of x's dtype each (in
+// bf16, word q holds channels 2q and 2q + 1, as the vector's word q)
 template <typename T, bool kFolded, int kAct>
-int resident() {
-  static int blocks = 0;
-  if (blocks == 0 &&
-      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &blocks, bn_act_kernel<T, kFolded, kAct>, kThreads, 0) !=
-           cudaSuccess ||
-       blocks < 1))
-    blocks = 1;
-  return blocks;
+__device__ __forceinline__ void epilogue_nhwc(uint4& raw, const uint4& m,
+                                              const uint4& inv,
+                                              const uint4& s,
+                                              const uint4& b, float slope) {
+  using Tr = Traits<T>;
+  const unsigned wm[4] = {m.x, m.y, m.z, m.w},
+                 wi[4] = {inv.x, inv.y, inv.z, inv.w},
+                 ws[4] = {s.x, s.y, s.z, s.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  if constexpr (sizeof(T) == 2) {
+    unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+    const unsigned sl = twice(slope);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = apply2<kFolded, kAct>(w[q], wm[q], wi[q], ws[q], wb[q], sl);
+    raw = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    float f[4];
+    Tr::unpack(raw, f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Consts k = {__uint_as_float(wm[j]), __uint_as_float(wi[j]),
+                        __uint_as_float(ws[j]), __uint_as_float(wb[j])};
+      f[j] = apply<T, kFolded, kAct>(f[j], k, slope);
+    }
+    raw = Tr::pack(f);
+  }
+}
+
+// the channels-last form (the note at the top). With vectors (p.nvec >
+// 0, the launch's values all in them), a shared table of the c channels'
+// constants in x's dtype: s, b, then m, inv where unfolded, c values
+// each; the vector v of the launch holds channels [V j, V j + V), j = v %
+// (c / V). Without, one value a thread.
+template <typename T, bool kFolded, int kAct>
+__global__ void __launch_bounds__(kThreads) bn_act_kernel_nhwc(Params p) {
+  using Tr = Traits<T>;
+  constexpr int V = Tr::kVec;
+  const T* x = static_cast<const T*>(p.x);
+  T* y = static_cast<T*>(p.y);
+  if (p.nvec == 0) {
+    for (unsigned e = blockIdx.x * kThreads + threadIdx.x; e < p.n;
+         e += gridDim.x * kThreads) {
+      const unsigned ch = e - p.by_c.div(e) * p.c;
+      y[e] = Tr::put(apply<T, kFolded, kAct>(
+          Tr::get(x[e]), consts<T, kFolded>(p, ch), p.slope));
+    }
+    return;
+  }
+  extern __shared__ uint4 table[];
+  T* tab = reinterpret_cast<T*>(table);
+  for (unsigned ch = threadIdx.x; ch < p.c; ch += kThreads) {
+    const Consts k = consts<T, kFolded>(p, ch);
+    tab[ch] = Tr::put(k.s);
+    tab[p.c + ch] = Tr::put(k.b);
+    if (!kFolded) {
+      tab[2 * p.c + ch] = Tr::put(k.m);
+      tab[3 * p.c + ch] = Tr::put(k.inv);
+    }
+  }
+  __syncthreads();
+  const unsigned cv = p.c / V;  // vectors a pixel
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const unsigned lo = (unsigned)((unsigned long long)p.nvec * blockIdx.x /
+                                 gridDim.x);
+  const unsigned hi = (unsigned)((unsigned long long)p.nvec *
+                                 (blockIdx.x + 1) / gridDim.x);
+  for (unsigned v0 = lo + threadIdx.x; v0 < hi; v0 += kThreads * kUnroll) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned v = v0 + u * kThreads;
+      if (v < hi) raw[u] = __ldcs(xv + v);  // read once: evict first
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned v = v0 + u * kThreads;
+      if (v < hi) {
+        const unsigned j = v - p.by_c.div(v) * cv;
+        uint4 m = make_uint4(0, 0, 0, 0), inv = m;
+        if (!kFolded) {
+          m = table[2 * cv + j];
+          inv = table[3 * cv + j];
+        }
+        epilogue_nhwc<T, kFolded, kAct>(raw[u], m, inv, table[j],
+                                        table[cv + j], p.slope);
+        yv[v] = raw[u];
+      }
+    }
+  }
+}
+
+// blocks of the kernel (NCHW or channels-last) resident on an SM with
+// `smem` bytes of shared memory each, asked once a size in KB (rounded
+// up, so never more blocks than fit)
+template <typename T, bool kFolded, int kAct, bool kNhwc>
+int resident(unsigned smem) {
+  static int blocks[kTableKb + 1] = {};
+  const unsigned kb = (smem + 1023) / 1024;
+  int& b = blocks[kb];
+  if (b == 0) {
+    const void* k = kNhwc ? (const void*)bn_act_kernel_nhwc<T, kFolded, kAct>
+                          : (const void*)bn_act_kernel<T, kFolded, kAct>;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, kThreads,
+                                                      kb * 1024) !=
+            cudaSuccess ||
+        b < 1)
+      b = 1;
+  }
+  return b;
 }
 
 // one full wave of resident blocks at most, none without work
-template <typename T, bool kFolded, int kAct>
-void launch_act(const Params& p, unsigned work, int sms, cudaStream_t s) {
+template <typename T, bool kFolded, int kAct, bool kNhwc>
+void launch_act(const Params& p, unsigned work, unsigned smem, int sms,
+                cudaStream_t s) {
   unsigned blocks = (work + kThreads - 1) / kThreads;
-  const unsigned most = (unsigned)(sms * resident<T, kFolded, kAct>());
+  const unsigned most =
+      (unsigned)(sms * resident<T, kFolded, kAct, kNhwc>(smem));
   if (blocks > most) blocks = most;
   if (blocks < 1) blocks = 1;
-  bn_act_kernel<T, kFolded, kAct><<<blocks, kThreads, 0, s>>>(p);
+  if (kNhwc)
+    bn_act_kernel_nhwc<T, kFolded, kAct><<<blocks, kThreads, smem, s>>>(p);
+  else
+    bn_act_kernel<T, kFolded, kAct><<<blocks, kThreads, 0, s>>>(p);
 }
 
-template <typename T, bool kFolded>
-void launch(const Params& p, int act, unsigned work, int sms,
+template <typename T, bool kFolded, bool kNhwc>
+void launch(const Params& p, int act, unsigned work, unsigned smem, int sms,
             cudaStream_t s) {
   if (act == kRelu)
-    launch_act<T, kFolded, kRelu>(p, work, sms, s);
+    launch_act<T, kFolded, kRelu, kNhwc>(p, work, smem, sms, s);
   else if (act == kLrelu)
-    launch_act<T, kFolded, kLrelu>(p, work, sms, s);
+    launch_act<T, kFolded, kLrelu, kNhwc>(p, work, smem, sms, s);
   else if (act == kMish)
-    launch_act<T, kFolded, kMish>(p, work, sms, s);
+    launch_act<T, kFolded, kMish, kNhwc>(p, work, smem, sms, s);
   else
-    launch_act<T, kFolded, kNone>(p, work, sms, s);
+    launch_act<T, kFolded, kNone, kNhwc>(p, work, smem, sms, s);
+}
+
+template <typename T>
+void launch_form(const Params& p, int folded, int act, int nhwc,
+                 unsigned work, unsigned smem, int sms, cudaStream_t s) {
+  if (folded && nhwc)
+    launch<T, true, true>(p, act, work, smem, sms, s);
+  else if (folded)
+    launch<T, true, false>(p, act, work, smem, sms, s);
+  else if (nhwc)
+    launch<T, false, true>(p, act, work, smem, sms, s);
+  else
+    launch<T, false, false>(p, act, work, smem, sms, s);
 }
 
 }  // namespace
 
-// x and y: (n, c, h*w = hw) contiguous, bf16 (bf16 != 0) or fp32, on the
-// device, y allocated by the caller; mean, var, scale, bias: fp32 (c,) on
-// the device (mean and var unread when folded). eps and slope: 1e-6 and
-// 0.1 in x's dtype. act: 0 (NONE), 2 (RELU), 5 (LRELU) or 10 (MISH).
-// Launches on `stream` (once for each run of whole images of fewer than
-// 2^31 values) and returns cudaGetLastError(), or cudaErrorInvalidValue
-// for arguments it does not take.
+// x and y: (n, c, h*w = hw) contiguous (nhwc == 0) or (n, hw, c)
+// contiguous (nhwc != 0, channels-last), bf16 (bf16 != 0) or fp32, on
+// the device, y allocated by the caller in x's layout; mean, var, scale,
+// bias: fp32 (c,) on the device (mean and var unread when folded). eps
+// and slope: 1e-6 and 0.1 in x's dtype. act: 0 (NONE), 2 (RELU), 5
+// (LRELU) or 10 (MISH). Launches on `stream` (once for each run of whole
+// images of fewer than 2^31 values) and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments it does not take.
 extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
                            const void* var, const void* scale,
                            const void* bias, long long n, int c,
                            long long hw, int bf16, int folded, int act,
-                           float eps, float slope, void* stream) {
+                           int nhwc, float eps, float slope, void* stream) {
   if (n < 0 || c < 1 || hw < 1 || (long long)c * hw > INT_MAX ||
       (act != kNone && act != kRelu && act != kLrelu && act != kMish))
     return (int)cudaErrorInvalidValue;
@@ -447,6 +587,9 @@ extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
   const long long run = INT_MAX / image;  // whole images a launch
   const int esize = bf16 ? 2 : 4;
   const unsigned vec = 16 / esize;
+  // the channels-last form's table: 2 or 4 constants a channel
+  const long long table = (folded ? 2LL : 4LL) * c * esize;
+  const bool vectors = c % vec == 0 && table <= kTableKb * 1024;
   Params p;
   p.mean = static_cast<const float*>(mean);
   p.var = static_cast<const float*>(var);
@@ -455,7 +598,6 @@ extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
   p.hw = (unsigned)hw;
   p.c = (unsigned)c;
   p.by_hw = make_divider(p.hw);
-  p.by_c = make_divider(p.c);
   p.eps = eps;
   p.slope = slope;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -466,28 +608,32 @@ extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
     p.n = (unsigned)((n - i0 < run ? n - i0 : run) * image);
     const uintptr_t ax = reinterpret_cast<uintptr_t>(p.x) & 15;
     const uintptr_t ay = reinterpret_cast<uintptr_t>(p.y) & 15;
-    if (ax != ay) {  // no 16-byte access lines up for both
-      p.head = p.n;
-      p.nvec = 0;
+    unsigned work, smem = 0;
+    if (nhwc) {  // vectors of whole channel groups, or one value a thread
+      p.head = 0;
+      p.nvec = vectors && ax == 0 && ay == 0 ? p.n / vec : 0;
+      p.straddles = false;
+      p.by_c = make_divider(p.nvec ? p.c / vec : p.c);
+      work = p.nvec ? p.nvec : p.n;
+      if (p.nvec) smem = (unsigned)table;
     } else {
-      p.head = (unsigned)(((16 - ax) & 15) / esize);
-      if (p.head > p.n) p.head = p.n;
-      p.nvec = (p.n - p.head) / vec;
+      if (ax != ay) {  // no 16-byte access lines up for both
+        p.head = p.n;
+        p.nvec = 0;
+      } else {
+        p.head = (unsigned)(((16 - ax) & 15) / esize);
+        if (p.head > p.n) p.head = p.n;
+        p.nvec = (p.n - p.head) / vec;
+      }
+      p.straddles = p.hw % vec != 0 || p.head != 0;
+      p.by_c = make_divider(p.c);
+      const unsigned scalars = p.n - p.nvec * vec;
+      work = p.nvec > scalars ? p.nvec : scalars;
     }
-    p.straddles = p.hw % vec != 0 || p.head != 0;
-    const unsigned scalars = p.n - p.nvec * vec;
-    const unsigned work = p.nvec > scalars ? p.nvec : scalars;
-    if (bf16) {
-      if (folded)
-        launch<__nv_bfloat16, true>(p, act, work, sms, s);
-      else
-        launch<__nv_bfloat16, false>(p, act, work, sms, s);
-    } else {
-      if (folded)
-        launch<float, true>(p, act, work, sms, s);
-      else
-        launch<float, false>(p, act, work, sms, s);
-    }
+    if (bf16)
+      launch_form<__nv_bfloat16>(p, folded, act, nhwc, work, smem, sms, s);
+    else
+      launch_form<float>(p, folded, act, nhwc, work, smem, sms, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -149,7 +149,7 @@ def library() -> ctypes.CDLL:
     lib.bcnn_bn_act.argtypes = [
         p, p, p, p, p, p,       # x, y, mean, var, scale, bias
         ctypes.c_longlong, i, ctypes.c_longlong,  # n, c, hw
-        i, i, i,                # bf16, folded, act
+        i, i, i, i,             # bf16, folded, act, nhwc
         f, f,                   # eps, slope
         p,                      # stream
     ]

@@ -23,9 +23,16 @@ executor's test of whether a conv's output goes to the op
 no autograd recording x, and x on the card. A CPU tensor goes to the op
 only inside a `torch.export` trace, so that an exported program holds it
 and launches K6 where it runs on the card; eager CPU runs keep the plain
-ops. The executor hands the op x contiguous and the vectors fp32, so
-that no layout or storage dtype of its own sends a conv to the plain
-ops.
+ops. The executor hands the op x in one of the two layouts K6 takes
+(contiguous NCHW, or channels-last where the executor holds its
+activations so) and the vectors fp32, so that no layout or storage dtype
+of its own sends a conv to the plain ops.
+
+K6 has two forms, picked by the launcher from x's strides
+(`channels_last_form`): NCHW, and channels-last (NHWC in memory), each
+with the same arithmetic; y takes x's strides.
+`library.launches("bn_act", "channels_last")` counts the channels-last
+form's launches.
 """
 
 from __future__ import annotations
@@ -58,13 +65,27 @@ def takes(x: torch.Tensor, act: Activation) -> bool:
             and (x.is_cuda or torch.compiler.is_compiling()))
 
 
+def channels_last_form(x: torch.Tensor) -> bool:
+    """The launcher's pick of K6's form from x's strides: False for a
+    contiguous NCHW x (also one that is channels-last too: at H = W = 1
+    or C = 1 the two orders are one), True for a channels-last one; a
+    ValueError for any other strides (a slice, a permutation)."""
+    if x.dim() == 4:
+        if x.is_contiguous():
+            return False
+        if x.is_contiguous(memory_format=torch.channels_last):
+            return True
+    raise ValueError("bn_act: x must be a contiguous NCHW or "
+                     "channels-last tensor")
+
+
 def bn_act_ref(
     x: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
     run_mean: torch.Tensor, run_var: torch.Tensor, folded: bool,
     act: Activation,
 ) -> torch.Tensor:
-    """The plain version: batch_norm (x NCHW, the vectors (C,)), then the
-    activation."""
+    """The plain version: batch_norm (x (N, C, H, W) in any layout, the
+    vectors (C,)), then the activation."""
     return apply_activation(
         batch_norm(x, scales, biases, run_mean, run_var, folded=folded),
         Activation(act))
@@ -76,18 +97,19 @@ def bn_act(
     act: Activation,
 ) -> torch.Tensor:
     """K6: `bn_act_ref` as one CUDA kernel for a CUDA x (bf16 or fp32,
-    contiguous NCHW; the vectors fp32 (C,); act NONE, RELU, LRELU or
-    MISH),
-    through the op `bcnn_tpu_torch::bn_act` on either device. run_mean
-    and run_var are unread when folded."""
+    contiguous NCHW or channels-last; the vectors fp32 (C,); act NONE,
+    RELU, LRELU or MISH), y in x's layout, through the op
+    `bcnn_tpu_torch::bn_act` on either device. run_mean and run_var are
+    unread when folded."""
     library.check_devices("bn_act", x, scales, biases, run_mean, run_var)
     return _K6(x, scales, biases, run_mean, run_var, bool(folded),
                int(act))
 
 
 def _bn_act_cpu(x, scales, biases, run_mean, run_var, folded, act):
-    return bn_act_ref(x, scales, biases, run_mean, run_var, folded,
-                      act).contiguous()
+    y = _bn_act_fake(x, scales, biases, run_mean, run_var, folded, act)
+    return y.copy_(bn_act_ref(x, scales, biases, run_mean, run_var, folded,
+                              act))
 
 
 def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
@@ -103,15 +125,14 @@ def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
         raise TypeError(f"bn_act: computes BN and NONE, RELU, LRELU or "
                         f"MISH on bfloat16 or float32, not {act.name} on "
                         f"{x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("bn_act: x must be a contiguous NCHW tensor")
+    nhwc = channels_last_form(x)
     n, c, h, w = x.shape
     if any(v.dtype != torch.float32 or v.shape != (c,)
            or not v.is_contiguous() for v in vecs):
         raise ValueError(f"bn_act: the vectors must be float32 ({c},)")
     if c * h * w >= 2**31:
         raise ValueError("bn_act: an image of 2^31 values or more")
-    y = _bn_act_fake(x, scales, biases, run_mean, run_var, folded, act)
+    y = torch.empty_like(x)  # x's strides: one of K6's two layouts
     if y.numel() == 0:
         return y
     # as the plain version meets x with them: in x's dtype (ctypes
@@ -123,15 +144,22 @@ def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
             x.data_ptr(), y.data_ptr(), run_mean.data_ptr(),
             run_var.data_ptr(), scales.data_ptr(), biases.data_ptr(), n, c,
             h * w, int(x.dtype == torch.bfloat16), int(folded), int(act),
-            eps, slope, torch.cuda.current_stream(x.device).cuda_stream,
+            int(nhwc), eps, slope,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(rc, "bn_act")
     library.count_kind("bn_act", act.name)
+    if nhwc:
+        library.count_kind("bn_act", "channels_last")
     return y
 
 
 def _bn_act_fake(x, scales, biases, run_mean, run_var, folded, act):
-    """The output, empty: x's shape and dtype, contiguous."""
+    """The output, empty: x's shape, dtype and strides where x is in one
+    of K6's layouts (NCHW or channels-last; the strides of its unit
+    dimensions too), else contiguous NCHW."""
+    if x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last):
+        return torch.empty_like(x)
     return x.new_empty(x.shape)
 
 

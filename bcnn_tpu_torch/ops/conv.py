@@ -12,7 +12,12 @@ in TF32. So the conv is an `autograd.Function` whose backward calls
 `aten.convolution_backward` under the same flags.
 
 Layouts: activations NCHW, weights OIHW. Output size (h + 2p - k)/s + 1,
-as the builder computes it (bcnn_conv_layer.c:126-135).
+as the builder computes it (bcnn_conv_layer.c:126-135). With
+`channels_last` (the executor's bf16 inference layout,
+`compile.channels_last_layout`), the bf16 casts of x and of the weight
+write channels-last, each in its one pass: cuDNN's Hopper bf16 convs are
+NHWC kernels, and handed NCHW tensors they transpose in and out. Its
+output is then channels-last too.
 
 bf16 (compute_dtype set), two cases:
   - out_dtype set too (bench.py's act_dtype path): cuDNN's bf16 conv, a
@@ -110,15 +115,17 @@ class _Conv2dMixed(torch.autograd.Function):
 
 
 def _conv_any(x, w, stride, pad, groups, transposed, compute_dtype,
-              out_dtype):
+              out_dtype, channels_last=False):
     grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     if compute_dtype is not None:
         if grad:
             return _Conv2dMixed.apply(x, w, stride, pad, groups, transposed,
                                       compute_dtype)
-        xc = x.to(compute_dtype)
+        fmt = (torch.channels_last if channels_last
+               else torch.preserve_format)
+        xc = x.to(compute_dtype, memory_format=fmt)
         with span("bcnn.build.weight_cast"):
-            wc = w.to(compute_dtype)
+            wc = w.to(compute_dtype, memory_format=fmt)
         if out_dtype is not None:
             return _conv(xc, wc, stride, pad, groups, transposed).to(
                 out_dtype)
@@ -140,15 +147,17 @@ def conv2d(
     groups: int = 1,
     compute_dtype=None,
     out_dtype=None,
+    channels_last: bool = False,
 ) -> torch.Tensor:
     """x: (N,C,H,W), w: (O,C//groups,k,k) -> (N,O,H',W'), in fp32 in the
     forward and, where autograd records it, in the backward; with
     compute_dtype, in bf16 both ways (see the module's docstring;
-    out_dtype is an inference setting). Without compute_dtype, x is cast
-    to w's dtype: a bf16 x stored between layers meets its fp32 weight in
-    fp32, and a float64 net (tools/f3_float64.py) stays in float64."""
+    out_dtype and channels_last are inference settings). Without
+    compute_dtype, x is cast to w's dtype: a bf16 x stored between layers
+    meets its fp32 weight in fp32, and a float64 net (tools/f3_float64.py)
+    stays in float64."""
     return _conv_any(x, w, stride, pad, groups, False, compute_dtype,
-                     out_dtype)
+                     out_dtype, channels_last)
 
 
 def depthwise_conv2d(

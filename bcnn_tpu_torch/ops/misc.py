@@ -3,8 +3,9 @@ the nearest-neighbour upsample and LRN, as `bcnn_tpu.ops.misc` computes
 them (bcnn_dropout_layer.c:82-110, bcnn_concat_layer.c,
 bcnn_eltwise_layer.c:111-135, bcnn_upsample_layer.c:86-110,
 bcnn_lrn_layer.c:106-155), on NCHW tensors. Concat, the add and the
-upsample keep an int8 (or int32) tensor of the int8 flow, held
-channels-last, channels-last without a copy of its own. Autograd
+upsample keep a channels-last tensor channels-last without a copy of
+their own: an int8 (or int32) one of the int8 flow, and a bf16 one of
+the executor's channels-last inference layout. Autograd
 differentiates each as the JAX package's autodiff does: the add gives
 x0 the whole gradient and x1 its strided subset."""
 
@@ -72,10 +73,13 @@ def eltwise_add(
 
 def upsample_nn(x: torch.Tensor, size: int) -> torch.Tensor:
     """Nearest-neighbour upsample by `size` on H and W. An int8 x (the
-    int8 flow) is expanded on its NHWC view, one pass that writes
-    channels-last, whatever its strides say at H = W = 1;
-    `repeat_interleave` would write NCHW, as the float paths keep."""
-    if x.dtype == torch.int8 and x.dim() == 4:
+    int8 flow) and a channels-last float x are expanded on their NHWC
+    view, one pass that writes channels-last (an int8 x whatever its
+    strides say at H = W = 1); `repeat_interleave` writes NCHW, as the
+    other float paths keep."""
+    if x.dim() == 4 and (x.dtype == torch.int8 or (
+            not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))):
         nhwc = x.permute(0, 2, 3, 1)
         n, h, w, c = nhwc.shape
         y = nhwc[:, :, None, :, None, :].expand(n, h, size, w, size, c)

@@ -686,8 +686,10 @@ class Pipeline:
                 parts = [self._broadcast_rows(
                     k, i, collected[i][m] if self.mine[k] else None)
                     for m in range(self.n_micro)]
-                outs.append(_layout(torch.cat(parts)) if len(parts) > 1
-                            else parts[0])
+                # NCHW (int8 channels-last) also where a stage's executor
+                # held its bf16 values channels-last
+                outs.append(_layout(torch.cat(parts) if len(parts) > 1
+                                    else parts[0]))
         return tuple(outs)
 
     # -- training -------------------------------------------------------- #

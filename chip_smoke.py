@@ -163,7 +163,7 @@ from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
 from bcnn_tpu_torch.ops import library
 from bcnn_tpu_torch.ops import quant as tq
 from bcnn_tpu_torch.ops.bn_act import FUSED_ACT as K6_ACTS
-from bcnn_tpu_torch.ops.bn_act import bn_act, bn_act_ref
+from bcnn_tpu_torch.ops.bn_act import bn_act, bn_act_ref, channels_last_form
 from bcnn_tpu_torch.ops.depthwise import depthwise_fused, depthwise_fused_ref
 from bcnn_tpu_torch.ops.grouped_int8 import (grouped_int8_fused,
                                              grouped_int8_fused_ref,
@@ -1121,11 +1121,16 @@ def yolov4_phase():
         got = counts()
         by_act = {a: library.launches("bn_act", a)
                   for a in ("MISH", "LRELU")}
+        # bf16 runs channels-last (`compile.channels_last_layout`): every
+        # K6 launch its channels-last form; fp32 NCHW
+        cl = library.launches("bn_act", "channels_last")
         if (n_bn != 107 or got != none_but(K6=n_bn * len(outs))
                 or by_act != {"MISH": 72 * len(outs),
-                              "LRELU": 35 * len(outs)}):
+                              "LRELU": 35 * len(outs)}
+                or cl != (got["K6"] if prec == "bf16" else 0)):
             raise RuntimeError(f"YOLOv4 {prec}: launches {got}, by "
-                               f"activation {by_act}, {n_bn} BN convs")
+                               f"activation {by_act}, channels-last {cl}, "
+                               f"{n_bn} BN convs")
         k6 += got["K6"]
         mish += by_act["MISH"]
         for o in outs:
@@ -1138,7 +1143,8 @@ def yolov4_phase():
                                f"{gaps} (limit {tol})")
         print(f"YOLOv4 {prec} at {YOLOV4_SIZE} px, batch {YOLOV4_BATCH}: "
               f"K6 {by_act['MISH'] // len(outs)} MISH + "
-              f"{by_act['LRELU'] // len(outs)} LRELU a request; heads "
+              f"{by_act['LRELU'] // len(outs)} LRELU a request "
+              f"({cl // len(outs)} in the channels-last form); heads "
               f"against the reference {', '.join(f'{g:.3g}' for g in gaps)}"
               f" (limit {tol}); peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -3221,6 +3227,9 @@ K6_EDGES = [(3, 1, 1, 1), (2, 3, 13, 13), (2, 5, 3, 1), (1, 1, 7, 9),
 # 2.16e9 bf16 values: two launches, the second from an image 14 bytes
 # past a 16-byte boundary (a head of one value)
 K6_BIG = (720, 3, 999, 1001)
+# 2.15e9 bf16 values channels-last, C a multiple of 8: two launches of
+# one image each, both in 16-byte vectors
+K6_BIG_CL = (2, 8, 16384, 8193)
 
 
 def k6_shapes(net):
@@ -3247,20 +3256,27 @@ def k6_bits(t):
 
 
 def k6_equal(x, vecs, folded, act, what):
-    """K6 on x against its plain version: one launch counted, in the
-    total and under its activation, the same shape, dtype and strides,
+    """K6 on x (contiguous NCHW or channels-last) against its plain
+    version: one launch counted, in the total, under its activation and,
+    for its channels-last form, under "channels_last"; the same shape and
+    dtype, x's strides (the plain ops' on every dimension of more than one
+    value: on a unit one a stride means nothing, and theirs vary by op),
     the same bits."""
+    wide = lambda t: [st for st, n in zip(t.stride(), t.shape)  # noqa: E731
+                      if n > 1]
     name = Activation(act).name
-    before = (library.launches("bn_act"), library.launches("bn_act", name))
+    kinds = (None, name, "channels_last")
+    before = [library.launches("bn_act", k) for k in kinds]
     got = bn_act(x, *vecs, folded, act)
     want = bn_act_ref(x, *vecs, folded, act)
     torch.cuda.synchronize()
-    one = x.numel() > 0
-    if (library.launches("bn_act"), library.launches("bn_act", name)) != (
-            before[0] + one, before[1] + one):
+    one = int(x.numel() > 0)
+    cl = one * channels_last_form(x)
+    if [library.launches("bn_act", k) for k in kinds] != [
+            before[0] + one, before[1] + one, before[2] + cl]:
         raise RuntimeError(f"K6 {what}: its launch was not counted")
     if (got.shape != want.shape or got.dtype != want.dtype
-            or got.stride() != want.stride()
+            or got.stride() != x.stride() or wide(got) != wide(want)
             or not torch.equal(k6_bits(got), k6_bits(want))):
         diff = (got.float() - want.float()).abs().nan_to_num(0)
         raise RuntimeError(
@@ -3293,9 +3309,12 @@ def k6_rows(label, net, checked, spread, gen, flush):
             seen.add((c, h, w))
             for dtype in (torch.bfloat16, torch.float32):
                 xd = x.to(dtype)
-                for folded in (False, True):
-                    for a in checked:
-                        k6_equal(xd, vecs, folded, a, label)
+                for xs in (xd, xd.contiguous(
+                        memory_format=torch.channels_last)):
+                    for folded in (False, True):
+                        for a in checked:
+                            k6_equal(xs, vecs, folded, a, label)
+                    del xs
                 del xd
         xb = x.to(torch.bfloat16)
         del x
@@ -3321,7 +3340,8 @@ def k6_rows(label, net, checked, spread, gen, flush):
         rows.append(r)
         del xb, out
         print(f"K6 {label} {r['shape']} x{convs} bf16 BN {act.name}: "
-              "bit-equal to its plain version in bf16 and fp32, folded and "
+              "bit-equal to its plain version in bf16 and fp32, NCHW and "
+              "channels-last, folded and "
               f"unfolded, {', '.join(a.name for a in checked)}; "
               f"{r['mb']:.1f} MB, bound {1e3 * r['bound'][0]:.1f} us "
               f"({r['bound'][1]}); warm: kernel {1e3 * r['ms']:.1f} us, "
@@ -3380,7 +3400,14 @@ def check_k6():
             off = torch.empty(xd.numel() + 1, dtype=dtype,
                               device="cuda")[1:].view(shape)
             off.copy_(xd)  # one value off a 16-byte boundary
-            for xs, what in ((xd, "edge"), (off, "edge, misaligned x")):
+            n, c, h, w = shape
+            cl = xd.contiguous(memory_format=torch.channels_last)
+            off_cl = torch.empty(xd.numel() + 1, dtype=dtype, device="cuda")[
+                1:].view(n, h, w, c).permute(0, 3, 1, 2)
+            off_cl.copy_(xd)  # channels-last, off a 16-byte boundary
+            for xs, what in ((xd, "edge"), (off, "edge, misaligned x"),
+                             (cl, "edge, channels-last"),
+                             (off_cl, "edge, channels-last, misaligned")):
                 for folded in (False, True):
                     for act in K6_ACTS:
                         k6_equal(xs, vecs, folded, act, what)
@@ -3389,9 +3416,16 @@ def check_k6():
     for act in (Activation.LRELU, Activation.MISH):
         k6_equal(x, vecs, False, act, "past 2^31 values")
     del x
+    vecs = k6_vectors(K6_BIG_CL[1], gen)
+    x = torch.empty(K6_BIG_CL, device="cuda", dtype=torch.bfloat16,
+                    memory_format=torch.channels_last).normal_()
+    for act in (Activation.LRELU, Activation.MISH):
+        k6_equal(x, vecs, False, act, "channels-last, past 2^31 values")
+    del x
     print(f"K6 edges {K6_EDGES} (NaN, -0, inf, subnormal; aligned and "
-          f"not) and {K6_BIG} (two launches): bit-equal in every form",
-          flush=True)
+          f"not; NCHW and channels-last) and {K6_BIG} (two launches), "
+          f"{K6_BIG_CL} channels-last (two launches): bit-equal in every "
+          "form", flush=True)
     return (rows["full YOLOv3 416"],
             [r for r in rows["YOLOv4 608"] if r["act"] == Activation.MISH])
 

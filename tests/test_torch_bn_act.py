@@ -84,6 +84,65 @@ def test_opcheck(dtype, folded):
     torch.library.opcheck(op, (x, *vecs, folded, int(Activation.LRELU)))
 
 
+CL = torch.channels_last
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 13, 13), (1, 3, 26, 26),
+                                   (2, 1024, 13, 13)])
+@pytest.mark.parametrize("act", ACTS + [Activation.MISH])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cpu_impl_keeps_a_channels_last_x_channels_last(dtype, act, shape):
+    """A channels-last x: the plain ops' bits, the output channels-last
+    (K6's channels-last form writes it so)."""
+    x, (s, b, m, v) = inputs(shape, dtype, seed=shape[1])
+    x = x.contiguous(memory_format=CL)
+    got = op(x, s, b, m, v, False, int(act))
+    want = apply_activation(batch_norm(x, s, b, m, v, folded=False), act)
+    assert got.is_contiguous(memory_format=CL) and not got.is_contiguous()
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fake_keeps_x_channels_last(dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x, vecs = inputs((2, 16, 5, 7), dtype)
+    x = x.contiguous(memory_format=CL)
+    real = op(x, *vecs, True, int(Activation.MISH))
+    with FakeTensorMode() as mode:
+        fake = op(mode.from_tensor(x), *map(mode.from_tensor, vecs), True,
+                  int(Activation.MISH))
+    assert fake.stride() == real.stride() == x.stride()
+    assert k6.channels_last_form(x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_opcheck_channels_last(dtype):
+    x, vecs = inputs((2, 8, 5, 7), dtype, special=False)
+    torch.library.opcheck(op, (x.contiguous(memory_format=CL), *vecs,
+                               False, int(Activation.LRELU)))
+
+
+def test_launcher_takes_two_layouts_and_refuses_other_strides():
+    """The launcher's pick of a form from x's strides: contiguous NCHW,
+    channels-last (NCHW where the two orders are one: H = W = 1 or C =
+    1); a slice, a permutation or a 3-d x is refused before anything is
+    allocated or launched, on any device."""
+    x = torch.rand(2, 8, 5, 7)
+    assert not k6.channels_last_form(x)
+    assert k6.channels_last_form(x.contiguous(memory_format=CL))
+    assert not k6.channels_last_form(
+        torch.rand(2, 8, 1, 1).contiguous(memory_format=CL))
+    assert not k6.channels_last_form(
+        torch.rand(2, 1, 5, 7).contiguous(memory_format=CL))
+    for bad in (x[:, :, 1:], x[:, :4], x.transpose(2, 3),
+                x.permute(0, 2, 3, 1), x.contiguous(memory_format=CL)[
+                    :, :, :, ::2], x[0]):
+        with pytest.raises(ValueError, match="contiguous NCHW or "
+                                             "channels-last"):
+            k6.channels_last_form(bad)
+
+
 def test_takes_only_what_the_kernel_runs(monkeypatch):
     """On the CPU only inside a trace; then what K6 computes (bf16 or
     fp32, a fused activation) with no autograd, whatever x's layout: the

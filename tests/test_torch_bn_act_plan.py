@@ -7,6 +7,10 @@ it takes for (i / HW) % C; each vector's channel, taken once where the
 vector lies in one plane and value by value where it straddles planes;
 and its arithmetic, one fp32 op a step rounded to x's dtype (MISH: the
 BN's rounded value taken through torch's mish in fp32, rounded once). The
+channels-last form likewise: its plan (16-byte vectors of whole channel
+groups where C is a multiple of the vector, x and y are aligned and the
+shared table of constants fits, else one value a thread), each vector's
+channels (v % (C / V)) and each value's (i % C) by the dividers. The
 emulation must write every value exactly once and equal `bn_act_ref`
 bit for bit. Imports no JAX."""
 
@@ -290,3 +294,127 @@ def test_plan_at_yolov3_shapes():
     assert small[2:5] == (0, 64 * 1024 * 169 // 8, True)
     two = plan(720, 3, 999 * 1001, 2, 0)
     assert len(two) == 2 and two[1][2] == 1 and two[1][4]
+
+
+# -- the channels-last form (bn_act_kernel_nhwc) ----------------------- #
+
+TABLE_BYTES = 48 * 1024  # kTableKb
+
+
+def plan_nhwc(n, c, hw, esize, x_off, folded, limit=INT_MAX, resident=5):
+    """bcnn_bn_act's launches for a channels-last x: [(first value,
+    values, nvec, blocks)]; vectors (the whole run in them) where c is a
+    multiple of the vector, x and y lie on 16-byte boundaries and the
+    table of c channels' constants fits, else one value a thread."""
+    image = c * hw
+    assert image <= limit
+    run = limit // image
+    vec = 16 // esize
+    table = (2 if folded else 4) * c * esize
+    out = []
+    for i0 in range(0, n, run):
+        first = i0 * image
+        cnt = min(run, n - i0) * image
+        ax, ay = (x_off + first * esize) % 16, (first * esize) % 16
+        ok = c % vec == 0 and table <= TABLE_BYTES and ax == ay == 0
+        nvec = cnt // vec if ok else 0
+        work = nvec or cnt
+        blocks = max(1, min(-(-work // THREADS), SMS * resident))
+        out.append((first, cnt, nvec, blocks))
+    return out
+
+
+def walk_nhwc(cnt, nvec, blocks, c, vec):
+    """(value index, channel, in a vector?) of every value a channels-last
+    launch writes: each block's run of vectors, vector v holding channels
+    [vec * j, vec * j + vec), j = v % (c / vec) by the divider; or every
+    value alone, its channel e % c by the divider."""
+    if not nvec:
+        e = np.arange(cnt, dtype=np.int64)
+        ch = e - div(e, divider(c)).astype(np.int64) * c
+        return e, ch, np.zeros(cnt, dtype=bool)
+    assert nvec * vec == cnt  # no scalars: c is a multiple of vec
+    cv = c // vec
+    idx, chan = [], []
+    for lo, hi in block_runs(nvec, blocks):
+        v = np.arange(lo, hi, dtype=np.int64)
+        j = v - div(v, divider(cv)).astype(np.int64) * cv
+        for k in range(vec):
+            idx.append(v * vec + k)
+            chan.append(j * vec + k)
+    return (np.concatenate(idx), np.concatenate(chan),
+            np.ones(cnt, dtype=bool))
+
+
+def emulate_nhwc(x, vecs, folded, act, x_off=0, limit=INT_MAX, resident=5):
+    """K6's channels-last form on x (NCHW shape, any strides: its values
+    are taken in NHWC order), launch by launch; MISH last, as in
+    `emulate`. Returns y with x's shape, channels-last."""
+    n, c, h, w = x.shape
+    hw, esize = h * w, x.element_size()
+    bf16 = x.dtype == torch.bfloat16
+    flat = x.permute(0, 2, 3, 1).reshape(-1).to(F32)
+    out = torch.full_like(flat, float("nan"))
+    written = np.zeros(flat.numel(), dtype=np.int64)
+    for first, cnt, nvec, blocks in plan_nhwc(n, c, hw, esize, x_off,
+                                              folded, limit, resident):
+        idx, ch, in_vec = walk_nhwc(cnt, nvec, blocks, c, 16 // esize)
+        g = first + idx
+        np.add.at(written, g, 1)
+        for part, pairs in ((in_vec, bf16), (~in_vec, False)):
+            gi = torch.from_numpy(g[part])
+            out[gi] = kernel_values(
+                flat[gi], torch.from_numpy(ch[part]), vecs, x.dtype,
+                folded, Activation.NONE if act == Activation.MISH else act,
+                pairs)
+    assert np.all(written == 1)
+    if act == Activation.MISH:
+        out = F.mish(out)
+    return out.to(x.dtype).view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+# (shape, x's offset from a 16-byte boundary in bytes, limit, blocks an
+# SM holds)
+CASES_NHWC = [
+    ((2, 16, 13, 13), 0, INT_MAX, 5),     # C a multiple of 8: vectors
+    ((2, 1024, 13, 13), 0, INT_MAX, 1),   # a 16 KB table at fp32, rounds
+    ((3, 3, 5, 7), 0, INT_MAX, 5),        # C 3: one value a thread
+    ((2, 12, 3, 3), 0, INT_MAX, 5),       # vectors in fp32, not in bf16
+    ((1, 4096, 2, 2), 0, INT_MAX, 5),     # fp32 unfolded: past 48 KB
+    ((2, 16, 13, 13), 4, INT_MAX, 5),     # x not aligned with y
+    ((5, 8, 5, 7), 0, 8 * 35 * 2, 5),     # runs of 2 images, aligned
+    ((3, 5, 3, 3), 0, 5 * 9, 5),          # runs of one image, C 5
+]
+
+
+@pytest.mark.parametrize("act", [Activation.NONE, Activation.RELU,
+                                 Activation.LRELU, Activation.MISH])
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F32])
+@pytest.mark.parametrize("case", range(len(CASES_NHWC)))
+def test_emulated_channels_last_form_equals_plain_version(case, dtype,
+                                                          folded, act):
+    shape, off, limit, resident = CASES_NHWC[case]
+    x, vecs = inputs(shape, dtype, seed=100 + case)
+    x = x.contiguous(memory_format=torch.channels_last)
+    got = emulate_nhwc(x, vecs, folded, act, off, limit, resident)
+    want = bn_act_ref(x, *vecs, folded, act)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(bits(got)[~nan], bits(want)[~nan])
+
+
+def test_plan_nhwc_at_yolov4_shapes():
+    """YOLOv4 608's largest BN output and its 1,024-channel one at batch
+    64, bf16, BN unfolded: one launch each, all of it in 16-byte vectors
+    (an 8 KB table at C 1,024); C 3 at any size goes one value a thread;
+    a batch past 2^31 values takes a second launch, still on a 16-byte
+    boundary where C is a multiple of 8."""
+    n = 64 * 32 * 608 * 608
+    assert plan_nhwc(64, 32, 608 * 608, 2, 0, False) == [
+        (0, n, n // 8, SMS * 5)]
+    (small,) = plan_nhwc(64, 1024, 19 * 19, 2, 0, False)
+    assert small[2] == small[1] // 8
+    assert plan_nhwc(2, 3, 169, 2, 0, False)[0][2] == 0
+    two = plan_nhwc(2, 8, 16384 * 8193, 2, 0, False)
+    assert len(two) == 2 and all(p[2] == p[1] // 8 for p in two)

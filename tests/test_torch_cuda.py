@@ -1675,6 +1675,194 @@ def test_yolov4_int8_on_the_card_raises_naming_mish(cuda):
         net.quant = None
 
 
+# -- K6's channels-last form and the executor's channels-last layout --- #
+
+from bcnn_tpu_torch import compile as tcompile  # noqa: E402
+
+CL = torch.channels_last
+# C a multiple of 8 (16-byte vectors) and not (one value a thread: C 3,
+# 5, 12 in bf16); planes of 1 (where NCHW and channels-last are one
+# order), 169 and 5,776 values; a 32 KB bf16 table (64 KB in fp32: past
+# the table's limit, one value a thread)
+K6_CL_SHAPES = [(2, 16, 1, 1), (2, 16, 13, 13), (2, 3, 13, 13),
+                (1, 1024, 13, 13), (2, 12, 13, 13), (1, 32, 76, 76),
+                (1, 5, 76, 76), (1, 4096, 2, 2)]
+
+
+def _k6_misaligned_cl(x):
+    """A copy of channels-last x that starts one value past a 16-byte
+    boundary, still channels-last-contiguous."""
+    n, c, h, w = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    off = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    off.copy_(x)
+    assert off.data_ptr() % 16 and off.is_contiguous(memory_format=CL)
+    return off
+
+
+@pytest.mark.parametrize("shape", K6_CL_SHAPES)
+def test_k6_channels_last_form_matches_plain_ops(cuda, shape):
+    """x channels-last, in bf16 and fp32, folded and unfolded, with NONE,
+    RELU, LRELU and MISH, NaN, signed zeros, infinities and values past
+    Mish's cut: K6 bit-equal to the plain ops, y channels-last, one
+    launch each, counted under "channels_last" (at H = W = 1 the two
+    orders are one and the NCHW form runs); on a 16-byte boundary and
+    one value off it."""
+    gen = torch.Generator().manual_seed(shape[1] * 7 + shape[2])
+    x = 12 * torch.randn(shape, generator=gen)
+    x.view(-1)[:8] = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                                   -float("inf"), 1e-40, 25.0,
+                                   -100.0])[:x.numel()]
+    vecs = _k6_vectors(shape[1], gen, cuda)
+    cl_form = shape[2] * shape[3] > 1
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype).to(cuda).contiguous(memory_format=CL)
+        for xs in (xd, _k6_misaligned_cl(xd)):
+            for folded in (False, True):
+                for act in K6_ACTS:
+                    before = library.launches("bn_act", "channels_last")
+                    _k6_same_cl(xs, vecs, folded, act)
+                    assert library.launches(
+                        "bn_act", "channels_last") == before + cl_form
+
+
+def _k6_same_cl(x, vecs, folded, act):
+    """`_k6_same` for a channels-last x: y keeps x's strides (the plain
+    ops' own may differ on unit dimensions, where they mean nothing, so
+    those are compared where a dimension has more than one value)."""
+    before = library.launches("bn_act")
+    got = k6.bn_act(x, *vecs, folded, act)
+    want = k6.bn_act_ref(x, *vecs, folded, act)
+    torch.cuda.synchronize()
+    assert library.launches("bn_act") == before + 1
+    assert got.stride() == x.stride() and got.dtype == want.dtype
+    assert [st for st, n in zip(got.stride(), got.shape) if n > 1] == [
+        st for st, n in zip(want.stride(), want.shape) if n > 1]
+    assert torch.equal(_k6_bits(got), _k6_bits(want)), (
+        tuple(x.shape), x.dtype, folded, act)
+
+
+def test_k6_channels_last_form_past_2_31_values(cuda):
+    """(2, 8, 16384, 8193) bf16 channels-last, 2.15e9 values: the launcher
+    cuts it into two runs of one image, each on a 16-byte boundary; MISH
+    and LRELU, BN unfolded: bit for bit, one call counted."""
+    shape = (2, 8, 16384, 8193)
+    assert shape[0] * shape[1] * shape[2] * shape[3] > 2**31
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.empty(shape, dtype=torch.bfloat16, device=cuda,
+                    memory_format=CL).normal_(0, 4, generator=gen)
+    vecs = _k6_vectors(8, torch.Generator().manual_seed(31), cuda)
+    for act in (Activation.MISH, Activation.LRELU):
+        before = library.launches("bn_act", "channels_last")
+        _k6_same_cl(x, vecs, False, act)
+        assert library.launches("bn_act", "channels_last") == before + 1
+
+
+def _layout_net(batch=2, size=32):
+    """A small bf16 detector with every node that has a channels-last
+    form: BN convs with MISH and LRELU (C 16, 32, 24, and 12, not a
+    multiple of 8), a shortcut, Darknet's SPP pools (5 and 9, centred), a
+    route of three, an upsample and a route across it, two heads."""
+    from bcnn_tpu_torch import Net
+    from bcnn_tpu_torch.types import FillerType, Padding
+
+    mish, leaky, lin = Activation.MISH, Activation.LRELU, Activation.NONE
+    xav = FillerType.XAVIER
+    net = Net(Mode.PREDICT)
+    net.set_input_shape(size, size, 3, batch)
+    conv = net.add_convolutional_layer
+    conv(16, 3, 1, 1, 1, 1, xav, mish, 0, "input", "c1")
+    conv(32, 3, 2, 1, 1, 1, xav, leaky, 0, "c1", "c2")
+    conv(32, 1, 1, 0, 1, 1, xav, mish, 0, "c2", "c3")
+    net.add_eltwise_layer(lin, "c2", "c3", "s1")
+    net.add_maxpool_layer(5, 1, Padding.SAME, "s1", "p5", darknet_padding=4)
+    net.add_maxpool_layer(9, 1, Padding.SAME, "s1", "p9", darknet_padding=8)
+    net.add_concat_layer(["p9", "p5", "s1"], "spp")
+    conv(24, 1, 1, 0, 1, 1, xav, leaky, 0, "spp", "c4")
+    conv(21, 1, 1, 0, 1, 0, xav, lin, 0, "c4", "h1")
+    anchors = [10, 14, 23, 27, 37, 58, 81, 82, 135, 169, 344, 319]
+    net.add_yolo_layer(3, 2, 4, 6, [3, 4, 5], anchors, "h1", "y1")
+    conv(16, 1, 1, 0, 1, 1, xav, leaky, 0, "c4", "c6")
+    net.add_upsample_layer(2, "c6", "up")
+    net.add_concat_layer(["up", "c1"], "r2")
+    conv(12, 3, 1, 1, 1, 1, xav, leaky, 0, "r2", "c7")
+    conv(21, 1, 1, 0, 1, 0, xav, lin, 0, "c7", "h2")
+    net.add_yolo_layer(3, 2, 4, 6, [0, 1, 2], anchors, "h2", "y2")
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    return net
+
+
+def test_bf16_predict_runs_channels_last_on_the_card(cuda, monkeypatch):
+    """The small detector at bf16 on the card: the executor picks
+    channels-last; every activation but the input, the heads' inputs
+    and the YOLO outputs is channels-last; `layout_counts` shows one
+    executor, every node, the input converted once and each head once;
+    each BN conv's K6 launch is its channels-last form; the heads are
+    NCHW and within 2^-5 of their largest value of the same net forced
+    NCHW through `compile.channels_last_layout`."""
+    net = _layout_net()
+    assert tcompile.channels_last_layout(net, Mode.PREDICT, "cuda")
+    p, s = bridge.params_from_numpy(net, *bridge.he_numpy_weights(net, 0))
+    sess = Session(net, 0, device=cuda)
+    sess.params = {k: v.to(cuda) for k, v in p.items()}
+    sess.state = {k: v.to(cuda) for k, v in s.items()}
+    sess.compile_net()
+    x = np.random.RandomState(3).rand(2, 3, 32, 32).astype(np.float32)
+    bn = sum(1 for n in net.nodes if n.param.get("batch_norm"))
+    tcompile.reset_layout_counts()
+    library.reset_launches()
+    got, _ = sess.predict_on_batch(x, outputs=["h1", "h2"])
+    torch.cuda.synchronize()
+    assert tcompile.layout_counts() == {
+        "executors": 1, "nodes": len(net.nodes), "to_channels_last": 1,
+        "to_nchw": 2}
+    assert library.launches("bn_act") == bn == 6
+    assert library.launches("bn_act", "channels_last") == bn
+    heads = {net.get_tensor_index_by_name(k) for k in ("h1", "h2")}
+    yolo = {net.get_tensor_index_by_name(k) for k in ("y1", "y2")}
+    with torch.inference_mode():
+        ex = tcompile.execute(net, sess.params, sess.state,
+                              {"input": torch.as_tensor(x).to(cuda)},
+                              Mode.PREDICT)
+    for i, v in ex.values.items():
+        if i == 0 or i in heads or i in yolo:
+            assert v.is_contiguous(), net.tensors[i].name
+        else:
+            assert v.is_contiguous(memory_format=CL) and not \
+                v.is_contiguous(), net.tensors[i].name
+    with monkeypatch.context() as m:
+        m.setattr(tcompile, "channels_last_layout", lambda *a, **k: False)
+        tcompile.reset_layout_counts()
+        want, _ = sess.predict_on_batch(x, outputs=["h1", "h2"])
+        assert tcompile.layout_counts()["executors"] == 0
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.dtype == w.dtype == torch.bfloat16
+        ref = w.float()
+        torch.testing.assert_close(
+            g.float(), ref, rtol=0, atol=2.0**-5 * float(ref.abs().max()))
+
+
+def test_fp32_keeps_nchw_on_the_card(cuda):
+    """The same detector in fp32 runs NCHW on the card: no executor
+    counted channels-last, no K6 launch of that form."""
+    net = _layout_net()
+    net.compute_dtype = net.act_dtype = None
+    p, s = bridge.params_from_numpy(net, *bridge.he_numpy_weights(net, 0))
+    sess = Session(net, 0, device=cuda)
+    sess.params = {k: v.to(cuda) for k, v in p.items()}
+    sess.state = {k: v.to(cuda) for k, v in s.items()}
+    sess.compile_net()
+    tcompile.reset_layout_counts()
+    library.reset_launches()
+    sess.predict_on_batch(
+        np.random.RandomState(4).rand(2, 3, 32, 32).astype(np.float32),
+        outputs=["h1", "h2"])
+    torch.cuda.synchronize()
+    assert library.launches("bn_act") == 6
+    assert library.launches("bn_act", "channels_last") == 0
+    assert tcompile.layout_counts()["executors"] == 0
+
+
 # -- the staged upload (upload.py): a host batch through the pinned ring --
 
 

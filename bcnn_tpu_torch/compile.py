@@ -143,12 +143,12 @@ def _data_srcs(node: Node):
 
 
 def _int8_mish(act: Activation, x: torch.Tensor) -> None:
-    """Raises ValueError for a quantized node with MISH on the card: K4's
-    and K5's epilogues do not fuse it, and the int8 flow has not been
-    calibrated across a non-monotone activation."""
-    if act == Activation.MISH and x.is_cuda:
-        raise ValueError("int8 serving on the card has no MISH: K4 and K5 "
-                         "do not fuse it (serve a Mish net in bf16 or "
+    """Raises ValueError for a quantized node with MISH or SWISH on the
+    card: K4's and K5's epilogues fuse neither, and the int8 flow has not
+    been calibrated across a non-monotone activation."""
+    if act in (Activation.MISH, Activation.SWISH) and x.is_cuda:
+        raise ValueError(f"int8 serving on the card has no {act.name}: K4 "
+                         "and K5 do not fuse it (serve the net in bf16 or "
                          "fp32)")
 
 
@@ -383,8 +383,8 @@ class _Executor:
         net.bn_frozen_stats, the step-start running stats) and writes
         the new running stats into `state`. Outside TRAIN, BN and the
         activation are one K6 launch where `ops.bn_act.takes` the output
-        (on the card: bf16 or fp32, no autograd; NONE, RELU, LRELU or
-        MISH), on the output as it is where it is contiguous NCHW or
+        (on the card: bf16 or fp32, no autograd; NONE, RELU, LRELU, MISH
+        or SWISH), on the output as it is where it is contiguous NCHW or
         channels-last (K6's two forms), else made contiguous, and the
         vectors made fp32."""
         p = node.param
@@ -526,7 +526,7 @@ class _Executor:
         layout since it was made. inv = 1 / sqrt(var + eps) takes two
         correctly rounded ops where bcnn_tpu takes rsqrt, so the card
         and the CPU agree bit for bit. An activation neither kernel fuses
-        runs after it, except MISH on the card, which raises
+        runs after it, except MISH and SWISH on the card, which raise
         (`_int8_mish`)."""
         from .ops.conv_int8 import FUSED_ACT, conv_int8_fused
         from .ops.grouped_int8 import grouped_int8_fused

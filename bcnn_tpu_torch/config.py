@@ -18,14 +18,21 @@
         indices, `padding=` literal with the SAME/VALID flip;
   - bcnn_add_layer (bcnn_net.c:971-1112): section name -> builder.
 
-Beyond bcnn, for Darknet cfgs that bcnn cannot read (YOLOv4): the
-activation `mish` (`Activation.MISH`; any other unknown name still
-falls back to RELU, as in the reference), a [yolo] section's
-`scale_x_y` (default 1), and, in the Darknet dialect, Darknet's max-pool
-(maxpool_layer.c): `padding` (default size - 1) pads the input, a
-window starts at i * stride - padding / 2, so odd windows are centred,
-and the output is (w + padding - size) / stride + 1. Pools whose window
-starts at 0 (every size-2 pool) build as in bcnn.
+Beyond bcnn, for Darknet cfgs that bcnn cannot read (YOLOv4, YOLOv7):
+the activations `mish` and `swish` (`Activation.MISH`, `SWISH`; any
+other unknown name, `logistic` among them, still falls back to RELU, as
+in the reference), a [yolo] section's `scale_x_y` (default 1) and
+`new_coords` (default 0), and, in the Darknet dialect:
+  - Darknet's max-pool (maxpool_layer.c): `padding` (default size - 1)
+    pads the input, a window starts at i * stride - padding / 2, so odd
+    windows are centred, and the output is (w + padding - size) / stride
+    + 1. Pools whose window starts at 0 (every size-2 pool) build as in
+    bcnn;
+  - a [yolo] section with `new_coords=1` takes the logistic of the conv
+    before it (Darknet applies `activation=logistic` in that conv and
+    skips it in the layer): that conv is built linear and the head
+    applies the logistic to all its channels (`add_sections`). A
+    `logistic` anywhere else keeps the fallback.
 
 As in `bcnn_tpu`, LRN's alpha / beta / k parse as floats where the
 reference takes atoi (:880-884). `load_net` with a weight file stages
@@ -64,6 +71,7 @@ _ACTIVATIONS = {
     "none": Activation.NONE,
     "linear": Activation.NONE,
     "mish": Activation.MISH,  # the port's own: bcnn has no Mish
+    "swish": Activation.SWISH,  # the port's own: bcnn has no Swish
     # NB: "logistic" is NOT mapped — the reference's parser has no entry
     # for it and falls back to ReLU with a warning (bcnn_net.c:889-916);
     # replicated for config parity (verified by the randomized parity
@@ -143,9 +151,11 @@ class LayerParam:
     dst_id: Optional[str] = None
     anchors_mask: Optional[List[int]] = None
     anchors: Optional[List[float]] = None
-    # the port's own, for Darknet cfgs: a [yolo] section's scale_x_y, and
-    # the Darknet dialect's `padding=` as Darknet's max-pool reads it
+    # the port's own, for Darknet cfgs: a [yolo] section's scale_x_y and
+    # new_coords, and the Darknet dialect's `padding=` as Darknet's
+    # max-pool reads it
     scale_x_y: float = 1.0
+    new_coords: int = 0
     darknet_padding: Optional[int] = None
 
 
@@ -240,6 +250,8 @@ def layer_param_set(
         ]
     elif name == "scale_x_y":  # Darknet [yolo]
         lp.scale_x_y = float(val)
+    elif name == "new_coords":  # Darknet [yolo]
+        lp.new_coords = int(val)
     # unknown keys are silently ignored, like the reference
 
 
@@ -387,7 +399,7 @@ def add_layer(net: Net, section_name: str, lp: LayerParam,
         net.add_yolo_layer(
             lp.boxes_per_cell, lp.num_classes, lp.num_coords,
             lp.num_anchors, lp.anchors_mask, lp.anchors, src0, need_dst(),
-            scale_x_y=lp.scale_x_y,
+            scale_x_y=lp.scale_x_y, new_coords=lp.new_coords,
         )
     elif name == "[cost]":
         net.add_cost_layer(lp.loss, lp.cost, 1.0, src0, "label", need_dst())
@@ -398,17 +410,32 @@ def add_layer(net: Net, section_name: str, lp: LayerParam,
 def add_sections(net: Net, sections: List[IniSection], fmt: int) -> None:
     """The layers of a parsed config, sections[1:] (bcnn_load_net's loop,
     bcnn_net.c:1181-1205): in the Darknet dialect (fmt 1) a section's
-    src and dst default to the implicit lid<N> names."""
+    src and dst default to the implicit lid<N> names, and a conv whose
+    `activation=logistic` a following [yolo] with `new_coords=1` takes
+    is built linear."""
     for i in range(1, len(sections)):
         lp = LayerParam()
         for k, v in sections[i].keys:
             layer_param_set(lp, i, k, v, fmt)
+        if fmt == 1 and _head_takes_logistic(sections, i):
+            lp.a = Activation.NONE
         if fmt == 1:
             if lp.src_id is None:
                 lp.src_id = [f"lid{i - 1}"]
             if lp.dst_id is None:
                 lp.dst_id = f"lid{i}"
         add_layer(net, sections[i].name, lp, fmt)
+
+
+def _head_takes_logistic(sections: List[IniSection], i: int) -> bool:
+    """Whether section i is a conv with `activation=logistic` that the
+    [yolo] section after it, with `new_coords=1`, applies itself."""
+    if i + 1 >= len(sections) or sections[i + 1].name != "[yolo]":
+        return False
+    conv = dict(sections[i].keys)
+    return (sections[i].name in ("[conv]", "[convolutional]")
+            and conv.get("activation") == "logistic"
+            and int(dict(sections[i + 1].keys).get("new_coords", 0)) == 1)
 
 
 def load_net(

@@ -33,13 +33,16 @@
 // fmaxf(y, 0), in fp32); LRELU as torch.where(y > 0, y, T(slope * y)),
 // slope 0.1 in x's dtype; MISH as torch's CUDA mish (F.mish), y taken to
 // fp32 and T(y * tanhf(log1pf(expf(y)))), the same three functions in the
-// same order, rounded once.
+// same order, rounded once; SWISH as torch's CUDA silu (F.silu), y taken
+// to fp32 and T(y / (1 + expf(-y))), one IEEE add and divide, rounded
+// once.
 //
 // What bounds it: bytes, one read and one write of each value (YOLOv3 at
 // 416, batch 64, bf16: its 72 BN convs move 9.80 GB, 2.93 ms at 3.35
-// TB/s). MISH adds three accurate transcendentals a value (no fast-math:
-// torch's bits), which may put its launches nearer the card's fp32 issue
-// rate than its memory. So the design moves each byte once, in 16-byte accesses, and
+// TB/s). MISH adds three accurate transcendentals a value and SWISH one
+// and a divide (no fast-math: torch's bits), which may put their launches
+// nearer the card's fp32 issue rate than its memory. So the design moves
+// each byte once, in 16-byte accesses, and
 // keeps the instructions a byte few enough to stay under the memory:
 // - x is walked flat as 16-byte vectors (8 bf16 or 4 fp32 values),
 //   neighbouring threads on neighbouring vectors, kUnroll vectors a
@@ -94,10 +97,16 @@ constexpr int kNone = 0;
 constexpr int kRelu = 2;
 constexpr int kLrelu = 5;
 constexpr int kMish = 10;
+constexpr int kSwish = 11;
 
 // torch's CUDA mish on a float: x * tanh(log1p(exp(x))), in that order
 __device__ __forceinline__ float mish(float x) {
   return __fmul_rn(x, tanhf(log1pf(expf(x))));
+}
+
+// torch's CUDA silu on a float: x / (1 + exp(-x))
+__device__ __forceinline__ float swish(float x) {
+  return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
 }
 
 // n / d for 0 <= n < 2^31 and 1 <= d < 2^31 (PyTorch's IntDivider)
@@ -220,6 +229,7 @@ __device__ __forceinline__ float apply(float x, const Consts& k,
   if (kAct == kRelu) t = t != t ? t : fmaxf(t, 0.f);  // a NaN kept
   if (kAct == kLrelu) t = t > 0.f ? t : Tr::round(__fmul_rn(slope, t));
   if (kAct == kMish) t = Tr::round(mish(t));
+  if (kAct == kSwish) t = Tr::round(swish(t));
   return t;
 }
 
@@ -272,10 +282,11 @@ __device__ __forceinline__ unsigned apply2(unsigned t, unsigned m,
     const unsigned q = bf2_mul(slope, t);
     t = ((lo > 0.f ? t : q) & 0xffffu) | ((hi > 0.f ? t : q) & 0xffff0000u);
   }
-  if (kAct == kMish) {  // in fp32, each half rounded to bf16 once
+  if (kAct == kMish || kAct == kSwish) {
+    // in fp32, each half rounded to bf16 once
     using Tr = Traits<__nv_bfloat16>;
-    lo = Tr::round(mish(lo));
-    hi = Tr::round(mish(hi));
+    lo = Tr::round(kAct == kMish ? mish(lo) : swish(lo));
+    hi = Tr::round(kAct == kMish ? mish(hi) : swish(hi));
     t = (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
   }
   return t;
@@ -542,6 +553,8 @@ void launch(const Params& p, int act, unsigned work, unsigned smem, int sms,
     launch_act<T, kFolded, kLrelu, kNhwc>(p, work, smem, sms, s);
   else if (act == kMish)
     launch_act<T, kFolded, kMish, kNhwc>(p, work, smem, sms, s);
+  else if (act == kSwish)
+    launch_act<T, kFolded, kSwish, kNhwc>(p, work, smem, sms, s);
   else
     launch_act<T, kFolded, kNone, kNhwc>(p, work, smem, sms, s);
 }
@@ -566,16 +579,18 @@ void launch_form(const Params& p, int folded, int act, int nhwc,
 // the device, y allocated by the caller in x's layout; mean, var, scale,
 // bias: fp32 (c,) on the device (mean and var unread when folded). eps
 // and slope: 1e-6 and 0.1 in x's dtype. act: 0 (NONE), 2 (RELU), 5
-// (LRELU) or 10 (MISH). Launches on `stream` (once for each run of whole
-// images of fewer than 2^31 values) and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments it does not take.
+// (LRELU), 10 (MISH) or 11 (SWISH). Launches on `stream` (once for each
+// run of whole images of fewer than 2^31 values) and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
+// take.
 extern "C" int bcnn_bn_act(const void* x, void* y, const void* mean,
                            const void* var, const void* scale,
                            const void* bias, long long n, int c,
                            long long hw, int bf16, int folded, int act,
                            int nhwc, float eps, float slope, void* stream) {
   if (n < 0 || c < 1 || hw < 1 || (long long)c * hw > INT_MAX ||
-      (act != kNone && act != kRelu && act != kLrelu && act != kMish))
+      (act != kNone && act != kRelu && act != kLrelu && act != kMish &&
+       act != kSwish))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   int dev = 0, sms = 0;

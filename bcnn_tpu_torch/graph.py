@@ -735,6 +735,7 @@ class Net:
         src_id: str,
         dst_id: str,
         scale_x_y: float = 1.0,
+        new_coords: int = 0,
     ):
         """bcnn_add_yolo_layer (bcnn_yolo.c:36-135).
 
@@ -742,7 +743,11 @@ class Net:
         label tensor is shaped (n, 1, 1, boxes*(4+1)) with the 50-box
         layout (bcnn_yolo.c:68-73). scale_x_y (the port's own, Darknet's
         [yolo] key): a box centre is (cell + sigmoid(t) * s - (s - 1) /
-        2) / grid; the param holds it where it is not 1.
+        2) / grid; the param holds it where it is not 1. new_coords (the
+        port's own, Darknet's [yolo] key; YOLOv7): the head takes the
+        logistic of every channel and a box's width is 4 * sigmoid(tw)^2
+        * anchor_w / net_w (no exp), likewise its height; the param holds
+        it where it is 1.
         """
         node = Node(type=LayerType.YOLOV3)
         self._resolve_src(node, src_id, "Yolo layer")
@@ -771,6 +776,8 @@ class Net:
         )
         if scale_x_y != 1.0:
             node.param["scale_x_y"] = float(scale_x_y)
+        if new_coords:
+            node.param["new_coords"] = 1
         self.add_node(node)
 
     def add_cost_layer(

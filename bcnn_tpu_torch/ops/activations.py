@@ -13,8 +13,9 @@ tie, `jnp.abs` takes the + side, `jnp.clip` is a max then a min), not
 PyTorch's: RELU 0.5 at 0 (PyTorch 0), ABS 1 at 0 (PyTorch 0), CLAMP 0.5
 at 0 and at 1 (PyTorch 1).
 
-MISH, which bcnn_tpu lacks, is `F.mish`, x * tanh(softplus(x)) with
-PyTorch's autograd; on a bf16 x it is taken in fp32 and rounded once.
+MISH and SWISH, which bcnn_tpu lacks, are `F.mish`, x *
+tanh(softplus(x)), and `F.silu`, x * logistic(x), with PyTorch's
+autograd; on a bf16 x each is taken in fp32 and rounded once.
 
 A constant meets x in x's dtype (`weak`): JAX rounds the 0.1 of LRELU to
 bf16 before it multiplies a bf16 x, where PyTorch would multiply by the
@@ -158,6 +159,8 @@ def apply_activation(x: torch.Tensor, act: Activation,
         return sigmoid(x)
     if act == Activation.MISH:
         return F.mish(x)
+    if act == Activation.SWISH:
+        return F.silu(x)
     if act == Activation.PRELU:
         if slopes is None:
             raise ValueError("PReLU needs slopes")

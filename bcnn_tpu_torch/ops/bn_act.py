@@ -46,13 +46,13 @@ from .activations import LRELU_SLOPE, apply_activation, weak
 from .norm import EPS, batch_norm
 
 FUSED_ACT = (Activation.NONE, Activation.RELU, Activation.LRELU,
-             Activation.MISH)
+             Activation.MISH, Activation.SWISH)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
 def computes(x: torch.Tensor, act: Activation) -> bool:
     """Whether K6 computes BN and then `act` on x: x bf16 or fp32, the
-    activation NONE, RELU, LRELU or MISH."""
+    activation NONE, RELU, LRELU, MISH or SWISH."""
     return x.dtype in DTYPES and act in FUSED_ACT
 
 
@@ -98,7 +98,7 @@ def bn_act(
 ) -> torch.Tensor:
     """K6: `bn_act_ref` as one CUDA kernel for a CUDA x (bf16 or fp32,
     contiguous NCHW or channels-last; the vectors fp32 (C,); act NONE,
-    RELU, LRELU or MISH), y in x's layout, through the op
+    RELU, LRELU, MISH or SWISH), y in x's layout, through the op
     `bcnn_tpu_torch::bn_act` on either device. run_mean and run_var are
     unread when folded."""
     library.check_devices("bn_act", x, scales, biases, run_mean, run_var)
@@ -122,9 +122,9 @@ def bn_act_cuda(x, scales, biases, run_mean, run_var, folded, act):
             str(t.device) for t in (x, *vecs)))
     act = Activation(act)
     if not computes(x, act):
-        raise TypeError(f"bn_act: computes BN and NONE, RELU, LRELU or "
-                        f"MISH on bfloat16 or float32, not {act.name} on "
-                        f"{x.dtype}")
+        raise TypeError(f"bn_act: computes BN and NONE, RELU, LRELU, "
+                        f"MISH or SWISH on bfloat16 or float32, not "
+                        f"{act.name} on {x.dtype}")
     nhwc = channels_last_form(x)
     n, c, h, w = x.shape
     if any(v.dtype != torch.float32 or v.shape != (c,)

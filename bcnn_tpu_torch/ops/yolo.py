@@ -14,11 +14,14 @@ The greedy NMS keeps the reference's semantics (do_nms_obj,
 bcnn_yolo.c:511-545): candidates in objectness order, each alive one
 suppresses every later one whose IoU with it exceeds 0.45.
 
-A head whose param holds Darknet's `scale_x_y` s (YOLOv4; the port's
-own) centres a box at x = (col + sigmoid(tx) * s - (s - 1) / 2) / W,
-and likewise y. Only the top-k-first decode (`device_detect_topk`)
-takes it; the decode-everything paths (K1 and its plain version), the
-host decode and the training deltas raise on it (`unscaled`).
+A head whose param holds Darknet's `scale_x_y` s (YOLOv4, YOLOv7; the
+port's own) centres a box at x = (col + sigmoid(tx) * s - (s - 1) / 2)
+/ W, and likewise y. One whose param holds Darknet's `new_coords`
+(YOLOv7) takes the logistic of every channel, tw and th too, and sizes
+a box without exp: w = 4 * sigmoid(tw)^2 * anchor_w / net_w, likewise
+h. The top-k-first decode (`device_detect_topk`) and the host decode
+(`decode_layer`) take both; the decode-everything paths (K1 and its
+plain version) and the training deltas raise on either (`unscaled`).
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ NOOBJ_IOU_THRESH = 0.5  # bcnn_yolo.c:310
 
 def unscaled(param: Dict, what: str) -> None:
     """Raises ValueError where a head's box centres are scaled
-    (scale_x_y != 1): `what` has no form that scales them."""
+    (scale_x_y != 1) or its boxes take new_coords: `what` has no form
+    that decodes them."""
     s = param.get("scale_x_y", 1.0)
     if s != 1.0:
         raise ValueError(f"{what} has no scale_x_y; this head's is {s} "
                          "(the top-k-first detection decodes it)")
+    if param.get("new_coords"):
+        raise ValueError(f"{what} has no new_coords (the top-k-first "
+                         "detection decodes it)")
 
 
 def yolo_head(x: torch.Tensor, num: int, classes: int) -> torch.Tensor:
@@ -273,7 +280,10 @@ def yolo_forward(
     reported cost sum(delta^2) (bcnn_yolo.c:404-407); with_stats,
     (surrogate, cost, stats) with the cost among the stats. rows: a
     height band's place in its head (`yolo_train_deltas`)."""
-    y = yolo_head(x, param["num"], param["classes"])
+    if param.get("new_coords"):  # the logistic of every channel
+        y = sigmoid(x)
+    else:
+        y = yolo_head(x, param["num"], param["classes"])
     if mode != Mode.TRAIN or label is None:
         return y, None
     with torch.no_grad():
@@ -341,10 +351,12 @@ def decode_layer(
     """One YOLO layer's activated output for one image, y (H, W,
     A*(5+K)) (the NCHW head transposed), to the detections whose
     objectness exceeds thresh: the fill loop of bcnn_yolo_get_detections
-    (bcnn_yolo.c:604-639), in (location, anchor) order."""
-    unscaled(param, "the host decode")
+    (bcnn_yolo.c:604-639), in (location, anchor) order; a head's
+    scale_x_y and new_coords as Darknet's get_yolo_box takes them."""
     h, w, _ = y.shape
     num, classes = param["num"], param["classes"]
+    s = param.get("scale_x_y", 1.0)
+    new_coords = param.get("new_coords")
     yr = y.reshape(h, w, num, 5 + classes)
     dets = []
     for i in range(h * w):
@@ -354,14 +366,16 @@ def decode_layer(
             if obj <= thresh:
                 continue
             m = param["mask"][a]
-            bx = (col + float(yr[row, col, a, 0])) / w
-            by = (row + float(yr[row, col, a, 1])) / h
+            bx = (col + float(yr[row, col, a, 0]) * s - (s - 1) / 2) / w
+            by = (row + float(yr[row, col, a, 1]) * s - (s - 1) / 2) / h
+            tw, th = yr[row, col, a, 2], yr[row, col, a, 3]
             # expf overflows to inf without a warning, as in C
             with np.errstate(over="ignore"):
-                bw = (float(np.exp(yr[row, col, a, 2]))
-                      * param["anchors"][2 * m] / net_w)
-                bh = (float(np.exp(yr[row, col, a, 3]))
-                      * param["anchors"][2 * m + 1] / net_h)
+                sw, sh = ((4 * float(tw) ** 2, 4 * float(th) ** 2)
+                          if new_coords
+                          else (float(np.exp(tw)), float(np.exp(th))))
+            bw = sw * param["anchors"][2 * m] / net_w
+            bh = sh * param["anchors"][2 * m + 1] / net_h
             probs = obj * np.asarray(yr[row, col, a, 5:])
             probs = np.where(probs > thresh, probs, 0.0)
             dets.append(dict(x=bx, y=by, w=bw, h=bh, objectness=obj,
@@ -507,11 +521,16 @@ def device_detect_topk(
     space, as the decode-everything path's `obj > thresh` does, for every
     fp32 rounding at the boundary and for ±inf logits; NaN logits compare
     False and are dropped. Rows are selected with a gather (the `take`
-    formulation of `bcnn_tpu.ops.yolo.device_detect_topk`)."""
+    formulation of `bcnn_tpu.ops.yolo.device_detect_topk`). The heads
+    take new_coords all or none (a ValueError otherwise)."""
     with span("bcnn.heads"):
         n = heads[0].shape[0]
         classes = head_params[0]["classes"]
         e = 5 + classes
+        new_coords = bool(head_params[0].get("new_coords"))
+        if any(bool(p.get("new_coords")) != new_coords
+               for p in head_params):
+            raise ValueError("the heads mix new_coords and exp boxes")
 
         with span("bcnn.select"):
             flat_heads, offsets, sizes, meta = [], [], [], []
@@ -551,8 +570,14 @@ def device_detect_topk(
                 sx, sy = sx * ssel + osel, sy * ssel + osel
             bx = (csel + sx) / gwsel
             by = (rsel + sy) / ghsel
-            bw = in_f32(torch.exp, sel[..., 2]) * awsel / net_w
-            bh = in_f32(torch.exp, sel[..., 3]) * ahsel / net_h
+            if new_coords:  # 4 * sigmoid(t)^2, no exp
+                sw, sh = sigmoid(sel[..., 2]), sigmoid(sel[..., 3])
+                sw, sh = 4 * sw * sw, 4 * sh * sh
+            else:
+                sw = in_f32(torch.exp, sel[..., 2])
+                sh = in_f32(torch.exp, sel[..., 3])
+            bw = sw * awsel / net_w
+            bh = sh * ahsel / net_h
             bsel = torch.stack([bx, by, bw, bh], dim=-1)
             obj = sigmoid(sel[..., 4]) * valid
             psel = obj[..., None] * sigmoid(sel[..., 5 : 5 + classes])

@@ -3,7 +3,8 @@
 They mirror the public enums of the bcnn C header (bcnn.h:90-236), so
 config files, serialized models and user code keep one meaning in both
 packages. `tests/test_torch_graph.py` holds every member to its
-`bcnn_tpu` counterpart; `Activation.MISH` alone has none.
+`bcnn_tpu` counterpart; `Activation.MISH` and `Activation.SWISH` alone
+have none.
 """
 
 from __future__ import annotations
@@ -78,8 +79,9 @@ class LayerType(enum.IntEnum):
 class Activation(enum.IntEnum):
     """bcnn_activation (bcnn.h:164-175). LRELU has slope 0.1, the value
     the C implementation uses, not the header's documented 0.01. MISH
-    is the port's own (bcnn has none): Darknet's x * tanh(softplus(x)),
-    which YOLOv4's backbone uses."""
+    and SWISH are the port's own (bcnn has neither): Darknet's x *
+    tanh(softplus(x)), which YOLOv4's backbone uses, and Darknet's
+    x * logistic(x) (PyTorch's SiLU), which YOLOv7's convs use."""
 
     NONE = 0
     TANH = 1
@@ -92,6 +94,7 @@ class Activation(enum.IntEnum):
     PRELU = 8
     LOGISTIC = 9
     MISH = 10
+    SWISH = 11
 
 
 class Loss(enum.IntEnum):

@@ -11,8 +11,8 @@ dequant/BN/activation/requant epilogue, bit for bit, on channels-last
 int8 x and the (O, k, k, C) weight, each shape's tile plan and split of
 K printed) at the shapes their paths give them, each warm and cold, and K3 and K4 on ragged shapes (K3
 with each fused activation), and K6 (a conv's BN and activation, bit for
-bit in bf16 and fp32, at full YOLOv3's BN shapes at batch 64 and at the
-edges, beside a copy of the same bytes; phase 3f); then the whole shear chain of rotation
+bit in bf16 and fp32, at full YOLOv3's, YOLOv4's and YOLOv7's BN shapes
+at batch 64 and at the edges, beside a copy of the same bytes; phase 3f); then the whole shear chain of rotation
 augmentation (three K2 launches, no copy) against its CPU run. Then it drives the main
 paths (full width and depth, random weights from a seed), each serving
 path checked and its launches counted, not timed (the benchmark,
@@ -155,7 +155,7 @@ from bcnn_tpu_torch.compile import (execute, get_loss, make_train_scan,
 from bcnn_tpu_torch.learner import apply_updates, init_opt_state
 from bcnn_tpu_torch.data.device_augment import _rotate_3shear, _shear_bounds
 from bcnn_tpu_torch.models import (mobilenet_v1, resnet18, yolov3,
-                                   yolov3_tiny, yolov4)
+                                   yolov3_tiny, yolov4, yolov7)
 from bcnn_tpu_torch.ops.conv_int8 import (channels_last_weight,
                                           conv_int8_fused,
                                           conv_int8_fused_ref,
@@ -3205,10 +3205,12 @@ def check_k5():
 # -- phase 3f: K6, a conv's BN and activation outside TRAIN ----------------
 
 # K6 against its plain version, bit for bit (NaNs and signed zeros too),
-# at full YOLOv3 416's 72 BN convs (13 shapes) and YOLOv4 608's 107 (13
-# shapes; x spread 12-fold, so that Mish meets |y| past 20) at batch 64,
-# each (shape, activation) of a net timed in the bf16 serving cells' form
-# (BN unfolded; LRELU, or MISH in YOLOv4's backbone); then edges: planes
+# at full YOLOv3 416's 72 BN convs (13 shapes), YOLOv4 608's 107 (13
+# shapes; x spread 12-fold, so that Mish meets |y| past 20) and YOLOv7
+# 640's 89 (16 shapes; x spread 40-fold, so that swish's exp(-y) under-
+# and overflows) at batch 64, each (shape, activation) of a net timed in
+# the bf16 serving cells' form (BN unfolded; LRELU, MISH in YOLOv4's
+# backbone, SWISH in YOLOv7); then edges: planes
 # of 1 and of 3 values, C = 1, odd planes, a misaligned x, special
 # values, and a batch past 2^31 values, which K6 runs as two launches
 K6_BATCH = 64
@@ -3217,11 +3219,14 @@ K6_NETS = (("full YOLOv3 416",
             lambda: yolov3(K6_BATCH, SIZE, SIZE, CLASSES),
             (Activation.LRELU, Activation.RELU, Activation.NONE), 1.0),
            ("YOLOv4 608", lambda: yolov4(K6_BATCH, 608, 608, CLASSES),
-            (Activation.MISH, Activation.LRELU), 12.0))
+            (Activation.MISH, Activation.LRELU), 12.0),
+           ("YOLOv7 640", lambda: yolov7(K6_BATCH, 640, 640, CLASSES),
+            (Activation.SWISH,), 40.0))
 # the library's form of each timed activation, after F.batch_norm
 K6_LIBRARY = {Activation.LRELU: ("F.leaky_relu",
                                  lambda y: F.leaky_relu(y, 0.1)),
-              Activation.MISH: ("F.mish", F.mish)}
+              Activation.MISH: ("F.mish", F.mish),
+              Activation.SWISH: ("F.silu", F.silu)}
 K6_EDGES = [(3, 1, 1, 1), (2, 3, 13, 13), (2, 5, 3, 1), (1, 1, 7, 9),
             (2, 255, 26, 26), (3, 1024, 13, 13), (2, 7, 2, 2)]
 # 2.16e9 bf16 values: two launches, the second from an image 14 bytes
@@ -3379,11 +3384,12 @@ def k6_total(what, rows):
 
 def check_k6():
     """Phase 3f: K6 against bn_act_ref on the card, bit for bit, at full
-    YOLOv3 416's and YOLOv4 608's BN conv shapes at batch 64 (k6_rows)
-    and at the edges, in bf16 and fp32, folded and unfolded, with every
-    activation K6 fuses. Returns the timed rows (YOLOv3's LRELU form,
-    YOLOv4's MISH form); the serving phases count the launches on the
-    paths."""
+    YOLOv3 416's, YOLOv4 608's and YOLOv7 640's BN conv shapes at batch
+    64 (k6_rows; each net's forms timed and printed, YOLOv7's SWISH form
+    too) and at the edges, in bf16 and fp32, folded and unfolded, with
+    every activation K6 fuses. Returns the timed rows (YOLOv3's LRELU
+    form, YOLOv4's MISH form); the serving phases count the launches on
+    the paths."""
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
     rows = {label: k6_rows(label, build(), checked, spread, gen, flush)
@@ -3413,13 +3419,13 @@ def check_k6():
                         k6_equal(xs, vecs, folded, act, what)
     vecs = k6_vectors(K6_BIG[1], gen)
     x = torch.randn(K6_BIG, device="cuda", dtype=torch.bfloat16)
-    for act in (Activation.LRELU, Activation.MISH):
+    for act in (Activation.LRELU, Activation.MISH, Activation.SWISH):
         k6_equal(x, vecs, False, act, "past 2^31 values")
     del x
     vecs = k6_vectors(K6_BIG_CL[1], gen)
     x = torch.empty(K6_BIG_CL, device="cuda", dtype=torch.bfloat16,
                     memory_format=torch.channels_last).normal_()
-    for act in (Activation.LRELU, Activation.MISH):
+    for act in (Activation.LRELU, Activation.MISH, Activation.SWISH):
         k6_equal(x, vecs, False, act, "channels-last, past 2^31 values")
     del x
     print(f"K6 edges {K6_EDGES} (NaN, -0, inf, subnormal; aligned and "

@@ -89,7 +89,8 @@ CL = torch.channels_last
 
 @pytest.mark.parametrize("shape", [(2, 16, 13, 13), (1, 3, 26, 26),
                                    (2, 1024, 13, 13)])
-@pytest.mark.parametrize("act", ACTS + [Activation.MISH])
+@pytest.mark.parametrize("act", ACTS + [Activation.MISH,
+                                        Activation.SWISH])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cpu_impl_keeps_a_channels_last_x_channels_last(dtype, act, shape):
     """A channels-last x: the plain ops' bits, the output channels-last

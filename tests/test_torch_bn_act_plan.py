@@ -198,16 +198,22 @@ def kernel_values(xf, ch, vecs, dtype, folded, act, pairs):
     return t.to(F32)
 
 
+# the activations the emulation takes after the walk, on the whole output
+LAST = {Activation.MISH: F.mish, Activation.SWISH: F.silu}
+
+
 def emulate(x, vecs, folded, act, x_off=0, limit=INT_MAX, resident=5):
     """K6's output, launch by launch, from the plan, the walk and the
-    arithmetic; asserts every value is written once. MISH is taken
-    last, over the whole output at once: torch's CPU mish rounds its
-    vectorised body and its scalar tail apart, and the kernel's is the
-    card's. So a MISH case here checks the walk and the BN before it,
-    not the kernel's Mish arithmetic (`x * tanhf(log1pf(expf(x)))` in
+    arithmetic; asserts every value is written once. MISH and SWISH
+    are taken last, over the whole output at once: torch's CPU mish and
+    silu round their vectorised body and their scalar tail apart, and
+    the kernel's are the card's. So a MISH or SWISH case here checks
+    the walk and the BN before it, not the kernel's Mish or Swish
+    arithmetic (`x * tanhf(log1pf(expf(x)))`, `x / (1 + expf(-x))` in
     fp32): that is held bit for bit only on the card, by
-    tests/test_torch_cuda.py::test_k6_mish_matches_plain_ops_at_every_yolov4_bn_shape
-    and chip_smoke.py's phase 3f at batch 64."""
+    tests/test_torch_cuda.py::test_k6_mish_matches_plain_ops_at_every_yolov4_bn_shape,
+    ::test_k6_swish_matches_silu_at_every_yolov7_bn_shape and
+    chip_smoke.py's phase 3f at batch 64."""
     n, c, h, w = x.shape
     hw, esize = h * w, x.element_size()
     bf16 = x.dtype == torch.bfloat16
@@ -224,11 +230,10 @@ def emulate(x, vecs, folded, act, x_off=0, limit=INT_MAX, resident=5):
             gi = torch.from_numpy(g[part])
             out[gi] = kernel_values(
                 flat[gi], torch.from_numpy(ch[part]), vecs, x.dtype,
-                folded, Activation.NONE if act == Activation.MISH else act,
-                pairs)
+                folded, Activation.NONE if act in LAST else act, pairs)
     assert np.all(written == 1)
-    if act == Activation.MISH:  # in fp32 on the rounded BN, rounded once
-        out = F.mish(out)
+    if act in LAST:  # in fp32 on the rounded BN, rounded once
+        out = LAST[act](out)
     return out.to(x.dtype).view(x.shape)
 
 
@@ -265,7 +270,8 @@ CASES = [
 
 
 @pytest.mark.parametrize("act", [Activation.NONE, Activation.RELU,
-                                 Activation.LRELU, Activation.MISH])
+                                 Activation.LRELU, Activation.MISH,
+                                 Activation.SWISH])
 @pytest.mark.parametrize("folded", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, F32])
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -348,8 +354,8 @@ def walk_nhwc(cnt, nvec, blocks, c, vec):
 
 def emulate_nhwc(x, vecs, folded, act, x_off=0, limit=INT_MAX, resident=5):
     """K6's channels-last form on x (NCHW shape, any strides: its values
-    are taken in NHWC order), launch by launch; MISH last, as in
-    `emulate`. Returns y with x's shape, channels-last."""
+    are taken in NHWC order), launch by launch; MISH and SWISH last, as
+    in `emulate`. Returns y with x's shape, channels-last."""
     n, c, h, w = x.shape
     hw, esize = h * w, x.element_size()
     bf16 = x.dtype == torch.bfloat16
@@ -365,11 +371,10 @@ def emulate_nhwc(x, vecs, folded, act, x_off=0, limit=INT_MAX, resident=5):
             gi = torch.from_numpy(g[part])
             out[gi] = kernel_values(
                 flat[gi], torch.from_numpy(ch[part]), vecs, x.dtype,
-                folded, Activation.NONE if act == Activation.MISH else act,
-                pairs)
+                folded, Activation.NONE if act in LAST else act, pairs)
     assert np.all(written == 1)
-    if act == Activation.MISH:
-        out = F.mish(out)
+    if act in LAST:
+        out = LAST[act](out)
     return out.to(x.dtype).view(n, h, w, c).permute(0, 3, 1, 2)
 
 
@@ -388,7 +393,8 @@ CASES_NHWC = [
 
 
 @pytest.mark.parametrize("act", [Activation.NONE, Activation.RELU,
-                                 Activation.LRELU, Activation.MISH])
+                                 Activation.LRELU, Activation.MISH,
+                                 Activation.SWISH])
 @pytest.mark.parametrize("folded", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, F32])
 @pytest.mark.parametrize("case", range(len(CASES_NHWC)))

@@ -143,6 +143,7 @@ def _fields(lp):
 # the port's own fields (Darknet cfgs beyond bcnn): their values after each
 # key of LAYER_KEYS
 PORT_FIELDS = {"scale_x_y": lambda fmt, k, v: 1.0,
+               "new_coords": lambda fmt, k, v: 0,
                "darknet_padding": lambda fmt, k, v: (
                    int(v) if fmt == 1 and k == "padding" else None)}
 

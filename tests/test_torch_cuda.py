@@ -1446,7 +1446,7 @@ def test_pipeline_recompute_is_bit_equal_on_the_card(cuda):
 from bcnn_tpu_torch.ops import bn_act as k6  # noqa: E402
 
 K6_ACTS = [Activation.NONE, Activation.RELU, Activation.LRELU,
-           Activation.MISH]
+           Activation.MISH, Activation.SWISH]
 # planes of 169 and 676 values with C of 3, 255 and 1,024; planes of 1
 # and 3 values, C = 1, planes under a vector
 K6_EDGES = [(2, 3, 13, 13), (1, 255, 13, 13), (1, 1024, 13, 13),
@@ -1861,6 +1861,116 @@ def test_fp32_keeps_nchw_on_the_card(cuda):
     assert library.launches("bn_act") == 6
     assert library.launches("bn_act", "channels_last") == 0
     assert tcompile.layout_counts()["executors"] == 0
+
+
+# -- YOLOv7: K6's SWISH form, the channels-last executor, int8 ---------- #
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_swish_matches_silu_at_every_yolov7_bn_shape(cuda, dtype,
+                                                       folded):
+    """Each shape of YOLOv7 640's 89 BN conv outputs at batch 64, NCHW and
+    channels-last, x spread so that BN gives |y| past silu's tails (exp
+    of -y under- and overflowing in fp32), and NaN, +-inf, +-88, +-89,
+    +-100 and -0 among the values: K6's SWISH form bit-equal to
+    F.silu on the plain BN, each launch counted under SWISH (and under
+    "channels_last" in that layout)."""
+    import torch.nn.functional as F
+
+    from bcnn_tpu_torch.models import yolov7
+
+    net = yolov7(64, 640, 640, 80)
+    shapes = {tuple(net.tensors[n.dst[0]].shape) for n in net.nodes
+              if n.type.name == "CONV2D" and n.param.get("batch_norm")}
+    assert len(shapes) == 16
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                            88.0, -88.0, 89.0, -89.0, 100.0, -100.0, -0.0],
+                           device=cuda)
+    for shape in sorted(shapes):
+        x = torch.empty(shape, device=cuda).normal_(0, 40, generator=gen)
+        x.view(-1)[:10] = special
+        xd = x.to(dtype)
+        del x
+        vecs = _k6_vectors(shape[1], torch.Generator().manual_seed(
+            shape[1]), cuda)
+        for xs in (xd, xd.contiguous(memory_format=CL)):
+            cl = int(not xs.is_contiguous())
+            kinds = ("SWISH", "channels_last")
+            before = [library.launches("bn_act", k) for k in kinds]
+            got = k6.bn_act(xs, *vecs, folded, Activation.SWISH)
+            want = F.silu(ops.batch_norm(xs, *vecs, folded=folded))
+            torch.cuda.synchronize()
+            assert [library.launches("bn_act", k) for k in kinds] == [
+                before[0] + 1, before[1] + cl]
+            assert got.stride() == xs.stride()
+            assert torch.equal(_k6_bits(got), _k6_bits(want)), (
+                shape, dtype, folded, cl)
+            del got, want, xs
+        del xd
+
+
+def _yolov7_sessions(cuda, size=96):
+    """YOLOv7 at `size`, batch 2, bf16, with seeded weights: (net, CPU
+    session, card session)."""
+    from bcnn_tpu_torch.models import yolov7
+
+    net = yolov7(2, size, size, 80)
+    net.compute_dtype = net.act_dtype = torch.bfloat16
+    p, s = bridge.params_from_numpy(net, *bridge.he_numpy_weights(net, 0))
+    cpu = Session(net, 0, device="cpu")
+    cpu.params, cpu.state = p, s
+    cpu.compile_net()
+    sess = Session(net, 0, device=cuda)
+    sess.params = {k: v.to(cuda) for k, v in p.items()}
+    sess.state = {k: v.to(cuda) for k, v in s.items()}
+    sess.compile_net()
+    return net, cpu, sess
+
+
+def test_yolov7_bf16_detect_runs_k6_swish_channels_last(cuda, monkeypatch):
+    """YOLOv7 (96 px, batch 2): a bf16 detect runs one executor
+    channels-last (`compile.layout_counts`: the input converted once,
+    each head back once) and launches K6 89 times, every one SWISH and
+    channels-last, with the detections of the plain ops on the card bit
+    for bit."""
+    _, _, sess = _yolov7_sessions(cuda)
+    x = np.random.RandomState(7).rand(2, 3, 96, 96).astype(np.float32)
+    library.reset_launches()
+    tcompile.reset_layout_counts()
+    got = sess.detect_on_batch(x, 0.3, 30)
+    torch.cuda.synchronize()
+    counts = tcompile.layout_counts()
+    assert (counts["executors"], counts["to_channels_last"],
+            counts["to_nchw"]) == (1, 1, 3)
+    assert library.launches("bn_act") == 89
+    assert library.launches("bn_act", "SWISH") == 89
+    assert library.launches("bn_act", "channels_last") == 89
+    with monkeypatch.context() as m:
+        m.setattr(k6, "takes", lambda *a: False)
+        plain = sess.detect_on_batch(x, 0.3, 30)
+    assert library.launches("bn_act") == 89
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+def test_yolov7_int8_on_the_card_raises_naming_swish(cuda):
+    """K4 does not fuse Swish: int8 serving of YOLOv7 on the card raises
+    before it detects."""
+    net, cpu, sess = _yolov7_sessions(cuda)
+    quant = ptq_synthetic(net, cpu)
+    net.quant = dict(quant, weights={
+        k: {kk: vv.to(cuda) for kk, vv in e.items()}
+        for k, e in quant["weights"].items()})
+    sess.state = {k: v.to(cuda) for k, v in cpu.state.items()}
+    x = np.random.RandomState(2).rand(2, 3, 96, 96).astype(np.float32)
+    try:
+        with pytest.raises(ValueError, match="SWISH"):
+            sess.detect_on_batch(x, 0.3, 30)
+    finally:
+        net.quant = None
+
 
 
 # -- the staged upload (upload.py): a host batch through the pinned ring --

@@ -31,8 +31,9 @@ ENUMS = [
 ]
 
 
-# the port's members that bcnn_tpu lacks: Mish, for Darknet cfgs (YOLOv4)
-PORT_ONLY = {"Activation": [("MISH", 10)]}
+# the port's members that bcnn_tpu lacks: Mish and Swish, for Darknet cfgs
+# (YOLOv4, YOLOv7)
+PORT_ONLY = {"Activation": [("MISH", 10), ("SWISH", 11)]}
 
 
 @pytest.mark.parametrize("name", ENUMS)

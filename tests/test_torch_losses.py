@@ -100,7 +100,8 @@ def test_euclidean_surrogate_and_huber_match_bcnn_tpu():
 # ------------------------------------------------------ a small net #
 
 BATCH, SIZE, CLASSES = 4, 10, 5
-# bcnn_tpu's members (MISH is the port's own: tests/test_torch_yolov4.py)
+# bcnn_tpu's members (MISH and SWISH are the port's own:
+# tests/test_torch_yolov4.py, tests/test_torch_yolov7.py)
 ACTS = [a for a in Activation if a not in (Activation.NONE, Activation.PRELU)
         and a.name in JActivation.__members__]
 

@@ -78,7 +78,8 @@ def test_batch_norm_predict(folded):
 
 
 @pytest.mark.parametrize(
-    # bcnn_tpu's members (MISH is the port's own: tests/test_torch_yolov4.py)
+    # bcnn_tpu's members (MISH and SWISH are the port's own:
+    # tests/test_torch_yolov4.py, tests/test_torch_yolov7.py)
     "act", [a for a in Activation
             if a != Activation.PRELU and a.name in JActivation.__members__]
 )

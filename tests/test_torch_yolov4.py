@@ -242,16 +242,23 @@ def test_scale_x_y_in_the_decode_equals_the_hand_formula():
 
 
 def test_unscaled_paths_raise_on_scale_x_y():
-    """K1, its plain version, the decode-everything detection, the host
-    decode and the training deltas have no scale_x_y: they raise."""
+    """K1, its plain version, the decode-everything detection and the
+    training deltas have no scale_x_y: they raise. The host decode takes
+    it (since YOLOv7's heads): x = (col + y * s - (s - 1) / 2) / W."""
     p = _head_param(1.1)
     raw = torch.randn(1, 21, 4, 4)
     with pytest.raises(ValueError, match="scale_x_y"):
         decode_fused(raw, p, 64, 64)
     with pytest.raises(ValueError, match="scale_x_y"):
         decode_grid_ref(raw, p, 64, 64)
-    with pytest.raises(ValueError, match="scale_x_y"):
-        yolo.decode_layer(np.zeros((4, 4, 21), np.float32), p, 64, 64, 0.5)
+    y = np.full((4, 4, 21), 0.25, np.float32)
+    y[..., 4::7] = 0.9  # every objectness above the threshold
+    dets = yolo.decode_layer(y, p, 64, 64, 0.5)
+    assert len(dets) == 48
+    for i, d in enumerate(dets):
+        row, col = divmod(i // 3, 4)
+        assert d["x"] == pytest.approx((col + 0.25 * 1.1 - 0.05) / 4)
+        assert d["y"] == pytest.approx((row + 0.25 * 1.1 - 0.05) / 4)
     label = torch.zeros(1, 250)
     label[0, :5] = torch.tensor([0.5, 0.5, 0.2, 0.2, 1.0])
     with pytest.raises(ValueError, match="scale_x_y"):
@@ -292,7 +299,7 @@ def test_mish_in_the_parser_and_in_k6():
     for fmt in (0, 1):
         config.layer_param_set(lp, 3, "activation", "mish", fmt)
         assert lp.a == Activation.MISH
-        config.layer_param_set(lp, 3, "activation", "swish", fmt)
+        config.layer_param_set(lp, 3, "activation", "logistic", fmt)
         assert lp.a == Activation.RELU  # any other unknown name, as bcnn
         config.layer_param_set(lp, 3, "scale_x_y", "1.05", fmt)
         assert lp.scale_x_y == 1.05
